@@ -6,8 +6,9 @@ inputs, stdin default, exit codes (errors print Debug-style to stderr and
 exit 1; ``-l`` prints licence info and exits 0; broken stdout pipe exits 0
 silently).  Adds one engine-specific extension: ``--backend`` to pick the
 compute path: ``cuda`` (the default: the counter kernel on the card) or
-``torch`` (its plain PyTorch version on the CPU).  The port runs the square
-sweep of one alignment; flags whose paths are not ported yet exit 1 with a
+``torch`` (its plain PyTorch version on the CPU).  The port runs one
+alignment (square), two (rectangle) and a stream against one loaded
+alignment (``-s``); flags whose paths are not ported yet exit 1 with a
 message naming them.
 """
 
@@ -236,13 +237,8 @@ def _unported(args) -> Optional[str]:
                         ("--coordinator", args.coordinator)):
         if value is not None:
             return f"the multi-host run ({flag})"
-    if args.stream is not None:
-        return "stream mode (-s/--stream)"
-    pos_inputs = [p for p in (args.input_pos_1, args.input_pos_2) if p]
-    flag_inputs = list(args.input or [])
-    if not (pos_inputs and flag_inputs) and len(pos_inputs + flag_inputs) > 1:
-        # (both kinds at once is the reference's own error, from set_up)
-        return "rectangle mode (two input files)"
+    if args.stream is not None and args.shard is not None:
+        return "the sharded stream (-s with --shard)"
     return None
 
 

@@ -1,7 +1,8 @@
-"""Run orchestration of the square in-core sweep on one torch device.
+"""Run orchestration of the in-core sweeps on one torch device.
 
-The port of ``distance_tpu/engine.py``'s main path: one alignment,
-square, in-core.  Its steps:
+The port of ``distance_tpu/engine.py``'s in-core paths: the square sweep
+of one alignment, the rectangle of two, and the stream of records against
+one loaded alignment.  The loaded sweeps:
 
 * parse and encode on the host (``fastaio``);
 * drop invariant columns (``emit._prune_invariant_columns``);
@@ -10,12 +11,16 @@ square, in-core.  Its steps:
   block (``ops/counters.py``), concatenated on the device;
 * copy each strip into pinned host memory, asynchronously, with at most
   ``STRIP_LOOKAHEAD`` strips in flight;
-* finalize and emit the upper triangle in canonical order on the host.
+* finalize and emit the upper triangle (square) or the full file1 x file2
+  block in row-major order (rectangle) on the host.
 
-The counters travel unpacked as int32.  Rectangle, stream, out-of-core,
-multi-device and multi-host runs are not ported yet: a run that needs one
-raises ``DistanceError`` naming it.  Output bytes are identical to the
-JAX engine's for every tile size.
+The stream (``_run_stream``) keeps the loaded side's variant columns on
+the device and sends the records in groups, one kernel launch per group
+(see there).  The counters travel unpacked as int32.  Out-of-core,
+staged-stream, diff-upload, sharded-stream, multi-device and multi-host
+runs are not ported yet: a run that needs one raises ``DistanceError``
+naming it.  Output bytes are identical to the JAX engine's for every tile
+and group size.
 """
 
 from __future__ import annotations
@@ -23,25 +28,30 @@ from __future__ import annotations
 import os as _os
 import sys
 from dataclasses import dataclass
-from typing import BinaryIO, List, Optional, Sequence, Tuple
+from typing import BinaryIO, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from distance_tpu_torch.emit import (
+    PRUNE_MIN_FRACTION,
     _emit_pairs,
     _gather_emit,
     _prune_invariant_columns,
     _ScratchPool,
+    _tn93_value_keys,
+    _value_keys,
 )
 from distance_tpu_torch.fastaio import (
     Alignment,
     DistanceError,
     consensus as consensus_fn,
     load_fastas,
+    stream_fasta,
 )
+from distance_tpu_torch.finalize import finalize_block
 from distance_tpu_torch.ops import counters as kernels
-from distance_tpu_torch.ops.features import get_plan
+from distance_tpu_torch.ops.features import CounterPlan, get_plan
 from distance_tpu_torch.ops.plan import plan_to_torch
 from distance_tpu_torch.utils.timing import phase_timer
 from distance_tpu_torch.writer import TsvWriter
@@ -52,6 +62,12 @@ TILE_I = 0
 TILE_J = 0
 # Strips dispatched ahead of the one currently being fetched/emitted.
 STRIP_LOOKAHEAD = 6
+# Streamed records per device group.  0 = auto (see _stream_group_size);
+# a group never holds more than STREAM_GROUP_CAP records.
+STREAM_GROUP = 0
+STREAM_GROUP_CAP = 8192
+# Stream groups computed ahead of the one being fetched/emitted.
+STREAM_PENDING = 3
 
 BACKENDS = ("cuda", "torch")
 
@@ -228,22 +244,29 @@ def _input_fingerprint(paths: Sequence[str]) -> List[dict]:
 
 
 def run(setup: Setup) -> None:
-    """Run the square sweep of one loaded alignment (lib.rs:490-498)."""
-    if setup.streamed is not None:
-        raise not_ported("stream mode (-s/--stream)")
-    if len(setup.loaded) != 1:
-        raise not_ported("rectangle mode (two input files)")
+    """Dispatch to the loaded or streamed sweep (lib.rs:490-498)."""
+    if setup.streamed is not None and setup.shard is not None:
+        raise not_ported("the sharded stream (-s with --shard)")
     if setup.shard is not None and setup.shard[0] != 0:
         setup.writer.suppress_header()
     _resolve_auto_tiles(setup)
+    grows = None
+    if setup.streamed is not None:
+        grows = _stream_group_size(
+            setup.loaded[0].n, setup.loaded[0].width, setup.measure,
+            device_of(setup.backend),
+        )
     if setup.progress is not None:
         cfg = {
             "measure": setup.measure,
             "tile_i": setup.tile_i,
             "tile_j": setup.tile_j,
             "shard": list(setup.shard) if setup.shard else None,
-            "mode": "load",
+            "mode": "stream" if setup.streamed is not None else "load",
+            # stream groups are the resume units, and their bounds follow
+            # the batch size and the group size
             "batchsize": setup.batchsize,
+            "stream_group": grows,
             "inputs": setup.input_fp,
         }
         mismatch = setup.progress.check_config(cfg)
@@ -252,8 +275,12 @@ def run(setup: Setup) -> None:
         if setup.progress.byte_offset > 0:
             setup.writer.suppress_header()
     try:
-        with phase_timer("load-sweep"):
-            _sweep_square(setup, setup.loaded[0])
+        if setup.streamed is not None:
+            with phase_timer("stream-sweep"):
+                _run_stream(setup, grows)
+        else:
+            with phase_timer("load-sweep"):
+                _sweep_load(setup)
         setup.writer.flush()
         if setup.progress is not None:
             setup.progress.clear()
@@ -304,6 +331,16 @@ def device_of(backend: str) -> torch.device:
             " (--backend torch runs the plain version on the CPU)"
         )
     return torch.device("cuda", 0)
+
+
+def _device_budget(device: torch.device) -> Optional[int]:
+    """Bytes an in-core sweep may hold on a CUDA device: half the card's
+    memory (the rest is headroom for the allocator and the plain
+    version's temporaries).  None on the CPU, which has no device budget:
+    the plain version is never refused for its footprint."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).total_memory // 2
 
 
 class _BlockEngine:
@@ -522,15 +559,16 @@ def _resolve_auto_tiles(setup: Setup) -> None:
     """
     if not setup.loaded:
         return
-    n = setup.loaded[0].n
+    n1 = setup.loaded[0].n
+    n2 = n1 if setup.streamed is not None else setup.loaded[-1].n
     device = device_of(setup.backend)
     deterministic = setup.shard is not None
     if setup.tile_i == 0:
         setup.tile_i = _cap_tile_ram(
-            _auto_tile(n, device), n, setup.measure, deterministic
+            _auto_tile(n1, device), n2, setup.measure, deterministic
         )
     if setup.tile_j == 0:
-        setup.tile_j = _auto_tile(n, device)
+        setup.tile_j = _auto_tile(n2, device)
 
 
 def _choose_tiles(n1: int, n2: int, setup: Setup,
@@ -570,48 +608,64 @@ def _padded_shape(n: int, width: int, ti: int,
     return n_pad, -(-max(width, 1) // 128) * 128
 
 
-def _device_footprint(n: int, width: int, ti: int, max_block: int,
-                      counters_per_pair: int) -> int:
-    """Device bytes of the square sweep: the padded codes plus the int32
-    strips that can be in flight."""
-    n_pad, l_pad = _padded_shape(n, width, ti, max_block)
-    strip = counters_per_pair * ti * n_pad * 4
-    return n_pad * l_pad + (STRIP_LOOKAHEAD + 1) * strip
+def _device_footprint(prepared: Sequence[Tuple[int, int]], width: int,
+                      ti: int, counters_per_pair: int) -> int:
+    """Device bytes of a loaded sweep: the prepared codes, each matrix
+    given as (rows, max_block) and the last one the column side, plus the
+    int32 strips that can be in flight."""
+    shapes = [_padded_shape(n, width, ti, mb) for n, mb in prepared]
+    strip = counters_per_pair * ti * shapes[-1][0] * 4
+    return (sum(r * l for r, l in shapes)
+            + (STRIP_LOOKAHEAD + 1) * strip)
 
 
-def _sweep_square(setup: Setup, aln: Alignment) -> None:
-    n, width = aln.n, aln.width
+def _sweep_load(setup: Setup) -> None:
+    """The in-core sweep of one alignment (its upper triangle) or of two
+    (file1 x file2, row-major)."""
+    square = len(setup.loaded) == 1
+    aln1, aln2 = setup.loaded[0], setup.loaded[-1]
+    n1, n2 = aln1.n, aln2.n
     if setup.shard is None or setup.shard[0] == 0:
         setup.writer.header()
-    if n < 2:
+    if square and n1 < 2:
         return
-    source = aln.matrix
+    sources = [a.matrix for a in setup.loaded]
+    width = aln1.width
     same_offset = 0
-    pruned = _prune_invariant_columns([aln.matrix])
+    pruned = _prune_invariant_columns(sources)
     if pruned is not None:
-        (source,), same_offset, width = pruned
+        sources, same_offset, width = pruned
     device = device_of(setup.backend)
-    ti, tj = _choose_tiles(n, n, setup, device)
-    if device.type == "cuda":
-        footprint = _device_footprint(
-            n, width, ti, max(ti, tj), len(get_plan(setup.measure).counters)
+    ti, tj = _choose_tiles(n1, n2, setup, device)
+    # (rows, max_block) of each prepared matrix.  The rectangle prepares
+    # file1 for strips and file2 for blocks, both at the engine's strip
+    # stride ti (as the JAX engine does, engine.py:3006-3016).
+    prepared = [(n1, max(ti, tj))] if square else [(n1, ti), (n2, tj)]
+    footprint = _device_footprint(
+        prepared, width, ti, len(get_plan(setup.measure).counters)
+    )
+    budget = _device_budget(device)
+    if budget is not None and footprint > budget:
+        raise not_ported(
+            f"the out-of-core {'' if square else 'rectangle '}sweep (needs"
+            f" {footprint / 1e9:.2f} GB of device memory, budget"
+            f" {budget / 1e9:.2f} GB)"
         )
-        budget = torch.cuda.get_device_properties(device).total_memory // 2
-        if footprint > budget:
-            raise not_ported(
-                f"the out-of-core sweep (needs {footprint / 1e9:.2f} GB of"
-                f" device memory, budget {budget / 1e9:.2f} GB)"
-            )
     eng = _BlockEngine(setup.measure, device, ti)
     with phase_timer("prepare-upload"):
-        mat = eng.prepare(source, max(ti, tj))
+        mats = [eng.prepare(src, mb) for src, (_, mb) in zip(sources, prepared)]
+    m1, m2 = mats[0], mats[-1]
     plan = eng.plan
 
-    strip_starts = list(range(0, n - 1, ti))
-    weights = [
-        sum(n - 1 - i for i in range(i0, min(i0 + ti, n)))
-        for i0 in strip_starts
-    ]
+    if square:
+        strip_starts = list(range(0, n1 - 1, ti))
+        weights = [
+            sum(n1 - 1 - i for i in range(i0, min(i0 + ti, n1)))
+            for i0 in strip_starts
+        ]
+    else:
+        strip_starts = list(range(0, n1, ti))
+        weights = [min(ti, n1 - i0) * n2 for i0 in strip_starts]
     a, b = _split_strips(weights, setup.shard)
     done = _resume_skip(setup)
     from distance_tpu_torch.utils.timing import ProgressMeter
@@ -624,19 +678,22 @@ def _sweep_square(setup: Setup, aln: Alignment) -> None:
         for ordinal, i0 in enumerate(strip_starts[a:b]):
             if ordinal < done:
                 continue
-            col_starts = list(range(i0, n, tj))
+            col_starts = list(range(i0 if square else 0, n2, tj))
             yield ordinal, i0, _AsyncFetch(
-                _dispatch_strip(eng, mat, mat, i0, col_starts, ti, tj)
+                _dispatch_strip(eng, m1, m2, i0, col_starts, ti, tj)
             )
 
     def emit(item):
         ordinal, i0, handle = item
-        si = min(ti, n - i0)
-        strip = _fetch_strip(handle, si, n - i0)
-        # Rows i0..i0+si-1 in order: (i, j) for j in i+1..n.
+        si = min(ti, n1 - i0)
+        col0 = i0 if square else 0
+        strip = _fetch_strip(handle, si, n2 - col0)
+        # Square: rows i0..i0+si-1, (i, j) for j in i+1..n.  Rectangle:
+        # the full (si, n2) block, row-major.
         lease: List[np.ndarray] = []
         with phase_timer("gather"):
-            gathered = _gather_emit(strip, si, i0, n, i0, pool, lease)
+            gathered = _gather_emit(strip, si, i0, n2, col0, pool, lease,
+                                    tri=square)
         if gathered is None:
             return
         rows_c, pair_i, col_idx = gathered
@@ -644,7 +701,7 @@ def _sweep_square(setup: Setup, aln: Alignment) -> None:
             name: rows_c[k] for k, name in enumerate(plan.counters)
         }
         _emit_pairs(
-            setup, aln, aln, pair_i, col_idx, counters, same_offset,
+            setup, aln1, aln2, pair_i, col_idx, counters, same_offset,
             emitter=emitter,
             after=lambda ordinal=ordinal: (
                 _progress_mark(setup, ordinal + 1), meter.tick()
@@ -656,4 +713,514 @@ def _sweep_square(setup: Setup, aln: Alignment) -> None:
         _pipeline_strips(strips(), emit)
         emitter.finish()
     finally:
-        eng.release(mat)
+        for mat in mats:
+            eng.release(mat)
+
+
+# ---------------------------------------------------------------------------
+# Streamed sweep
+# ---------------------------------------------------------------------------
+
+class _StreamSplit:
+    """Variant/invariant column split for stream mode.
+
+    Every counter is a columnwise sum of per-code-pair weights
+    W_k(a, b) (ops/features.reference_counter_matrix).  A column where
+    every LOADED row holds one code ``a`` contributes W_k(a, b_r) to
+    each pair of streamed record r — independent of the loaded row — so
+    the device sweep runs over the variant columns only, and each
+    record's invariant contribution is restored as a per-record counter
+    offset computed from one small code-pair histogram (native
+    dt_code_hist, one pass over the record's bytes).  Exactness is
+    unconditional; wire bytes and MXU work shrink by the invariant
+    fraction.  This is the streamed-path analog of the reference's
+    consensus-difference sparsification (measures.rs:28-53) and of the
+    loaded-path invariant-column pruning above.
+    """
+
+    def __init__(self, matrix: np.ndarray, plan: CounterPlan):
+        from distance_tpu_torch.encoding import ALL_CODES
+        from distance_tpu_torch.ops.features import reference_counter_matrix
+
+        first = matrix[0:1]
+        inv = (matrix == first).all(axis=0) if matrix.size else (
+            np.zeros(matrix.shape[1], dtype=bool)
+        )
+        self.frac = float(inv.mean()) if inv.size else 0.0
+        if inv.size and inv.all():
+            # keep one column on-device so the block engine always has a
+            # non-empty matrix (identical loaded rows edge case)
+            inv = inv.copy()
+            inv[0] = False
+        self.keep = ~inv
+        nc = len(ALL_CODES)
+        # bins: (code a, code b) pairs row-major, plus one sentinel row
+        # absorbing variant columns (ignored by the zero weight tail)
+        self.nbins = nc * nc + nc
+        idx_lut = np.zeros(256, dtype=np.uint8)
+        idx_lut[ALL_CODES] = np.arange(nc, dtype=np.uint8)
+        self.idx_lut = idx_lut
+        colkey = np.full(matrix.shape[1], nc * nc, dtype=np.int16)
+        colkey[inv] = idx_lut[first[0][inv]].astype(np.int16) * nc
+        self.colkey = np.ascontiguousarray(colkey)
+        self.wflat = {}
+        for name in plan.counters:
+            w = reference_counter_matrix(name)[
+                np.ix_(ALL_CODES, ALL_CODES)
+            ].astype(np.int32)
+            flat = np.zeros(self.nbins, dtype=np.int32)
+            flat[: nc * nc] = w.reshape(-1)
+            self.wflat[name] = flat
+
+    def offsets(self, mat: np.ndarray) -> Dict[str, np.ndarray]:
+        """Counter name -> (rows,) int32 invariant-column offsets."""
+        hist = self._hist(np.ascontiguousarray(mat))
+        return {k: hist @ w for k, w in self.wflat.items()}
+
+    def _hist(self, mat: np.ndarray) -> np.ndarray:
+        import ctypes
+
+        from distance_tpu_torch._native import get_lib
+
+        rows, width = mat.shape
+        hist = np.zeros((rows, self.nbins), dtype=np.int32)
+        lib = get_lib()
+        if lib is None:
+            keys = self.colkey[None, :].astype(np.int32) + self.idx_lut[mat]
+            keys += np.arange(rows, dtype=np.int32)[:, None] * self.nbins
+            hist[:] = np.bincount(
+                keys.ravel(), minlength=rows * self.nbins
+            ).reshape(rows, self.nbins)
+            return hist
+        p_u8 = ctypes.POINTER(ctypes.c_uint8)
+        p_i16 = ctypes.POINTER(ctypes.c_int16)
+        p_i32 = ctypes.POINTER(ctypes.c_int32)
+
+        def run(a, b):
+            lib.dt_code_hist(
+                mat[a:b].ctypes.data_as(p_u8), b - a, width,
+                self.colkey.ctypes.data_as(p_i16),
+                self.idx_lut.ctypes.data_as(p_u8),
+                hist[a:b].ctypes.data_as(p_i32), self.nbins,
+            )
+
+        chunk = max(64, rows // 8)
+        if rows > 2 * chunk:
+            from distance_tpu_torch.finalize import _get_pool
+
+            pool = _get_pool()
+            futs = [
+                pool.submit(run, a, min(a + chunk, rows))
+                for a in range(0, rows, chunk)
+            ]
+            for f in futs:
+                f.result()
+        elif rows:
+            run(0, rows)
+        return hist
+
+def _transpose_add(mat: np.ndarray, n1: int, bn: int,
+                   add: Optional[np.ndarray],
+                   spool: Optional[_ScratchPool] = None,
+                   lease: Optional[List[np.ndarray]] = None) -> np.ndarray:
+    """(n1_pad, rows_pad)-strided counter matrix -> flat streamed-major
+    (bn*n1,) int32 vector with an optional per-streamed-record offset
+    added (stream variant-split).  Native blocked transpose chunked
+    across the pool when available; numpy fallback otherwise.  With
+    ``spool``/``lease`` the output recycles through the scratch pool
+    (give_all once the emission tail is done with it)."""
+    from distance_tpu_torch._native import get_lib
+
+    lib = get_lib()
+    if (
+        lib is None
+        or mat.dtype != np.int32
+        or mat.strides[1] != 4
+        or mat.strides[0] % 4
+    ):
+        out = np.ascontiguousarray(mat[:n1, :bn].T).reshape(-1)
+        if add is not None:
+            out = out + np.repeat(add, n1)
+        return out
+    import ctypes
+
+    from distance_tpu_torch.ops.diffup import _get_pool, _row_chunks
+
+    add_c = np.ascontiguousarray(
+        add if add is not None else np.zeros(bn, dtype=np.int32),
+        dtype=np.int32,
+    )
+    out = (
+        spool.take(bn * n1, np.int32, lease)
+        if spool is not None and lease is not None
+        else np.empty(bn * n1, dtype=np.int32)
+    )
+    p_i32 = ctypes.POINTER(ctypes.c_int32)
+    in_stride = mat.strides[0] // 4
+    pool = _get_pool()
+
+    def run(span):
+        c0, c1 = span
+        lib.dt_transpose_add_i32(
+            mat.ctypes.data_as(p_i32), n1, in_stride, c0, c1,
+            add_c.ctypes.data_as(p_i32), out.ctypes.data_as(p_i32),
+        )
+
+    chunks = _row_chunks(bn, pool._max_workers)
+    if len(chunks) > 1:
+        list(pool.map(run, chunks))
+    else:
+        run(chunks[0])
+    return out
+
+def _threaded_iter(it, maxsize: int = 64):
+    """Run an iterator in a background thread (bounded queue).
+
+    The reference's stream reader is its own thread (lib.rs:288-306); this
+    overlaps FASTA parse+encode with device dispatch and emission.  An
+    exception from the source is re-raised here only after every earlier
+    item has been consumed — preserving the mid-stream-error contract
+    (all fully-read batches are emitted first).
+    """
+    import queue as _queue
+    import threading
+
+    q: "_queue.Queue" = _queue.Queue(maxsize=maxsize)
+    sentinel = object()
+
+    def run() -> None:
+        try:
+            for item in it:
+                q.put(item)
+            q.put(sentinel)
+        except BaseException as e:  # re-raised on the consumer side
+            q.put(e)
+
+    threading.Thread(target=run, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is sentinel:
+            return
+        if isinstance(item, BaseException):
+            raise item
+        yield item
+
+
+def _stream_group_size(n1: int, width: int, measure: str,
+                       device: torch.device) -> int:
+    """Streamed records per device group, even: as many as fit, up to
+    STREAM_GROUP_CAP.
+
+    Each group in flight (the one computed and the STREAM_PENDING before
+    it) holds its emission buffers on the host (~(G + 2) int32 per pair)
+    and, on a CUDA device, its codes and its (G, n1, rows) int32 counters
+    beside the loaded codes.  The loaded width is taken before the
+    variant split, so the size is known before the stream starts.  A
+    nonzero STREAM_GROUP fixes it instead.
+    """
+    if STREAM_GROUP:
+        return max(2, STREAM_GROUP + (STREAM_GROUP & 1))
+    g = len(get_plan(measure).counters)
+    in_flight = STREAM_PENDING + 1
+    rows = min(STREAM_GROUP_CAP,
+               _strip_ram_budget() // (in_flight * (g + 2) * n1 * 4))
+    budget = _device_budget(device)
+    if budget is not None:
+        l_pad = -(-max(width, 1) // 128) * 128
+        rows = min(rows, (budget - n1 * l_pad) // (
+            in_flight * (g * n1 * 4 + l_pad)
+        ))
+    return max(2, rows // 2 * 2)
+
+
+class _GroupUploads:
+    """Stream groups into device memory through reused host buffers.
+
+    A group is assembled in place in a host buffer (``take``) and sent to
+    the device (``send``).  On a CUDA device there are two pinned
+    buffers, and each copy runs non-blocking on a side stream, so it
+    overlaps the kernel of the group before it.  An event recorded after
+    the copy guards its buffer: ``take`` waits on it before the buffer is
+    refilled (the copy returns at once, and would otherwise read the next
+    group's codes), and the compute stream waits on it before the kernel
+    reads the codes.  On the CPU the one buffer is handed over as it is:
+    the plain version has read it before the next group refills it.
+
+    Buffers are zeroed once; a group overwrites the rows it sends, and
+    the site columns past the loaded width stay code 0.
+    """
+
+    def __init__(self, rows: int, width: int, device: torch.device) -> None:
+        self.device = device
+        cuda = device.type == "cuda"
+        self._bufs = [
+            torch.zeros((rows, width), dtype=torch.uint8, pin_memory=cuda)
+            for _ in range(2 if cuda else 1)
+        ]
+        self._copied: List[Optional[torch.cuda.Event]] = [None] * len(
+            self._bufs
+        )
+        self._k = 0
+        self._side = torch.cuda.Stream(device) if cuda else None
+
+    def take(self) -> np.ndarray:
+        """The next host buffer, once the copy that last read it is done."""
+        copied = self._copied[self._k]
+        if copied is not None:
+            copied.synchronize()
+        return self._bufs[self._k].numpy()
+
+    def send(self, rows: int) -> torch.Tensor:
+        """The first ``rows`` rows of the buffer ``take`` returned, on the
+        device, ordered before any later work of the current stream."""
+        k = self._k
+        self._k = (k + 1) % len(self._bufs)
+        host = self._bufs[k][:rows]
+        if self._side is None:
+            return host
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._side):
+            # allocated on the side stream, which writes it first
+            codes = torch.empty(host.shape, dtype=torch.uint8,
+                                device=self.device)
+            codes.copy_(host, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(self._side)
+        compute.wait_event(copied)
+        # its memory is not reused before the compute stream is done
+        codes.record_stream(compute)
+        self._copied[k] = copied
+        return codes
+
+
+def _run_stream(setup: Setup, grows: int) -> None:
+    """Stream records against one loaded alignment (lib.rs:269-365).
+
+    The loaded side's variant columns (``_StreamSplit``) are prepared on
+    the device once, on a thread of their own, while the stream parses.
+    Records are read at the user's ``-b`` granularity and gathered into
+    groups of at most ``grows`` rows; a group holds whole user batches
+    (a batch larger than ``grows`` fills groups of its own).  Per group,
+    one kernel launch computes the (G, n1, rows) counters, which are
+    copied back asynchronously into pinned memory with STREAM_PENDING
+    groups in flight; the host transposes them to streamed-major order,
+    adds each record's invariant-column offset and emits.  A group is one
+    resume unit.  On a bad streamed record every fully read user batch is
+    emitted first, then the error is raised.
+    """
+    from concurrent.futures import ThreadPoolExecutor
+
+    aln = setup.loaded[0]
+    n1, width = aln.n, aln.width
+    done = _resume_skip(setup)
+    setup.writer.header()
+    plan = get_plan(setup.measure)
+    split: Optional[_StreamSplit] = _StreamSplit(aln.matrix, plan)
+    if split.frac < PRUNE_MIN_FRACTION:
+        split = None
+    width_dev = int(split.keep.sum()) if split is not None else width
+    device = device_of(setup.backend)
+    l_pad = _padded_shape(n1, width_dev, 1, 1)[1]
+    footprint = n1 * l_pad + (STREAM_PENDING + 1) * grows * (
+        len(plan.counters) * n1 * 4 + l_pad
+    )
+    budget = _device_budget(device)
+    if budget is not None and footprint > budget:
+        raise not_ported(
+            f"the staged stream (needs {footprint / 1e9:.2f} GB of device"
+            f" memory, budget {budget / 1e9:.2f} GB)"
+        )
+    # one launch covers every loaded row, so they need no strip padding
+    eng = _BlockEngine(setup.measure, device, 1)
+    mat_loaded = (
+        np.ascontiguousarray(aln.matrix[:, split.keep])
+        if split is not None else aln.matrix
+    )
+
+    def prepare():
+        with phase_timer("stream-prepare-upload"):
+            return eng.prepare(mat_loaded, 1)
+
+    # The loaded side's upload overlaps the stream parse.  Its future's
+    # result() raises a failed upload on the thread that consumes it.
+    preparer = ThreadPoolExecutor(1)
+    prep_fut = preparer.submit(prepare)
+    preparer.shutdown(wait=False)
+    uploads = _GroupUploads(grows, l_pad, device)
+
+    pending: List[tuple] = []
+    emitter = _AsyncEmitter()
+    # groups repeat the same (bn, n1) shape: emission index arrays are
+    # computed once per distinct bn; counter vectors recycle through the
+    # scratch pool
+    emit_idx_cache: Dict[int, tuple] = {}
+    spool = _ScratchPool()
+
+    def flush_one() -> None:
+        ordinal, ids2, bcounts, offs, bn, handle = pending.pop(0)
+        with phase_timer("stream-fetch-wait"):
+            strip = handle.result()  # (G, n1, bn)
+        # Emission: for each streamed record (outer), all loaded (inner)
+        # with columns (loaded_id, streamed_id) — lib.rs:322-333.
+        with phase_timer("stream-gather"):
+            cached = emit_idx_cache.get(bn)
+            if cached is None:
+                local_cols = np.repeat(np.arange(bn, dtype=np.int32), n1)
+                row_idx = np.tile(np.arange(n1, dtype=np.int32), bn)
+                if len(emit_idx_cache) >= 4:  # bn takes few values
+                    emit_idx_cache.pop(next(iter(emit_idx_cache)))
+                emit_idx_cache[bn] = (row_idx, local_cols)
+            else:
+                row_idx, local_cols = cached
+            # streamed-major emission == the transposed (bn, n1) flat
+            # view, plus each record's invariant-column contribution
+            lease: List[np.ndarray] = []
+            counters = {
+                name: _transpose_add(
+                    strip[k], n1, bn,
+                    offs[name] if offs is not None else None,
+                    spool, lease,
+                )
+                for k, name in enumerate(plan.counters)
+            }
+        bc = None
+        if setup.measure == "tn93":
+            # loaded side indexed by row_idx, streamed side by local_cols
+            bc = (aln.base_counts, row_idx, bcounts, local_cols)
+        with phase_timer("keys"):
+            if (
+                setup.measure == "tn93" and bcounts is not None
+                and aln.base_counts is not None
+            ):
+                uniq, inv = np.unique(bcounts, axis=0, return_inverse=True)
+                grp_ranks = (
+                    np.ascontiguousarray(inv.reshape(-1), dtype=np.int32),
+                    int(uniq.shape[0]),
+                )
+                keys, keyspace = _tn93_value_keys(
+                    counters, aln.tally_ranks(), row_idx, grp_ranks,
+                    local_cols, spool, lease,
+                )
+            else:
+                keys, keyspace = _value_keys(setup.measure, counters,
+                                             width, spool, lease)
+        if keys is not None:
+            # deferred finalize-by-representative (see _emit_pairs): the
+            # writer calls back with one row per distinct key
+            measure = setup.measure
+
+            def values(first_rows, counters=counters, bc=bc):
+                if first_rows is None:
+                    with phase_timer("finalize"):
+                        return finalize_block(measure, counters, bc)
+                sub = {k: v[first_rows] for k, v in counters.items()}
+                sbc = None
+                if bc is not None:
+                    bcq, iq, bct, it = bc
+                    sbc = (bcq, iq[first_rows], bct, it[first_rows])
+                with phase_timer("finalize"):
+                    return finalize_block(measure, sub, sbc)
+        else:
+            with phase_timer("finalize"):
+                values = finalize_block(setup.measure, counters, bc)
+
+        def tail(ids2=ids2, row_idx=row_idx, local_cols=local_cols,
+                 values=values, keys=keys, keyspace=keyspace,
+                 ordinal=ordinal, lease=lease):
+            try:
+                setup.writer.rows(
+                    aln.ids, ids2, row_idx, local_cols, values, keys,
+                    keyspace,
+                )
+                _progress_mark(setup, ordinal + 1)
+            finally:
+                spool.give_all(lease)
+
+        with phase_timer("stream-emit-wait"):
+            emitter.submit(tail)
+
+    group: List[tuple] = []  # (batch, r0, r1): rows r0..r1-1 of a batch
+    group_rows = 0
+    n_groups = 0
+
+    def dispatch_group() -> None:
+        nonlocal group, group_rows, n_groups
+        pieces, bn = group, group_rows
+        group, group_rows = [], 0
+        if not pieces:
+            return
+        ordinal = n_groups
+        n_groups += 1
+        if ordinal < done:
+            return
+        with phase_timer("stream-group-build"):
+            ids2 = [i for b, r0, r1 in pieces for i in b.ids[r0:r1]]
+            bcounts = (
+                np.concatenate([b.base_counts[r0:r1] for b, r0, r1 in pieces])
+                if pieces[0][0].base_counts is not None
+                else None
+            )
+        with phase_timer("stream-upload"):
+            buf = uploads.take()
+            offs_parts = []
+            r = 0
+            for b, r0, r1 in pieces:
+                m = b.matrix[r0:r1]
+                if split is not None:
+                    offs_parts.append(split.offsets(m))
+                    m = m[:, split.keep]
+                buf[r : r + r1 - r0, : m.shape[1]] = m
+                r += r1 - r0
+            offs = (
+                {
+                    k: np.concatenate([p[k] for p in offs_parts])
+                    for k in offs_parts[0]
+                }
+                if split is not None
+                else None
+            )
+            codes = uploads.send(bn)
+        m1 = prep_fut.result()
+        pending.append((ordinal, ids2, bcounts, offs, bn,
+                        _AsyncFetch(eng.block(m1, codes, 0, 0, n1, bn))))
+        while len(pending) > STREAM_PENDING:
+            flush_one()
+
+    _SENTINEL = object()
+    try:
+        it = _threaded_iter(stream_fasta(
+            setup.streamed, width, setup.measure, setup.consensus,
+            max(1, setup.batchsize),
+        ))
+        while True:
+            with phase_timer("stream-parse-wait"):
+                batch = next(it, _SENTINEL)
+            if batch is _SENTINEL:
+                break
+            rows = batch.matrix.shape[0]
+            for r0 in range(0, rows, grows):
+                r1 = min(r0 + grows, rows)
+                if group_rows + r1 - r0 > grows:
+                    dispatch_group()
+                group.append((batch, r0, r1))
+                group_rows += r1 - r0
+            if group_rows == grows:
+                dispatch_group()
+    except DistanceError:
+        # a bad streamed record: emit every fully read user batch first;
+        # the stream error is the one reported
+        dispatch_group()
+        while pending:
+            flush_one()
+        try:
+            emitter.finish()
+        except Exception:
+            pass
+        raise
+    dispatch_group()
+    while pending:
+        flush_one()
+    # a run whose groups were all emitted before a resume never consumed
+    # the upload: a failed one must still surface
+    eng.release(prep_fut.result())
+    emitter.finish()

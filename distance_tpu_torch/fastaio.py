@@ -486,8 +486,10 @@ def _assemble_rows(rows: List[np.ndarray], width: int) -> np.ndarray:
     engine copies them into its padded upload buffer).  Replaces the
     per-row np.vstack that was ~half the stream-parse pipeline's time."""
     n = len(rows)
-    if n == 0:
-        return np.zeros((0, width), np.uint8)
+    if n == 0 or width == 0:
+        # width 0: the rows hold no codes (and `off % width` would divide
+        # by zero)
+        return np.zeros((n, width), np.uint8)
     runs: List[tuple] = []  # (base, i0, count) | (None, rows-index, 1)
     k = 0
     while k < n:

@@ -164,8 +164,8 @@ def test_cuda_backend_without_device_fails_cleanly(tmp_path, capsys):
 @pytest.mark.parametrize(
     "extra, what",
     [
-        (["{b}"], "rectangle mode"),
-        (["-s", "{b}"], "stream mode"),
+        (["-s", "{b}", "--shard", "0/2"], "sharded stream"),
+        (["{b}", "--merge", "{b}"], "--merge"),
         (["--merge", "{b}"], "--merge"),
         (["--launch", "2"], "--launch"),
         (["--num-hosts", "2", "--host-id", "0"], "multi-host"),
