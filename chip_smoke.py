@@ -9,11 +9,16 @@ drives the port's CLI on SARS-CoV-2-scale synthetic alignments made from
 a seed (29904 sites) in its three modes, checks the output, and times the
 kernel beside the plain version.  Phases:
 
-1. environment: the card, torch, CUDA, nvcc; build the kernel; the free
-   device memory, the engine's auto budget and the square's in-core
-   crossover for raw and tn93;
-2. the kernel against its plain version, exactly, for all six measures
-   at ragged shapes, the stream's narrow widths (1, 3 and 129 sites), an
+1. environment: the card, torch, CUDA, nvcc; build the kernel and print
+   ptxas's registers, shared memory and spills; the free device memory,
+   the engine's auto budget and the square's in-core crossover for raw
+   and tn93;
+2. the kernel against its plain version, exactly, for all six measures:
+   the truth table (code 0 and every Paradis code over 64 sites, on both
+   sides, also against each counter's predicate table), shapes on either
+   side of the kernel's tile edges (127/128/129 x 255/256/257 rows at
+   31/32/33 and 4095 sites), ragged shapes, the stream's narrow widths
+   (1, 3 and 129 sites, copied into 16-site rows by the wrapper), an
    empty side, a 512 x 512 block of the bench alignment, and the
    launches of the stream phase (2000 loaded rows against groups of 8000
    and 384 rows) and of phase 9 (square blocks of 1024 x 1024, rectangle
@@ -24,12 +29,17 @@ kernel beside the plain version.  Phases:
    blocks holds;
 3. the square path: the CLI on the 8192 x 29904 alignment, ``-m raw
    --backend cuda``; line count, 1200 random rows against the host
-   oracle, and the kernel's launch count in that run;
+   oracle, the kernel's launch count in that run, and a
+   ``torch.profiler`` split of a second run's device time;
 4. all six measures end to end at 256 x 29904: ``--backend cuda`` and
    ``--backend torch`` write identical bytes;
-5. the kernel against its plain version at the square path's block
-   shape (2048 x 2048 x 29952 padded sites) for all six measures, both
-   timed on the card; raw's times go into the result line;
+5. the kernel against its plain version and the int8-GEMM yardstick
+   (each counter as one ``torch._int_mm`` on its folded features, built
+   outside the timed window) at the square path's block shape (2048 x
+   2048 x 29952 padded sites) for all six measures: equal, timed on the
+   card in turns, beside the bound (2 m n L R int8 operations at 1,979
+   TOP/s, L = 29904 real sites, R = the JAX plan's channels); raw's
+   numbers go into the result line;
 6. the rectangle path: the CLI on 4096 x 8192 x 29904 (two files cut
    from one alignment), ``-m raw``; line count, 1200 random rows, launch
    count, and a ``torch.profiler`` split of a second run's device time
@@ -56,7 +66,7 @@ kernel beside the plain version.  Phases:
 
 Any failed check raises, and the script exits non-zero without a result.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists the kernels with their launches per path, errors and times.
+lists the kernels with their launches per path, errors, times and bound.
 Without a CUDA device, or without the package beside it, it fails.
 
     python3 chip_smoke.py --measure
@@ -212,6 +222,8 @@ def phase_environment() -> str:
     _build.load("counters")
     print(f"[1] counter kernel built and loaded in"
           f" {time.perf_counter() - t0:.3f} s")
+    for line in _build.PTXAS.get("counters", "").splitlines():
+        print(f"[1] {line}")
     t0 = time.perf_counter()
     check(get_lib() is not None, "the native host library did not build")
     print(f"[1] native host library built and loaded in"
@@ -292,6 +304,12 @@ def phase_kernel_vs_plain(bench: np.ndarray) -> int:
         ("bench 512x512x29904", bench[:512], bench[512:1024]),
         *path_cases,
     ]
+    # the kernel's tiles are 128 x rows by 256 y rows, 64 sites a chunk
+    # and 32 a k-step: shapes on either side of each edge
+    cases += [(f"tile edge {m}x{n}x{width}", codes(m, width), codes(n, width))
+              for m in (127, 128, 129) for n in (255, 256, 257)
+              for width in (31, 32, 33, 4095)]
+    truth_tables(dev)
     worst = 0
     for measure in MEASURES:
         plan = plan_to_torch(get_plan(measure), dev)
@@ -327,6 +345,37 @@ def phase_kernel_vs_plain(bench: np.ndarray) -> int:
                         f" = {err}")
         print(f"[2] {measure}: kernel == plain at {m} x {n} x {width}")
     return worst
+
+
+def truth_tables(dev) -> None:
+    """Code 0 and every Paradis code, each repeated over 64 sites, on x
+    against the same on y: the kernel gives 64 times each counter's
+    256 x 256 predicate table at those codes, for all six measures, and
+    equals its plain version."""
+    import torch
+
+    from distance_tpu_torch.encoding import ALL_CODES
+    from distance_tpu_torch.measures import MEASURES
+    from distance_tpu_torch.ops.counters import counters_cuda, counters_torch
+    from distance_tpu_torch.ops.features import (get_plan,
+                                                 reference_counter_matrix)
+    from distance_tpu_torch.ops.plan import plan_to_torch
+
+    codes = np.concatenate([[0], ALL_CODES]).astype(np.uint8)
+    x = torch.from_numpy(np.repeat(codes[:, None], 64, axis=1)).to(dev)
+    for measure in MEASURES:
+        plan = get_plan(measure)
+        kp = plan_to_torch(plan, dev)
+        got = counters_cuda(x, x, kp)
+        torch.cuda.synchronize()
+        check(torch.equal(got, counters_torch(x, x, kp)),
+              f"{measure} truth table: kernel != plain")
+        for g, name in enumerate(plan.counters):
+            want = 64 * reference_counter_matrix(name)[np.ix_(codes, codes)]
+            check(np.array_equal(got[g].cpu().numpy(), want),
+                  f"{measure} {name}: kernel != 64 x its truth table")
+    print(f"[2] kernel == 64 x the truth table of every counter of the six"
+          f" measures at code 0 and the {len(ALL_CODES)} Paradis codes")
 
 
 def run_cli(tag: str, args: list, measure: str = "raw") -> tuple:
@@ -391,7 +440,9 @@ def phase_main_path(tmp: str, bench: np.ndarray) -> tuple:
     print(f"[3] {1 + pairs} lines; {SAMPLES} random rows equal the host"
           " oracle")
     del data
-    return launches, sha256(out)
+    sha = sha256(out)
+    profiled_run("[3]", [fasta, "-o", out])
+    return launches, sha
 
 
 def phase_six_measures(tmp: str, bench: np.ndarray) -> None:
@@ -417,12 +468,58 @@ def phase_six_measures(tmp: str, bench: np.ndarray) -> None:
         print(f"[4] {measure}: 256 x {sub.shape[1]} TSV byte-identical")
 
 
+# The card's peak int8 tensor-core rate (NVIDIA's data sheet, H100 SXM,
+# dense) and memory rate, for each kernel's bound.
+PEAK_INT8_OPS = 1979e12
+PEAK_BYTES = 3.35e12
+
+
+def bound_ms(m: int, n: int, sites: int, channels: int, counters: int,
+             padded: int) -> tuple:
+    """The least time the card could take for one launch: 2 m n L R int8
+    operations (L real sites, R the JAX plan's channels) at the peak int8
+    rate, or the codes read once and the int32 counters written once at the
+    memory rate, whichever is longer; and which of the two it is."""
+    ops = 2.0 * m * n * sites * channels / PEAK_INT8_OPS
+    moved = ((m + n) * padded + 4.0 * counters * m * n) / PEAK_BYTES
+    return (max(ops, moved) * 1e3,
+            "operations" if ops >= moved else "bytes")
+
+
+def library_counters(x, y, plan):
+    """The yardstick: each counter as one ``torch._int_mm`` on its folded
+    features, built outside the timed window.  Returns the calls to time
+    and a function of their results that gives the counters."""
+    import torch
+
+    from distance_tpu_torch.ops.counters import features_torch
+
+    feats = []
+    for g in range(plan.counters):
+        lo, hi = plan.bounds[g], plan.bounds[g + 1]
+        f = features_torch(x, plan.f_lut[lo:hi])  # (R_g, m, L) int8
+        gy = features_torch(y, plan.g_lut[lo:hi])
+        feats.append((f.permute(1, 0, 2).reshape(x.shape[0], -1)
+                      .contiguous(),
+                      gy.permute(1, 0, 2).reshape(y.shape[0], -1)
+                      .contiguous()))
+
+    def run():
+        return [torch._int_mm(f, gy.t()) for f, gy in feats]
+
+    def counters(outs):
+        return torch.stack([o // d for o, d in zip(outs, plan.den)])
+
+    return run, counters
+
+
 def phase_timing(bench: np.ndarray):
-    """The kernel against its plain version at the main path's block
-    shape (rows of the bench alignment, sites zero-padded to a multiple
-    of 128 as the engine uploads them), for every measure: equal, and
-    timed with CUDA events in turns (plain, kernel, kernel, plain).
-    Returns raw's (kernel ms, plain ms) and the largest |kernel - plain|.
+    """The kernel against its plain version and the int8-GEMM yardstick at
+    the main path's block shape (rows of the bench alignment, sites
+    zero-padded to a multiple of 128 as the engine uploads them), for every
+    measure: equal, and timed with CUDA events in turns (plain, kernel,
+    library, library, kernel, plain), beside the bound.  Returns raw's
+    numbers and the largest |kernel - plain|.
     """
     import torch
 
@@ -439,18 +536,19 @@ def phase_timing(bench: np.ndarray):
     y = torch.from_numpy(padded[BLOCK:]).to(dev)
     pair_sites = BLOCK * BLOCK * bench.shape[1]
 
-    def timed(fn, plan, reps):
+    def timed(fn, reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(reps):
-            fn(x, y, plan)
+            fn()
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
     times = {}
     worst = 0
+    card = gpu_line()
     for measure in MEASURES:
         plan = plan_to_torch(get_plan(measure), dev)
         got = counters_cuda(x, y, plan)
@@ -460,20 +558,30 @@ def phase_timing(bench: np.ndarray):
         worst = max(worst, err)
         check(err == 0, f"{measure} {BLOCK} x {BLOCK} x {l_pad}: max"
                         f" |kernel - plain| = {err}")
-        plain_ms, kern_ms = [], []
-        for fn, reps, acc in ((counters_torch, 1, plain_ms),
-                              (counters_cuda, 5, kern_ms),
-                              (counters_cuda, 5, kern_ms),
-                              (counters_torch, 1, plain_ms)):
-            acc.append(timed(fn, plan, reps))
-        ms_k, ms_p = float(np.mean(kern_ms)), float(np.mean(plain_ms))
-        times[measure] = (ms_k, ms_p)
-        print(f"[5] {measure} {BLOCK} x {BLOCK} x {l_pad}: kernel =="
-              f" plain; kernel {kern_ms} ms, plain {plain_ms} ms; kernel"
-              f" {pair_sites / ms_k / 1e9:.3f} T pair-sites/s")
-    print(f"[5] timed on {gpu_line()}")
-    return times["raw"][0], times["raw"][1], worst
-
+        lib_run, lib_counters = library_counters(x, y, plan)
+        check(torch.equal(got, lib_counters(lib_run())),
+              f"{measure}: kernel != torch._int_mm on its folded features")
+        fns = {"plain": (lambda: counters_torch(x, y, plan), 1),
+               "kernel": (lambda: counters_cuda(x, y, plan), 10),
+               "library": (lib_run, 10)}
+        ms = {k: [] for k in fns}
+        for kind in ("plain", "kernel", "library", "library", "kernel",
+                     "plain"):
+            ms[kind].append(timed(*fns[kind]))
+        del lib_run, lib_counters
+        channels = get_plan(measure).total_channels
+        bound, by = bound_ms(BLOCK, BLOCK, bench.shape[1], channels,
+                             plan.counters, l_pad)
+        mean = {k: float(np.mean(v)) for k, v in ms.items()}
+        times[measure] = (mean["kernel"], mean["plain"], bound,
+                          mean["library"], by)
+        print(f"[5] {measure} {BLOCK} x {BLOCK} x {l_pad} (R = {channels},"
+              f" {plan.channels} folded): kernel == plain == _int_mm;"
+              f" bound {bound:.4f} ms ({by}); kernel {ms['kernel']} ms ="
+              f" {bound / mean['kernel']:.4f} of the bound,"
+              f" {pair_sites / mean['kernel'] / 1e9:.3f} T pair-sites/s;"
+              f" plain {ms['plain']} ms; library {ms['library']} ms ({card})")
+    return times["raw"], worst
 
 def write_inputs(tmp: str, tag: str, n1: int, n2: int, seed: int,
                  prefix2: str) -> tuple:
@@ -951,7 +1059,7 @@ def main(argv: list) -> int:
         launches["square"], shas["square"] = phase_main_path(tmp, bench)
     with tempfile.TemporaryDirectory() as tmp:
         phase_six_measures(tmp, bench)
-    ms, plain_ms, err = phase_timing(bench)
+    (ms, plain_ms, bound, library_ms, bound_by), err = phase_timing(bench)
     max_err = max(max_err, err)
     with tempfile.TemporaryDirectory() as tmp:
         launches["rectangle"], shas["rectangle"] = phase_rectangle(tmp)
@@ -975,6 +1083,9 @@ def main(argv: list) -> int:
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

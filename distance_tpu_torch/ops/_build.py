@@ -22,11 +22,14 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# ptxas's report (registers, shared memory, spills) of each source built
+# by this process.
+PTXAS: Dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -62,6 +65,9 @@ def build(name: str) -> str:
             f"{proc.stderr}{proc.stdout}"
         )
     os.replace(tmp, so)
+    PTXAS[name] = "\n".join(
+        line.strip() for line in proc.stderr.splitlines()
+        if line.lstrip().startswith("ptxas info") or "spill" in line)
     return so
 
 

@@ -1,17 +1,20 @@
 """Pairwise counters of one measure: (m, L) x (n, L) uint8 -> (G, m, n) int32.
 
 ``counters_cuda`` launches the hand-written kernel of ``csrc/counters.cu``
-(the port of ``distance_tpu/ops/pairwise_pallas.py::_kernel``);
-``counters_torch`` is its plain PyTorch version, the reference the kernel
-is held against.  ``counters`` takes the plain version for tensors on the
-CPU and the kernel for tensors on a CUDA device.  Every counter is an
-exact integer.
+(the port of ``distance_tpu/ops/pairwise_pallas.py::_kernel``, an int8
+tensor-core GEMM); ``counters_torch`` is its plain PyTorch version, the
+reference the kernel is held against.  ``counters`` takes the plain
+version for tensors on the CPU and the kernel for tensors on a CUDA
+device.  Every counter is an exact integer.  Codes are Paradis codes or
+0 (padding), as ``encoding`` makes them: the kernel reads each code's
+candidacy nibble only (``ops/plan.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from distance_tpu_torch.ops import _build
@@ -20,10 +23,15 @@ from distance_tpu_torch.ops.plan import KernelPlan
 # Kernel launches made by counters_cuda in this process.
 LAUNCHES = 0
 
-# Rows one launch takes (csrc/counters.cu MAX_M, MAX_N): x row tiles of 64
-# go on the grid's x axis, y row tiles of 64 on its y axis (65535 blocks).
-MAX_X_ROWS = (1 << 31) - 1 - 64
-MAX_Y_ROWS = 65535 * 64
+# Rows one launch takes (csrc/counters.cu MAX_M, MAX_N): x row tiles of
+# 128 go on the grid's x axis, y row tiles of 256 on its y axis (65535
+# blocks).
+MAX_X_ROWS = (1 << 31) - 1 - 128
+MAX_Y_ROWS = 65535 * 256
+
+# The kernel copies code rows in 16-byte pieces: row strides and widths
+# are padded to a multiple of this many sites (code 0) before a launch.
+SITE_ALIGN = 16
 
 # Elements of one side's feature chunk in the plain version: bounds its
 # (R, rows, sites) temporaries.
@@ -68,23 +76,23 @@ def counters_torch(x: torch.Tensor, y: torch.Tensor,
     n = y.shape[0]
     f_lut = plan.f_lut.to(device=dev, dtype=exact)
     g_lut = plan.g_lut.to(device=dev, dtype=exact)
-    acc = torch.zeros((plan.accumulators, m, n), dtype=exact, device=dev)
+    acc = torch.zeros((plan.counters, m, n), dtype=exact, device=dev)
     chunk = max(1, _PLAIN_CHUNK_ELEMS // max(1, plan.channels * max(m, n)))
     for s0 in range(0, width, chunk):
         fx = features_torch(x[:, s0 : s0 + chunk], f_lut)  # (R, m, sites)
         gy = features_torch(y[:, s0 : s0 + chunk], g_lut)  # (R, n, sites)
-        for a in range(plan.accumulators):
-            lo, hi = plan.bounds[a], plan.bounds[a + 1]
-            acc[a] += torch.einsum("rml,rnl->mn", fx[lo:hi], gy[lo:hi])
-    acc = acc.to(torch.int64)
-    out = torch.empty((plan.counters, m, n), dtype=torch.int32, device=dev)
-    for g, (row, den) in enumerate(zip(plan.mix, plan.den)):
-        num = torch.zeros((m, n), dtype=torch.int64, device=dev)
-        for a, w in enumerate(row):
-            if w:
-                num += w * acc[a]
-        out[g] = num // den
-    return out
+        for g in range(plan.counters):
+            lo, hi = plan.bounds[g], plan.bounds[g + 1]
+            acc[g] += torch.einsum("rml,rnl->mn", fx[lo:hi], gy[lo:hi])
+    den = torch.tensor(plan.den, dtype=torch.int64, device=dev)
+    return (acc.to(torch.int64) // den[:, None, None]).to(torch.int32)
+
+
+def nibble_words(plan: KernelPlan) -> list:
+    """The kernel's feature tables: for each channel its x-side, then its
+    y-side 16-entry nibble table as four little-endian uint32 words."""
+    tabs = np.stack([plan.f_nib, plan.g_nib], axis=1)  # (R, 2, 16)
+    return np.ascontiguousarray(tabs).view("<u4").ravel().tolist()
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -93,17 +101,30 @@ def _kernel_lib() -> ctypes.CDLL:
         lib = _build.load("counters")
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.dt_counters_launch.argtypes = [
-            vp, vp, ll, ll, ll, ll, ll, vp, vp, i, i, i, vp, vp, vp, vp, vp,
+            vp, vp, ll, ll, ll, ll, ll, i, vp, vp, vp, vp, vp,
         ]
         lib.dt_counters_launch.restype = ctypes.c_int
         _bound = lib
     return _bound
 
 
+def _site_aligned(codes: torch.Tensor) -> torch.Tensor:
+    """``codes``, or a copy with its sites zero-padded to a multiple of
+    SITE_ALIGN when its row stride or address is not 16-byte aligned."""
+    width = codes.shape[1]
+    if width % SITE_ALIGN == 0 and codes.data_ptr() % SITE_ALIGN == 0:
+        return codes
+    out = torch.zeros((codes.shape[0], -(-width // SITE_ALIGN) * SITE_ALIGN),
+                      dtype=codes.dtype, device=codes.device)
+    out[:, :width] = codes
+    return out
+
+
 def counters_cuda(x: torch.Tensor, y: torch.Tensor,
                   plan: KernelPlan) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream of the codes' device;
-    raises on anything it does not take."""
+    raises on anything it does not take.  Codes whose width is not a
+    multiple of SITE_ALIGN are first copied into padded rows."""
     global LAUNCHES
     _check(x, y)
     if x.shape[0] > MAX_X_ROWS or y.shape[0] > MAX_Y_ROWS:
@@ -120,26 +141,24 @@ def counters_cuda(x: torch.Tensor, y: torch.Tensor,
         )
     if not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError("codes must be contiguous")
-    m, width = x.shape
-    n = y.shape[0]
+    m, n = x.shape[0], y.shape[0]
     out = torch.empty(
         (plan.counters, m, n), dtype=torch.int32, device=x.device
     )
     if m == 0 or n == 0:
         return out
+    x, y = _site_aligned(x), _site_aligned(y)
     lib = _kernel_lib()
-    a, g = plan.accumulators, plan.counters
-    bounds = (ctypes.c_int * (a + 1))(*plan.bounds)
-    mix = (ctypes.c_int * (g * a))(*(w for row in plan.mix for w in row))
+    g = plan.counters
+    bounds = (ctypes.c_int * (g + 1))(*plan.bounds)
     den = (ctypes.c_int * g)(*plan.den)
+    tables = (ctypes.c_uint32 * (8 * plan.channels))(*nibble_words(plan))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = lib.dt_counters_launch(
-            x.data_ptr(), y.data_ptr(), m, n, width, x.stride(0),
-            y.stride(0), plan.f_lut.data_ptr(), plan.g_lut.data_ptr(),
-            plan.channels, a, g, ctypes.addressof(bounds),
-            ctypes.addressof(mix), ctypes.addressof(den), out.data_ptr(),
-            stream,
+            x.data_ptr(), y.data_ptr(), m, n, x.shape[1], x.stride(0),
+            y.stride(0), g, ctypes.addressof(bounds), ctypes.addressof(den),
+            ctypes.addressof(tables), out.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"counter kernel launch failed: CUDA error {rc}")

@@ -2,19 +2,26 @@
 
 The JAX package has no learned parameters: its state is the
 ``CounterPlan`` of ``ops/features.py`` (channel LUTs plus how channels
-combine into counters).  ``plan_to_torch`` carries that plan over.
+combine into counters).  ``plan_to_torch`` carries that plan over, folded
+so that every counter is one contraction of its own channels:
 
-Both plan kinds reduce to one shape.  Channels are summed into
-accumulators over contiguous channel ranges, and each counter is an
-exact integer mix of the accumulators:
+    counter[g] = (sum_{k in bounds[g]:bounds[g+1]} sum_sites f_k(x) g_k(y))
+                 // den[g]
 
-    acc[a]     = sum_{k in bounds[a]:bounds[a+1]} sum_sites f_k(x) g_k(y)
-    counter[g] = (sum_a mix[g][a] * acc[a]) // den[g]
+A per-counter plan already has that form (its channel slices, ``den``
+1).  A shared plan (k80, tn93) mixes shared channels with integer
+weights; folding gives counter g the channels k with ``mix[g][k] != 0``,
+its g-side feature scaled by ``mix[g][k]`` (weights in {-1, 1, 2}, so the
+features stay int8), and the plan's ``den[g]``.  Every numerator is even
+per site, so the division is exact.  The fold costs MACs (k80 6 -> 10
+channel contractions, tn93 5 -> 9), which the tensor cores afford.
 
-A per-counter plan has one accumulator per counter (its channel slice),
-an identity mix and ``den`` 1.  A shared plan (k80, tn93) has one
-accumulator per channel and the plan's integer ``mix_num``/``mix_den``;
-every numerator is even per site, so the division is exact.
+For every Paradis code the candidacy nibble (bits 7..4) decides every
+feature: the known bit (bit 3) is set exactly on the single-candidate
+nibbles, and no primitive of ``ops/features.py`` reads bits 2..0 beyond
+"code != 0", which the nibble decides as well.  So each channel also
+carries its two features as 16-entry nibble tables, which the CUDA kernel
+looks up four codes at a time with byte permutes.
 """
 
 from __future__ import annotations
@@ -22,65 +29,77 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Tuple
 
+import numpy as np
 import torch
+
+from distance_tpu_torch.encoding import ALL_CODES
 
 # Limits the CUDA kernel is compiled for (csrc/counters.cu).
 MAX_CHANNELS = 32
-MAX_ACCUMULATORS = 6
 MAX_COUNTERS = 4
 
 
 @dataclass(frozen=True, eq=False)
 class KernelPlan:
-    """Device tables and integer mix of one measure's counters."""
+    """Folded device tables and nibble tables of one measure."""
 
     f_lut: torch.Tensor  # (R, 256) int8: x-side feature of each code
-    g_lut: torch.Tensor  # (R, 256) int8: y-side feature of each code
-    bounds: Tuple[int, ...]  # (A + 1,) channel range of each accumulator
-    mix: Tuple[Tuple[int, ...], ...]  # (G, A)
-    den: Tuple[int, ...]  # (G,)
+    g_lut: torch.Tensor  # (R, 256) int8: y-side feature, weight folded in
+    bounds: Tuple[int, ...]  # (G + 1,) channel range of each counter
+    den: Tuple[int, ...]  # (G,) exact divisor of each counter
+    f_nib: np.ndarray  # (R, 16) int8: x-side feature of each nibble
+    g_nib: np.ndarray  # (R, 16) int8: y-side feature of each nibble
 
     @property
     def channels(self) -> int:
         return self.f_lut.shape[0]
 
     @property
-    def accumulators(self) -> int:
-        return len(self.bounds) - 1
-
-    @property
     def counters(self) -> int:
         return len(self.den)
 
 
+def nibble_tables(lut: np.ndarray) -> np.ndarray:
+    """(R, 16) features by candidacy nibble of an (R, 256) LUT; raises if
+    two Paradis codes (or code 0) of one nibble have different features."""
+    codes = np.concatenate([[0], ALL_CODES]).astype(np.int64)
+    out = np.zeros((lut.shape[0], 16), dtype=np.int8)
+    out[:, codes >> 4] = lut[:, codes]
+    if not np.array_equal(out[:, codes >> 4], lut[:, codes]):
+        raise ValueError("features differ within one candidacy nibble")
+    return out
+
+
 def plan_to_torch(plan, device) -> KernelPlan:
-    """KernelPlan of a ``CounterPlan`` from either package, with its LUTs
-    on ``device``."""
-    r = plan.f_luts.shape[0]
+    """Folded KernelPlan of a ``CounterPlan`` from either package, with
+    its LUTs on ``device``."""
     if plan.mix_num is not None:
-        bounds = tuple(range(r + 1))
-        mix = tuple(tuple(int(w) for w in row) for row in plan.mix_num)
+        terms = [[(k, int(w)) for k, w in enumerate(row) if w]
+                 for row in plan.mix_num]
         den = tuple(int(d) for d in plan.mix_den)
     else:
-        bounds = (0,) + tuple(hi for _, _, hi in plan.slices)
-        if tuple(lo for _, lo, _ in plan.slices) != bounds[:-1]:
-            raise ValueError(f"channel slices of {plan.measure!r} are not"
-                             " contiguous")
-        g = len(plan.slices)
-        mix = tuple(tuple(int(a == b) for b in range(g)) for a in range(g))
-        den = (1,) * g
+        terms = [[(k, 1) for k in range(lo, hi)] for _, lo, hi in plan.slices]
+        den = (1,) * len(terms)
+    f_rows, g_rows, bounds = [], [], [0]
+    for row in terms:
+        for k, w in row:
+            f_rows.append(plan.f_luts[k])
+            g_rows.append(plan.g_luts[k].astype(np.int16) * w)
+        bounds.append(len(f_rows))
+    f_lut, g_lut = np.stack(f_rows), np.stack(g_rows)
+    if np.abs(g_lut).max() > 127:
+        raise ValueError(f"folded plan for {plan.measure!r} leaves int8")
+    f_lut, g_lut = f_lut.astype(np.int8), g_lut.astype(np.int8)
     kp = KernelPlan(
-        f_lut=torch.from_numpy(plan.f_luts.copy()).to(device),
-        g_lut=torch.from_numpy(plan.g_luts.copy()).to(device),
-        bounds=bounds,
-        mix=mix,
+        f_lut=torch.from_numpy(f_lut).to(device),
+        g_lut=torch.from_numpy(g_lut).to(device),
+        bounds=tuple(bounds),
         den=den,
+        f_nib=nibble_tables(f_lut),
+        g_nib=nibble_tables(g_lut),
     )
-    if not (
-        kp.channels <= MAX_CHANNELS
-        and kp.accumulators <= MAX_ACCUMULATORS
-        and kp.counters <= MAX_COUNTERS
-    ):
+    if not (kp.channels <= MAX_CHANNELS and kp.counters <= MAX_COUNTERS
+            and all(d > 0 for d in den)):
         raise ValueError(
             f"plan for {plan.measure!r} exceeds the counter kernel's limits"
         )

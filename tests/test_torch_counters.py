@@ -130,7 +130,7 @@ def test_bad_codes_raise(x, y, match):
     (kernels.MAX_X_ROWS, kernels.MAX_Y_ROWS, "CUDA"),
 ])
 def test_kernel_wrapper_checks_launch_shape(m, n, match):
-    """The grid takes up to 2^31 - 65 x rows and 65535 x 64 y rows a
+    """The grid takes up to 2^31 - 129 x rows and 65535 x 256 y rows a
     launch; the wrapper refuses anything past that before launching, and
     never hands it to the plain version.  Meta tensors carry the shapes
     without memory."""
@@ -141,7 +141,26 @@ def test_kernel_wrapper_checks_launch_shape(m, n, match):
     with pytest.raises(ValueError, match=match):
         kernels.counters_cuda(x, y, plan)
     assert kernels.LAUNCHES == before
-    assert kernels.MAX_Y_ROWS == 4_194_240
+    assert kernels.MAX_Y_ROWS == 16_776_960
+
+
+@pytest.mark.parametrize("width, padded", [(1, 16), (3, 16), (129, 144),
+                                            (0, 0), (128, 128)])
+def test_site_alignment_pads_with_code_zero(width, padded):
+    """The kernel copies codes in 16-byte pieces: the wrapper copies rows
+    of other widths into 16-site-padded rows of code 0 (which add nothing,
+    test_zero_padding_adds_nothing), and hands aligned ones on as they
+    are."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(random_codes(rng, 5, width))
+    got = kernels._site_aligned(x)
+    assert got.shape == (5, padded) and got.is_contiguous()
+    assert torch.equal(got[:, :width], x) and not got[:, width:].any()
+    assert (got is x) == (width == padded)
+    # a view at an address off the 16-byte grid is copied as well
+    base = torch.zeros((2, 33), dtype=torch.uint8)
+    view = base.view(-1)[1:65].view(2, 32)
+    assert view.data_ptr() % 16 and kernels._site_aligned(view) is not view
 
 
 def test_kernel_refuses_cpu_tensors():

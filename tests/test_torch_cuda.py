@@ -17,7 +17,10 @@ from distance_tpu_torch import engine  # noqa: E402
 from distance_tpu_torch.encoding import ALL_CODES, CODE_TO_CHAR  # noqa: E402
 from distance_tpu_torch.measures import MEASURES  # noqa: E402
 from distance_tpu_torch.ops import counters as kernels  # noqa: E402
-from distance_tpu_torch.ops.features import get_plan  # noqa: E402
+from distance_tpu_torch.ops.features import (  # noqa: E402
+    get_plan,
+    reference_counter_matrix,
+)
 from distance_tpu_torch.ops.plan import plan_to_torch  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -52,6 +55,61 @@ def test_kernel_matches_plain(dev, measure):
         torch.cuda.synchronize()
         assert torch.equal(got, kernels.counters_torch(x, y, plan)), (
             m, n, width)
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+def test_kernel_truth_table(dev, measure):
+    """Code 0 and every Paradis code, each over 64 sites, on both sides:
+    each counter is 64 times its predicate table at those codes."""
+    codes = np.concatenate([[0], ALL_CODES]).astype(np.uint8)
+    x = torch.from_numpy(np.repeat(codes[:, None], 64, axis=1)).to(dev)
+    plan = get_plan(measure)
+    kp = plan_to_torch(plan, dev)
+    got = kernels.counters_cuda(x, x, kp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kernels.counters_torch(x, x, kp))
+    for g, name in enumerate(plan.counters):
+        want = 64 * reference_counter_matrix(name)[np.ix_(codes, codes)]
+        np.testing.assert_array_equal(got[g].cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("width", [31, 32, 33, 4095])
+@pytest.mark.parametrize("measure", MEASURES)
+def test_kernel_matches_plain_at_tile_edges(dev, measure, width):
+    """Rows on either side of the 128 x 256 tile, sites on either side of
+    a 32-site k-step (and a 64-site chunk, at 4095)."""
+    rng = np.random.default_rng(28)
+    plan = plan_to_torch(get_plan(measure), dev)
+    for m in (127, 128, 129):
+        for n in (255, 256, 257):
+            x = torch.from_numpy(random_codes(rng, m, width)).to(dev)
+            y = torch.from_numpy(random_codes(rng, n, width)).to(dev)
+            got = kernels.counters_cuda(x, y, plan)
+            torch.cuda.synchronize()
+            assert torch.equal(got, kernels.counters_torch(x, y, plan)), (
+                m, n)
+
+
+def test_wrapper_pads_codes_to_16_sites(dev):
+    """A width that is not a multiple of 16, or codes at an address off
+    the 16-byte grid, are copied into 16-site rows of code 0 before the
+    launch; the counters do not change."""
+    rng = np.random.default_rng(29)
+    plan = plan_to_torch(get_plan("tn93"), dev)
+    x = torch.from_numpy(random_codes(rng, 40, 37)).to(dev)
+    y = torch.from_numpy(random_codes(rng, 300, 37)).to(dev)
+    assert kernels._site_aligned(x).shape == (40, 48)
+    flat = torch.from_numpy(random_codes(rng, 1, 40 * 48 + 1)).to(dev)
+    xs = flat.view(-1)[1:].view(40, 48)  # contiguous, 1 byte off the grid
+    assert xs.data_ptr() % 16 and kernels._site_aligned(xs) is not xs
+    # no sites: torch gives the rows a stride of 1, and nothing is read
+    x0 = torch.zeros((3, 0), dtype=torch.uint8, device=dev)
+    before = kernels.LAUNCHES
+    for a, b in ((x, y), (xs, xs[:30]), (x0, x0[:2])):
+        got = kernels.counters_cuda(a, b, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, kernels.counters_torch(a, b, plan))
+    assert kernels.LAUNCHES == before + 3
 
 
 def test_kernel_counts_launches_and_refuses_strided_codes(dev):
