@@ -21,12 +21,13 @@ kernel beside the plain version.  Phases:
    (1, 3 and 129 sites, copied into 16-site rows by the wrapper), an
    empty side, a 512 x 512 block of the bench alignment, and the
    launches of the stream phase (2000 loaded rows against groups of 8000
-   and 384 rows) and of phase 9 (square blocks of 1024 x 1024, rectangle
+   and 384 rows), of phase 9 (square blocks of 1024 x 1024, rectangle
    blocks of 512 x 1024, loaded super-rows of 3072 and 2048 rows against
    groups of 2000 and 96, and 4,194,305 loaded rows of 64 sites against
-   8), sites padded as the engine uploads them; and for raw and tn93 at
-   4,194,305 x 8 x 16, more x row tiles than one grid axis of 65535
-   blocks holds;
+   8) and of phase 10's staged shard (loaded super-rows of 1024 and 976
+   rows against a group of 8000), sites padded as the engine uploads
+   them; and for raw and tn93 at 4,194,305 x 8 x 16, more x row tiles
+   than one grid axis of 65535 blocks holds;
 3. the square path: the CLI on the 8192 x 29904 alignment, ``-m raw
    --backend cuda``; line count, 1200 random rows against the host
    oracle, the kernel's launch count in that run, and a
@@ -47,7 +48,8 @@ kernel beside the plain version.  Phases:
 7. the stream path: 2000 loaded x 16384 streamed x 29904 with ``-b
    1000``, ``-m raw``: groups of 8000, 8000 and 384 records, so group
    ends are ragged and a pinned buffer is refilled; line count, 1200
-   random rows, one launch per group, and the profiler split;
+   random rows, one launch per group, the TSV's sha256, and the profiler
+   split;
 8. all six measures, ``--backend cuda`` against ``--backend torch``:
    identical bytes for a 128 x 256 rectangle and a 128-loaded x
    300-streamed stream with ``-b 7``;
@@ -62,7 +64,18 @@ kernel beside the plain version.  Phases:
    (square 256, rectangle 128 x 256, stream 128 x 300 ``-b 7``) against
    the in-core ``--backend torch`` bytes, and an in-core stream of 8
    records against 4,194,305 loaded records of 64 sites (one launch;
-   line count and 1200 random rows).
+   line count and 1200 random rows);
+10. more than one process: the stream of phase 7 in two shards in this
+   process, ``--shard 0/2`` in core (groups 0 and 2: 2 launches) and
+   ``--shard 1/2`` staged under a device budget of 400 MB (group 1
+   against loaded super-rows of 1024 and 976 rows: 2 launches), their
+   ``.units`` sidecars, and ``--merge``, whose sha256 must be phase 7's;
+   then as subprocesses on the same card, each TSV's sha256 against the
+   single run's and each wall beside one single-process subprocess
+   wall: ``--launch 2`` of the square of phase 3 and of the stream,
+   ``--num-hosts 2 --host-id k`` of the stream (two processes), and
+   ``--coordinator 127.0.0.1:<port>`` (a gloo rendezvous) of a 2048-row
+   square (two processes).
 
 Any failed check raises, and the script exits non-zero without a result.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -136,6 +149,14 @@ OOC_SMALL_STREAM = (2_000_000, 200_000, (64, 64))
 # The in-core stream of a few records against a long loaded side: one
 # launch of LONG_STREAM[0] x rows.
 LONG_STREAM = (4_194_305, 8, 64)
+# Phase 10: the staged stream shard's (device budget, host budget, tiles),
+# and the launches they give at raw: group 1 of the phase 7 stream (8000
+# records) against loaded super-rows of 1024 and 976 rows.
+SHARD_STAGED = (400_000_000, 4 << 30, (1024, 1024))
+SHARD_STAGED_LAUNCHES = [(1024, 8000), (976, 8000)]
+N_COORD = 2048
+# Seconds a phase 10 subprocess may take before it is killed.
+PROC_TIMEOUT_S = 300
 
 
 def check(ok: bool, msg: str) -> None:
@@ -287,6 +308,8 @@ def phase_kernel_vs_plain(bench: np.ndarray) -> int:
                 sorted(set(STREAM_GROUPS))]
     launches += [(f"{mode}-ooc", m, n) for mode, shapes in OOC_LAUNCHES.items()
                  for m, n in shapes]
+    launches += [("stream-shard-staged", m, n)
+                 for m, n in SHARD_STAGED_LAUNCHES]
     path_cases = [(f"{tag} {m}x{n}x{l_pad}", padded(bench[:m]),
                    padded(bench[-n:])) for tag, m, n in launches]
     # phase 9's long loaded side: every loaded row as x in one launch
@@ -679,9 +702,10 @@ def phase_rectangle(tmp: str) -> tuple:
     return launches, sha256(args[-1])
 
 
-def phase_stream(tmp: str) -> int:
+def phase_stream(tmp: str) -> tuple:
     """The CLI streaming records against a loaded file, both cut from one
-    alignment; returns the kernel launches of the run."""
+    alignment; returns the kernel launches of the run and its TSV's
+    sha256."""
     from distance_tpu_torch import measures
     from distance_tpu_torch.writer import format_float
 
@@ -709,8 +733,9 @@ def phase_stream(tmp: str) -> int:
     print(f"[7] {1 + pairs} lines; {SAMPLES} random rows equal the host"
           " oracle")
     del data
+    sha = sha256(args[-1])
     profiled_run("[7]", args)
-    return launches
+    return launches, sha
 
 
 def phase_cuda_vs_torch(tmp: str, bench: np.ndarray) -> None:
@@ -957,6 +982,156 @@ def phase_long_loaded(tmp: str) -> int:
     return launches
 
 
+def run_procs(tag: str, commands: list, env: dict) -> float:
+    """Start the port's CLI with each argument list, all at once, in
+    sessions of their own; wait for all of them (killing every process of
+    those sessions after a failure or PROC_TIMEOUT_S) and return the
+    wall."""
+    import signal
+
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "distance_tpu_torch.cli",
+                               *args], env=env, start_new_session=True)
+             for args in commands]
+    try:
+        for p in procs:
+            p.wait(timeout=PROC_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    wall = time.perf_counter() - t0
+    rcs = [p.returncode for p in procs]
+    check(rcs == [0] * len(procs), f"{tag}: exit codes {rcs}")
+    return wall
+
+
+def check_sha(tag: str, path: str, want: str) -> None:
+    check(sha256(path) == want, f"{tag}: TSV differs from the single run's")
+    os.remove(path)
+
+
+def phase_multiprocess(shas: dict) -> int:
+    """The stream of phase 7 in two shards in this process, one of them
+    staged, and their merge; then ``--launch 2``, ``--num-hosts`` and
+    ``--coordinator`` runs as processes on this card, each TSV against the
+    single run's sha256 and each wall beside a single-process one.
+    Returns the kernel launches of the two shards."""
+    import torch
+
+    from distance_tpu_torch import cli, engine
+
+    t_phase = time.perf_counter()
+    card = gpu_line()
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here,
+               DISTANCE_TPU_MERGE_TIMEOUT=str(PROC_TIMEOUT_S))
+    l_pad = -(-L_BENCH // 128) * 128
+    with tempfile.TemporaryDirectory() as tmp:
+        n1, n2 = N_STREAM
+        *_, f1, f2 = write_inputs(tmp, "[10]", n1, n2, SEED + 5, "s")
+        args = [f1, "-s", f2, "-b", str(STREAM_BATCH)]
+        parts = [os.path.join(tmp, f"shard{k}.tsv") for k in range(2)]
+        wall0, n_in_core = run_cli("[10] shard 0/2",
+                                   args + ["--shard", "0/2", "-o", parts[0]])
+        check(n_in_core == 2, f"shard 0/2: {n_in_core} launches, expected"
+                              " one for each of groups 0 and 2")
+        with out_of_core(*SHARD_STAGED) as seen:
+            wall1, n_staged = run_cli(
+                "[10] shard 1/2", args + ["--shard", "1/2", "-o", parts[1]])
+        want = {(m, n, l_pad) for m, n in SHARD_STAGED_LAUNCHES}
+        spans = sorted(set(seen["spans"]))
+        check(seen["groups"] == [STREAM_GROUPS[1]]
+              and [q1 - q0 for q0, q1 in spans] == [m for m, _ in
+                                                    SHARD_STAGED_LAUNCHES]
+              and seen["launch_shapes"] == want and n_staged == 2,
+              f"shard 1/2: groups {seen['groups']}, super-rows {spans},"
+              f" launch shapes {sorted(seen['launch_shapes'])}, {n_staged}"
+              " launches; expected one staged group against two super-rows")
+        units = []
+        for p in parts:
+            with open(p + ".units") as f:
+                sidecar = json.load(f)
+            units.append([g for g, _ in sidecar["units"]])
+            # under a shard the group is the cap, whatever the memory
+            check(sidecar["group"] == engine.STREAM_GROUP_CAP,
+                  f"{p}: group {sidecar['group']}")
+        check(units == [[0, 2], [1]], f"shard units {units}")
+        merged = os.path.join(tmp, "merged.tsv")
+        t0 = time.perf_counter()
+        check(cli.main(["--merge", *parts, "-o", merged]) == 0,
+              "--merge failed")
+        merge_wall = time.perf_counter() - t0
+        check_sha("[10] --merge of the shards", merged, shas["stream"])
+        print(f"[10] stream {n1} x {n2} in two shards in this process:"
+              f" shard 0/2 in core {wall0:.3f} s ({n_in_core} K1 launches,"
+              f" groups 0 and 2), shard 1/2 staged under"
+              f" {SHARD_STAGED[0]} B {wall1:.3f} s ({n_staged} K1 launches:"
+              f" group 1 against super-rows {[q1 - q0 for q0, q1 in spans]});"
+              f" --merge {merge_wall:.3f} s; sha256 equals phase 7's ({card})")
+        for part in parts:
+            os.remove(part)
+
+        # the card's memory this process's allocator holds would shrink
+        # the processes' budgets
+        torch.cuda.empty_cache()
+        args += ["-m", "raw", "--backend", "cuda"]
+        out = os.path.join(tmp, "out.tsv")
+        single = run_procs("[10] stream, one process", [args + ["-o", out]],
+                           env)
+        check_sha("[10] stream, one process", out, shas["stream"])
+        launched = run_procs("[10] stream --launch 2",
+                             [args + ["--launch", "2", "-o", out]], env)
+        check_sha("[10] stream --launch 2", out, shas["stream"])
+        hosts = run_procs("[10] stream --num-hosts 2", [
+            args + ["--num-hosts", "2", "--host-id", str(k), "-o", out]
+            for k in range(2)], env)
+        check_sha("[10] stream --num-hosts 2", out, shas["stream"])
+        print(f"[10] stream {n1} x {n2} as processes: one process"
+              f" {single:.3f} s, --launch 2 {launched:.3f} s"
+              f" ({launched / single:.3f} x), --num-hosts 2 (two processes)"
+              f" {hosts:.3f} s ({hosts / single:.3f} x); sha256 equal"
+              f" ({card})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        bench = make_alignment(N_BENCH, L_BENCH, SEED)
+        fasta = os.path.join(tmp, "bench.fasta")
+        write_fasta(fasta, bench)
+        args = [fasta, "-m", "raw", "--backend", "cuda"]
+        out = os.path.join(tmp, "out.tsv")
+        single = run_procs("[10] square, one process", [args + ["-o", out]],
+                           env)
+        check_sha("[10] square, one process", out, shas["square"])
+        launched = run_procs("[10] square --launch 2",
+                             [args + ["--launch", "2", "-o", out]], env)
+        check_sha("[10] square --launch 2", out, shas["square"])
+        print(f"[10] square {N_BENCH} as processes: one process"
+              f" {single:.3f} s, --launch 2 {launched:.3f} s"
+              f" ({launched / single:.3f} x); sha256 equal ({card})")
+
+        small = os.path.join(tmp, "small.fasta")
+        write_fasta(small, bench[:N_COORD])
+        del bench
+        args = [small, "-m", "raw", "--backend", "cuda"]
+        ref = os.path.join(tmp, "ref.tsv")
+        check(cli.main(args + ["-o", ref]) == 0, "square 2048 failed")
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            coordinator = f"127.0.0.1:{sock.getsockname()[1]}"
+        wall = run_procs("[10] --coordinator", [
+            args + ["--coordinator", coordinator, "--num-hosts", "2",
+                    "--host-id", str(k), "-o", out] for k in range(2)], env)
+        check_sha("[10] --coordinator", out, sha256(ref))
+        print(f"[10] square {N_COORD} over a gloo rendezvous at"
+              f" {coordinator}: two processes {wall:.3f} s; sha256 equals"
+              f" this process's run ({card})")
+    print(f"[10] phase 10 passed in {time.perf_counter() - t_phase:.1f} s")
+    return n_in_core + n_staged
+
+
 def measure_mode() -> None:
     """Walls and host phase totals of the rectangle and the stream for
     each measure and batch size, and of a longer stream; no checks."""
@@ -1064,11 +1239,12 @@ def main(argv: list) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         launches["rectangle"], shas["rectangle"] = phase_rectangle(tmp)
     with tempfile.TemporaryDirectory() as tmp:
-        launches["stream"] = phase_stream(tmp)
+        launches["stream"], shas["stream"] = phase_stream(tmp)
     with tempfile.TemporaryDirectory() as tmp:
         phase_cuda_vs_torch(tmp, bench)
     del bench
     launches.update(phase_out_of_core(shas))
+    launches["stream_shards"] = phase_multiprocess(shas)
     print(f"chip_smoke: all phases passed in"
           f" {time.perf_counter() - t_start:.1f} s")
     print(card)

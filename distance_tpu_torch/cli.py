@@ -8,17 +8,19 @@ silently).  Adds one engine-specific extension: ``--backend`` to pick the
 compute path: ``cuda`` (the default: the counter kernel on the card) or
 ``torch`` (its plain PyTorch version on the CPU).  The port runs one
 alignment (square), two (rectangle) and a stream against one loaded
-alignment (``-s``); flags whose paths are not ported yet exit 1 with a
-message naming them.
+alignment (``-s``), and the JAX CLI's multi-process flags: ``--shard``
+in every mode, ``--merge``, ``--launch`` and the multi-host flags
+(``parallel/multihost.py``).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
-from typing import Optional
 
 from distance_tpu_torch.fastaio import DistanceError
+from distance_tpu_torch.parallel import multihost
 
 USAGE = """All sequences across all input files must be the same length.
 
@@ -77,12 +79,25 @@ _EXT_OPTS = [
      " byte-identical file"),
     ("    --shard <K/N>",
      "Compute the K-th of N balanced work shards (K in 0..N-1)."
-     " Shard outputs concatenate to the unsharded file"),
-    ("    --launch <N>", "Multi-process run (not yet ported)"),
-    ("    --num-hosts <N>", "Multi-host run (not yet ported)"),
-    ("    --host-id <K>", "This host's index (not yet ported)"),
-    ("    --coordinator <ADDR>", "Multi-host rendezvous (not yet ported)"),
-    ("    --merge <PART>...", "Merge shard part files (not yet ported)"),
+     " Load-mode shard outputs concatenate to the unsharded file;"
+     " stream-mode shards write a .units sidecar and merge via --merge"),
+    ("    --launch <N>",
+     "Single-command multi-process run: spawn N local shard workers and"
+     " merge their outputs; the final file is byte-identical to an"
+     " unsharded run"),
+    ("    --num-hosts <N>",
+     "Multi-host run over a shared filesystem: total number of hosts;"
+     " each host computes its shard into <output>.partK and host 0"
+     " merges"),
+    ("    --host-id <K>", "This host's index in 0..N-1 (with --num-hosts)"),
+    ("    --coordinator <ADDR>",
+     "torch.distributed coordinator address (host:port); derives"
+     " --num-hosts/--host-id from the runtime rendezvous (torchrun's"
+     " WORLD_SIZE/RANK when the flags are absent)"),
+    ("    --merge <PART>...",
+     "Merge shard part files into -o/--output (or stdout) and exit;"
+     " interleaves stream-mode parts via their .units sidecars,"
+     " concatenates load-mode parts"),
 ]
 
 
@@ -212,34 +227,16 @@ def _io_error_debug(e: OSError) -> str:
     """Rust io::Error's Debug spelling for an OS error: the reference's
     main prints `Error: IOError(Os { code: 2, kind: NotFound, message:
     "No such file or directory" })` for a missing input file."""
-    import os as _os
-
     code = e.errno if e.errno is not None else 0
     kind = _ERRNO_KIND.get(code, "Uncategorized")
     try:
-        msg = _os.strerror(code) if code else (e.strerror or str(e))
+        msg = os.strerror(code) if code else (e.strerror or str(e))
     except (ValueError, OverflowError):
         msg = e.strerror or str(e)
     return (
         f'IOError(Os {{ code: {code}, kind: {kind},'
         f' message: "{msg}" }})'
     )
-
-
-def _unported(args) -> Optional[str]:
-    """What the arguments ask for that the port does not run yet."""
-    if args.merge is not None:
-        return "--merge"
-    if args.launch is not None:
-        return "--launch"
-    for flag, value in (("--num-hosts", args.num_hosts),
-                        ("--host-id", args.host_id),
-                        ("--coordinator", args.coordinator)):
-        if value is not None:
-            return f"the multi-host run ({flag})"
-    if args.stream is not None and args.shard is not None:
-        return "the sharded stream (-s with --shard)"
-    return None
 
 
 def main(argv=None) -> int:
@@ -278,14 +275,32 @@ def main(argv=None) -> int:
                 )
                 return 2
 
-    from distance_tpu_torch.engine import device_of, not_ported, run, set_up
-
     try:
-        unported = _unported(args)
-        if unported is not None:
-            raise not_ported(unported)
-        device_of(args.backend)  # no CUDA device: fail before reading input
-        run(set_up(args))
+        if args.merge is not None:
+            # the merge reads part files only: it needs no card
+            _merge(args)
+            return 0
+        if args.launch is not None:
+            return multihost.launch(args)
+
+        from distance_tpu_torch.engine import device_of, run, set_up
+
+        ctx = multihost.resolve_multihost(args)
+        try:
+            device_of(args.backend)  # no CUDA device: fail before any input
+            run(set_up(args))
+        except BrokenPipeError:
+            raise  # silent exit 0, never a multihost failure signal
+        except BaseException as e:
+            # ANY failure (incl. KeyboardInterrupt or an unexpected
+            # exception) must publish this host's failure marker, or
+            # host 0 waits for it forever
+            if ctx is not None:
+                multihost.finish_multihost(
+                    ctx, ok=False, err=str(e) or type(e).__name__)
+            raise
+        if ctx is not None:
+            multihost.finish_multihost(ctx, ok=True)
     except DistanceError as e:
         # The reference prints the error Debug-style from main and exits 1
         # (src/main.rs:4-16 with DistanceError's empty Display).
@@ -300,6 +315,22 @@ def main(argv=None) -> int:
         print(f"Error: {_io_error_debug(e)}", file=sys.stderr)
         return 1
     return 0
+
+
+def _merge(args) -> None:
+    """``--merge PART...``: the parts into -o (or stdout), kept.  A merge
+    that fails leaves no output file."""
+    if args.output is None:
+        multihost.merge_parts(sys.stdout.buffer, args.merge, cleanup=False)
+        sys.stdout.buffer.flush()
+        return
+    out = open(args.output, "wb")
+    try:
+        with out:
+            multihost.merge_parts(out, args.merge, cleanup=False)
+    except BaseException:
+        os.remove(args.output)
+        raise
 
 
 if __name__ == "__main__":

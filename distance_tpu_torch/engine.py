@@ -21,10 +21,11 @@ the device and sends the records in groups, one kernel launch per group
 and super-rows through the device (``_sweep_blocked``), and the stream
 sweeps a host-resident loaded side in super-rows per group (the staged
 stream).  The counters travel unpacked as int32 and the codes dense (no
-diff uploads).  Sharded-stream, multi-device and multi-host runs are not
-ported yet: a run that needs one raises ``DistanceError`` naming it.
-Output bytes are identical to the JAX engine's for every tile, group and
-budget.
+diff uploads).  A sharded stream (``-s`` with ``--shard K/N``) runs every
+N-th group and indexes its units in a ``.units`` sidecar, which
+``parallel/multihost.merge_parts`` interleaves into the unsharded file.
+Multi-device runs are not ported yet.  Output bytes are identical to the
+JAX engine's for every tile, group, budget and shard.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ from distance_tpu_torch.finalize import finalize_block
 from distance_tpu_torch.ops import counters as kernels
 from distance_tpu_torch.ops.features import CounterPlan, get_plan
 from distance_tpu_torch.ops.plan import plan_to_torch
+from distance_tpu_torch.parallel.multihost import CARD_SHARE_ENV, UnitIndex
 from distance_tpu_torch.utils.timing import phase_timer
 from distance_tpu_torch.writer import TsvWriter
 
@@ -74,8 +76,9 @@ STREAM_GROUP_CAP = 8192
 STREAM_PENDING = 3
 # Device bytes a sweep may hold.  0 = auto: half the memory the card can
 # hand out when the sweep starts (half its total where a size must not
-# change between runs), and no budget on the CPU.  A nonzero value
-# applies on every device, the CPU included.
+# change between runs), divided among the workers of a --launch, and no
+# budget on the CPU.  A nonzero value applies on every device, the CPU
+# included.
 DEVICE_BUDGET = 0
 # Host bytes for the counter buffers of out-of-core groups (the JAX
 # package's default): an X group's buffer, or the staged stream's groups
@@ -86,10 +89,6 @@ HOST_BUF_BUDGET = 4 << 30
 STAGED_ROWS_FLOOR = 256
 
 BACKENDS = ("cuda", "torch")
-
-
-def not_ported(what: str) -> DistanceError:
-    return DistanceError(f"{what} is not yet ported to distance_tpu_torch")
 
 
 @dataclass
@@ -263,8 +262,6 @@ def _input_fingerprint(paths: Sequence[str]) -> List[dict]:
 
 def run(setup: Setup) -> None:
     """Dispatch to the loaded or streamed sweep (lib.rs:490-498)."""
-    if setup.streamed is not None and setup.shard is not None:
-        raise not_ported("the sharded stream (-s with --shard)")
     if setup.shard is not None and setup.shard[0] != 0:
         setup.writer.suppress_header()
     _resolve_auto_tiles(setup)
@@ -278,6 +275,7 @@ def run(setup: Setup) -> None:
             aln.n, int(split.keep.sum()) if split is not None else aln.width,
             setup.measure, device_of(setup.backend),
             min(setup.tile_i, _pow2_at_least(aln.n)),
+            sharded=setup.shard is not None,
         )
     if setup.progress is not None:
         cfg = {
@@ -375,15 +373,17 @@ def _device_budget(device: torch.device,
     set, else half the memory the card can hand out now (the rest is
     headroom for the allocator and the plain version's temporaries), or
     with ``of_total`` half the card's total, which other processes cannot
-    move (sizes recorded for a resume come from it).  None on the CPU
-    unless DEVICE_BUDGET is set: there the plain version keeps everything
-    in core."""
+    move (sizes recorded for a resume come from it).  A worker of a
+    ``--launch N`` takes 1/N of that: its N workers start together, and
+    each sees the whole card free.  None on the CPU unless DEVICE_BUDGET
+    is set: there the plain version keeps everything in core."""
     if DEVICE_BUDGET:
         return DEVICE_BUDGET
     memory = _card_memory(device)
     if memory is None:
         return None
-    return memory[1 if of_total else 0] // 2
+    share = int(_os.environ.get(CARD_SHARE_ENV) or 1)
+    return memory[1 if of_total else 0] // 2 // share
 
 
 class _BlockEngine:
@@ -1144,7 +1144,7 @@ def _threaded_iter(it, maxsize: int = 64):
 
 
 def _stream_group_size(n1: int, width: int, measure: str,
-                       device: torch.device) -> int:
+                       device: torch.device, sharded: bool = False) -> int:
     """Streamed records per device group, even: as many as fit, up to
     STREAM_GROUP_CAP.
 
@@ -1155,13 +1155,25 @@ def _stream_group_size(n1: int, width: int, measure: str,
     (``width`` is the loaded side's width on the device, after the
     variant split).  The size is a resume unit, so it does not follow
     the memory that is free.  A nonzero STREAM_GROUP fixes it instead.
+
+    Under a shard (``sharded``) the groups are also the units the merge
+    interleaves, so every shard must cut the stream alike, whatever card
+    and host it runs on: the size then follows only the inputs, the
+    measure and the module constants (the pinned host allowance of
+    ``_strip_ram_budget(deterministic=True)``, the cap, K1's y-row limit,
+    and the staged group's host cap of ``_stream_layout``), never a
+    card's or a host's memory.
     """
     if STREAM_GROUP:
         return max(2, STREAM_GROUP + (STREAM_GROUP & 1))
     g = len(get_plan(measure).counters)
     in_flight = STREAM_PENDING + 1
-    rows = min(STREAM_GROUP_CAP,
-               _strip_ram_budget() // (in_flight * (g + 2) * n1 * 4))
+    ram = (_strip_ram_budget(deterministic=True) if sharded
+           else _strip_ram_budget())
+    rows = min(STREAM_GROUP_CAP, ram // (in_flight * (g + 2) * n1 * 4))
+    if sharded:
+        rows = min(rows, kernels.MAX_Y_ROWS, _staged_group_cap(n1, g))
+        return max(2, rows // 2 * 2)
     budget = _device_budget(device, of_total=True)
     if budget is not None:
         l_pad = -(-max(width, 1) // 128) * 128
@@ -1169,6 +1181,14 @@ def _stream_group_size(n1: int, width: int, measure: str,
             in_flight * (g * n1 * 4 + l_pad)
         ))
     return max(2, rows // 2 * 2)
+
+
+def _staged_group_cap(n1: int, counters_per_pair: int) -> int:
+    """Most records in a staged group: its (G, n1, rows) int32 host
+    buffer takes at most half of HOST_BUF_BUDGET, but the group is never
+    below STAGED_ROWS_FLOOR."""
+    col_bytes = max(1, counters_per_pair * n1 * 4)
+    return max(STAGED_ROWS_FLOOR, HOST_BUF_BUDGET // 2 // col_bytes // 2 * 2)
 
 
 @dataclass(frozen=True)
@@ -1184,7 +1204,7 @@ class _StreamLayout:
 
 
 def _stream_layout(n1: int, width: int, measure: str, device: torch.device,
-                   ti: int) -> _StreamLayout:
+                   ti: int, sharded: bool = False) -> _StreamLayout:
     """In core when the loaded codes and STREAM_PENDING + 1 groups fit the
     device budget; staged otherwise (the JAX engine's ``_run_stream``
     staging, sized for int32 counters).
@@ -1194,8 +1214,9 @@ def _stream_layout(n1: int, width: int, measure: str, device: torch.device,
     side fits half the card in core, else the staged size, that raised to
     2048 records and then bounded so that its (G, n1, rows) host buffer
     takes at most half of HOST_BUF_BUDGET, but never below
-    STAGED_ROWS_FLOOR.  A nonzero STREAM_GROUP fixes it instead.  Only
-    the choice between in core and staged follows the free memory.
+    STAGED_ROWS_FLOOR.  A nonzero STREAM_GROUP fixes it instead, and
+    under a shard ``_stream_group_size`` gives it whatever the card.
+    Only the choice between in core and staged follows the free memory.
     Fewer groups are in flight when their buffers would pass half the
     host budget.  A super-row, a multiple of ``ti``, takes the device
     budget left beside one group's codes, with its own codes and its
@@ -1209,11 +1230,10 @@ def _stream_layout(n1: int, width: int, measure: str, device: torch.device,
         return budget is None or n1 * l_pad + (STREAM_PENDING + 1) * grows * (
             col_bytes + l_pad) <= budget
 
-    grows = _stream_group_size(n1, width, measure, device)
-    if not STREAM_GROUP and not fits(_device_budget(device, of_total=True),
-                                     grows):
-        cap = HOST_BUF_BUDGET // 2 // col_bytes // 2 * 2
-        grows = min(max(grows, 2048), max(STAGED_ROWS_FLOOR, cap))
+    grows = _stream_group_size(n1, width, measure, device, sharded)
+    if not (STREAM_GROUP or sharded) and not fits(
+            _device_budget(device, of_total=True), grows):
+        grows = min(max(grows, 2048), _staged_group_cap(n1, g))
     budget = _device_budget(device)
     if fits(budget, grows):
         return _StreamLayout(grows, STREAM_PENDING)
@@ -1303,14 +1323,42 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
     (``_dispatch_stream_staged``).  A group is one resume unit.  On a bad
     streamed record every fully read user batch is emitted first, then
     the error is raised.
+
+    Under ``--shard K/N`` groups go round-robin by global ordinal: every
+    shard parses the whole stream but uploads and launches only the
+    groups ``g`` with ``g % N == K``; the resume key is the shard's own
+    count of groups.  With an output path each emitted group is recorded
+    in the part's ``.units`` sidecar (``UnitIndex``: global ordinal and
+    bytes, and the group size), which the merge interleaves.
     """
     from concurrent.futures import ThreadPoolExecutor
 
     aln = setup.loaded[0]
     n1, width = aln.n, aln.width
     grows = layout.group
+    shard_k, shard_n = setup.shard if setup.shard is not None else (0, 1)
     done = _resume_skip(setup)
+    unit_index = None
+    if setup.shard is not None and setup.out_path is not None:
+        unit_index = UnitIndex(setup.out_path)
+        if done:
+            if not unit_index.load() or len(unit_index.units) < done:
+                raise DistanceError(
+                    "Cannot resume sharded stream: missing or short"
+                    f" units index {unit_index.sidecar}"
+                )
+            unit_index.truncate(done)
     setup.writer.header()
+    if unit_index is not None and not done:
+        try:
+            unit_index.preamble = setup.writer.tell()
+        except (OSError, AttributeError):
+            unit_index = None
+    if unit_index is not None:
+        # saved now, so that a shard left without groups still has its
+        # sidecar (and its group size) for the merge
+        unit_index.group = grows
+        unit_index.save()
     plan = get_plan(setup.measure)
     width_dev = int(split.keep.sum()) if split is not None else width
     device = device_of(setup.backend)
@@ -1355,7 +1403,7 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
     spool = _ScratchPool()
 
     def flush_one() -> None:
-        ordinal, ids2, bcounts, offs, bn, handle = pending.pop(0)
+        g_ord, local_ord, ids2, bcounts, offs, bn, handle = pending.pop(0)
         with phase_timer("stream-fetch-wait"):
             strip = handle.result()  # (G, n1, bn)
         # Emission: for each streamed record (outer), all loaded (inner)
@@ -1424,13 +1472,18 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
 
         def tail(ids2=ids2, row_idx=row_idx, local_cols=local_cols,
                  values=values, keys=keys, keyspace=keyspace,
-                 ordinal=ordinal, lease=lease):
+                 g_ord=g_ord, local_ord=local_ord, lease=lease):
             try:
+                if unit_index is not None:
+                    pos0 = setup.writer.tell()
                 setup.writer.rows(
                     aln.ids, ids2, row_idx, local_cols, values, keys,
                     keyspace,
                 )
-                _progress_mark(setup, ordinal + 1)
+                if unit_index is not None:
+                    unit_index.append(g_ord, setup.writer.tell() - pos0)
+                    unit_index.save()
+                _progress_mark(setup, local_ord + 1)
             finally:
                 spool.give_all(lease)
 
@@ -1439,17 +1492,22 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
 
     group: List[tuple] = []  # (batch, r0, r1): rows r0..r1-1 of a batch
     group_rows = 0
-    n_groups = 0
+    g_ordinal = 0  # global group ordinal (shard-independent)
+    local_idx = 0  # this shard's group count (the resume key)
 
     def dispatch_group() -> None:
-        nonlocal group, group_rows, n_groups
+        nonlocal group, group_rows, g_ordinal, local_idx
         pieces, bn = group, group_rows
         group, group_rows = [], 0
         if not pieces:
             return
-        ordinal = n_groups
-        n_groups += 1
-        if ordinal < done:
+        this_global = g_ordinal
+        g_ordinal += 1
+        if this_global % shard_n != shard_k:
+            return
+        this_local = local_idx
+        local_idx += 1
+        if this_local < done:
             return
         with phase_timer("stream-group-build"):
             ids2 = [i for b, r0, r1 in pieces for i in b.ids[r0:r1]]
@@ -1483,7 +1541,8 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
         else:
             fetch = _AsyncFetch(eng.block(prep_fut.result(), codes, 0, 0,
                                           n1, bn))
-        pending.append((ordinal, ids2, bcounts, offs, bn, fetch))
+        pending.append((this_global, this_local, ids2, bcounts, offs, bn,
+                        fetch))
         while len(pending) > layout.pending:
             flush_one()
 

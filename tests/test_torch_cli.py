@@ -161,31 +161,6 @@ def test_cuda_backend_without_device_fails_cleanly(tmp_path, capsys):
     assert not out.exists() or out.read_bytes() == b""
 
 
-@pytest.mark.parametrize(
-    "extra, what",
-    [
-        (["-s", "{b}", "--shard", "0/2"], "sharded stream"),
-        (["{b}", "--merge", "{b}"], "--merge"),
-        (["--merge", "{b}"], "--merge"),
-        (["--launch", "2"], "--launch"),
-        (["--num-hosts", "2", "--host-id", "0"], "multi-host"),
-        (["--coordinator", "localhost:1"], "multi-host"),
-    ],
-)
-def test_unported_paths_exit_1(tmp_path, capsys, extra, what):
-    rng = np.random.default_rng(37)
-    a, b = tmp_path / "a.fasta", tmp_path / "b.fasta"
-    a.write_bytes(make_fasta(random_seqs(rng, 4, 12)))
-    b.write_bytes(make_fasta(random_seqs(rng, 3, 12)))
-    out = tmp_path / "out.tsv"
-    args = [str(a)] + [e.format(b=b) for e in extra]
-    rc = port_cli.main(args + ["--backend", "torch", "-o", str(out)])
-    err = capsys.readouterr().err
-    assert rc == 1
-    assert what in err and "not yet ported" in err
-    assert not out.exists()
-
-
 def test_resume_run_matches_and_clears_sidecar(tmp_path):
     rng = np.random.default_rng(38)
     fasta = make_fasta(random_seqs(rng, 20, 60, amb_frac=0.2))

@@ -255,3 +255,34 @@ def test_cli_cuda_equals_torch_rect_stream(dev, tmp_path, monkeypatch, mode,
         elif mode == "stream":
             assert launched == 11 * 2 + 1  # 11 batches of 7, then 3
     assert outs["cuda"].read_bytes() == outs["torch"].read_bytes()
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+def test_stream_shards_on_card_merge_to_plain_bytes(dev, tmp_path,
+                                                    monkeypatch, measure):
+    """Two stream shards on the card (groups of 14 records: two -b 7
+    batches, 22 groups in all, round-robin) merge to the plain version's
+    unsharded bytes; each shard launches K1 once per group it owns."""
+    rng = np.random.default_rng(30)
+    anc = random_codes(rng, 1, 300)
+    mat = np.repeat(anc, 428, axis=0)
+    hits = rng.random(mat.shape) < 0.1
+    mat[hits] = rng.choice(ALL_CODES, size=int(hits.sum()))
+    a, b = tmp_path / "a.fasta", tmp_path / "b.fasta"
+    write_fasta(a, mat[:128])
+    write_fasta(b, mat[128:])
+    args = [str(a), "-s", str(b), "-b", "7", "-m", measure]
+    monkeypatch.setattr(engine, "STREAM_GROUP", 16)
+    parts, launched = [], []
+    for k in range(2):
+        parts.append(str(tmp_path / f"p{k}"))
+        before = kernels.LAUNCHES
+        rc = cli.main(args + ["--backend", "cuda", "--shard", f"{k}/2",
+                              "-o", parts[-1]])
+        assert rc == 0
+        launched.append(kernels.LAUNCHES - before)
+    assert launched == [11, 11]
+    merged, plain = tmp_path / "merged.tsv", tmp_path / "plain.tsv"
+    assert cli.main(["--merge", *parts, "-o", str(merged)]) == 0
+    assert cli.main(args + ["--backend", "torch", "-o", str(plain)]) == 0
+    assert merged.read_bytes() == plain.read_bytes()

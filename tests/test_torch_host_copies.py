@@ -10,6 +10,7 @@ unimportable.
 """
 
 import inspect
+import json
 import os
 import re
 import subprocess
@@ -23,9 +24,12 @@ torch = pytest.importorskip("torch")
 
 import distance_tpu.engine as jax_engine  # noqa: E402
 import distance_tpu.ops.diffup as jax_diffup  # noqa: E402
+import distance_tpu.parallel.multihost as jax_multihost  # noqa: E402
 import distance_tpu_torch.emit as port_emit  # noqa: E402
 import distance_tpu_torch.engine as port_engine  # noqa: E402
 import distance_tpu_torch.ops.diffup as port_diffup  # noqa: E402
+import distance_tpu_torch.parallel.multihost as port_multihost  # noqa: E402
+from distance_tpu_torch.ops.features import get_plan  # noqa: E402
 from tests.conftest import make_fasta, oracle_tsv, random_seqs  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -58,6 +62,47 @@ ENGINE_HELPERS = [
 ]
 
 DIFFUP_HELPERS = ["_get_pool", "_row_chunks"]
+
+MULTIHOST_HELPERS = [
+    "_merge_stream", "_check_no_stdin", "MultihostCtx", "_run_fingerprint",
+    "_read_marker", "_merge_when_ready",
+]
+
+# Repairs the port makes to copied functions: name -> [(original text,
+# port's text)].  The port's stream groups follow the memory of the card
+# and host unless sharded, so the .units sidecar records a shard's group
+# size, and merge_parts refuses parts cut into groups of different sizes
+# rather than interleave them.
+SANCTIONED_FUNCTIONS = {
+    "UnitIndex": [
+        ('''        self.units: List[List[int]] = []  # [global_ordinal, nbytes]
+''', '''        self.units: List[List[int]] = []  # [global_ordinal, nbytes]
+        # records per stream group: every shard must cut the stream into
+        # the same groups for the ordinals to interleave
+        self.group: Optional[int] = None
+'''),
+        ('''            self.units = [[int(a), int(b)] for a, b in d["units"]]
+''', '''            self.units = [[int(a), int(b)] for a, b in d["units"]]
+            self.group = d.get("group")
+'''),
+        ('''            json.dump({"preamble": self.preamble, "units": self.units}, f)
+''', '''            json.dump({"preamble": self.preamble, "units": self.units,
+                       "group": self.group}, f)
+'''),
+    ],
+    "merge_parts": [
+        ('''    if part_paths and all(ix.load() for ix in indexes):
+''', '''    if part_paths and all(ix.load() for ix in indexes):
+        if len({ix.group for ix in indexes}) > 1:
+            raise DistanceError(
+                "cannot merge stream parts cut into groups of different"
+                " sizes (" + ", ".join(
+                    f"{p}: {ix.group}" for p, ix in zip(part_paths, indexes)
+                ) + ")"
+            )
+'''),
+    ],
+}
 
 # Repairs the port makes to a copy: file -> (original text, port's text).
 # fastaio._assemble_rows took `off % width` at width 0 (ZeroDivisionError
@@ -118,21 +163,49 @@ def test_diffup_helper_is_verbatim(name):
     assert inspect.getsource(getattr(port_diffup, name)) == want
 
 
+@pytest.mark.parametrize("name", MULTIHOST_HELPERS + list(SANCTIONED_FUNCTIONS))
+def test_multihost_helper_is_verbatim(name):
+    want = ported(inspect.getsource(getattr(jax_multihost, name)))
+    for old, new in SANCTIONED_FUNCTIONS.get(name, []):
+        assert want.count(old) == 1
+        want = want.replace(old, new)
+    assert inspect.getsource(getattr(port_multihost, name)) == want
+
+
+@pytest.mark.parametrize("name",
+                         ["MERGE_POLL_S", "MERGE_TIMEOUT_S", "MERGE_NOTE_S"])
+def test_multihost_constant_is_verbatim(name):
+    assert getattr(port_multihost, name) == getattr(jax_multihost, name)
+
+
+# Runs each command line (separated by "::") through the port's CLI with
+# jax unimportable, stopping at the first that fails.
 _NO_JAX_RUN = """
 import sys
 sys.modules["jax"] = None
 import distance_tpu_torch.cli
 import distance_tpu_torch.engine
 assert "distance_tpu" not in sys.modules
-sys.exit(distance_tpu_torch.cli.main(sys.argv[1:]))
+argv = sys.argv[1:]
+while argv:
+    cut = argv.index("::") if "::" in argv else len(argv)
+    rc = distance_tpu_torch.cli.main(argv[:cut])
+    if rc:
+        sys.exit(rc)
+    argv = argv[cut + 1:]
 """
 
 
-@pytest.mark.parametrize("mode", ["square", "rectangle", "stream"])
+@pytest.mark.parametrize(
+    "mode", ["square", "rectangle", "stream", "launch", "stream-shard"])
 @pytest.mark.parametrize("measure", ["raw", "tn93"])
 def test_port_runs_without_jax(tmp_path, measure, mode):
     """With jax unimportable, the port imports and writes the oracle's
-    TSV in each mode — as it must on a GPU host that has no jax."""
+    TSV in each mode — as it must on a GPU host that has no jax.  Packages
+    named jax and distance_tpu that refuse to import come first on the
+    path, so that processes the port starts (``--launch`` workers) cannot
+    import them either; ``stream-shard`` runs two stream shards of
+    several groups and merges them."""
     from distance_tpu.fastaio import load_fasta
 
     rng = np.random.default_rng(7)
@@ -143,25 +216,47 @@ def test_port_runs_without_jax(tmp_path, measure, mode):
     other.write_bytes(make_fasta(
         (f"t{i}", s.upper()) for i, (_, s) in enumerate(random_seqs(rng, 9, 90))
     ))
-    extra = {"square": [], "rectangle": [str(other)],
-             "stream": ["-s", str(other), "-b", "4"]}[mode]
+    shadow = tmp_path / "shadow"
+    for name in ("jax", "distance_tpu"):
+        (shadow / name).mkdir(parents=True)
+        (shadow / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is not on a GPU host')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(shadow),
+                                                       str(ROOT)]))
     out = tmp_path / "out.tsv"
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    common = ["-m", measure, "--backend", "torch"]
+    if mode == "stream-shard":
+        # groups of 4 records (the -b 4 batches): 4, 4, 1
+        g = len(get_plan(measure).counters)
+        env["DISTANCE_TPU_STRIP_RAM"] = str(4 * (g + 2) * 12 * 4 * 4)
+        parts = [str(tmp_path / f"p{k}") for k in range(2)]
+        argv = []
+        for k, part in enumerate(parts):
+            argv += [str(fasta), "-s", str(other), "-b", "4", *common,
+                     "--shard", f"{k}/2", "-o", part, "::"]
+        argv += ["--merge", *parts, "-o", str(out)]
+    else:
+        extra = {"square": [], "rectangle": [str(other)],
+                 "stream": ["-s", str(other), "-b", "4"],
+                 "launch": ["--launch", "2"]}[mode]
+        argv = [str(fasta), *extra, *common, "-o", str(out)]
     proc = subprocess.run(
-        [sys.executable, "-c", _NO_JAX_RUN, str(fasta), *extra, "-m", measure,
-         "--backend", "torch", "-o", str(out)],
+        [sys.executable, "-c", _NO_JAX_RUN, *argv],
         capture_output=True, text=True, env=env, cwd=tmp_path, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
+    if mode == "stream-shard":
+        assert [len(json.loads(open(p + ".units").read())["units"])
+                for p in parts] == [2, 1]
     alns = []
     for path in (fasta, other):
         with open(path, "rb") as f:
             alns.append(load_fasta(f))
         if measure == "tn93":
             alns[-1].count_bases()
-    if mode == "square":
+    if mode in ("square", "launch"):
         want = oracle_tsv(measure, alns[0])
     else:
         want = oracle_tsv(measure, *alns, stream_ids=(
-            alns[1].ids if mode == "stream" else None))
+            alns[1].ids if mode.startswith("stream") else None))
     assert out.read_bytes() == want

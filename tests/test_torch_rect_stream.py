@@ -433,7 +433,7 @@ def test_square_sidecar_refused_by_stream(tmp_path, monkeypatch, fastas):
         run_setup(make_setup([a, "-s", b, "--resume", "-o", str(out)]))
 
 
-# -- what stays unported -----------------------------------------------------
+# -- over the budget, and without a card -------------------------------------
 
 @pytest.mark.parametrize(
     "mode, what",
@@ -460,20 +460,6 @@ def test_over_budget_runs_exit_1(tmp_path, capsys, monkeypatch, fastas, mode,
     assert rc == 0
     assert what.removeprefix("the ") in err and "not yet ported" not in err
     assert (tmp_path / "o.tsv").read_bytes() == jax_out.read_bytes()
-
-
-def test_sharded_stream_exits_1(tmp_path, capsys, fastas):
-    a, b = write(tmp_path, *fastas)
-    out = tmp_path / "o.tsv"
-    rc = port_cli.main([a, "-s", b, "--shard", "0/2", "--backend", "torch",
-                        "-o", str(out)])
-    assert rc == 1
-    assert "sharded stream" in capsys.readouterr().err
-    assert not out.exists()
-    setup = make_setup([a, "-s", b, "-o", str(out)])
-    setup.shard = (0, 2)
-    with pytest.raises(DistanceError, match="sharded stream.*not yet ported"):
-        run_setup(setup)
 
 
 @pytest.mark.parametrize("mode", ["rectangle", "stream"])
