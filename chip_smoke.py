@@ -3,17 +3,19 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout.  It builds the counter kernel from
-``distance_tpu_torch/csrc``, holds it against its plain PyTorch version,
-drives the port's CLI on SARS-CoV-2-scale synthetic alignments made from
-a seed (29904 sites) in its three modes, checks the output, and times the
-kernel beside the plain version.  Phases:
+Run from the root of a checkout.  It builds the kernels from
+``distance_tpu_torch/csrc`` (K1 the counters, K2 the rel4/rel packs, K3
+the diff rebuild), holds each against its plain PyTorch version, drives
+the port's CLI on SARS-CoV-2-scale synthetic alignments made from a seed
+(29904 sites) in its three modes, with diff-encoded uploads and rel4
+packing on, checks the output, and times the kernels beside their plain
+versions.  Phases:
 
-1. environment: the card, torch, CUDA, nvcc; build the kernel and print
+1. environment: the card, torch, CUDA, nvcc; build the kernels and print
    ptxas's registers, shared memory and spills; the free device memory,
    the engine's auto budget and the square's in-core crossover for raw
    and tn93;
-2. the kernel against its plain version, exactly, for all six measures:
+2. K1 against its plain version, exactly, for all six measures:
    the truth table (code 0 and every Paradis code over 64 sites, on both
    sides, also against each counter's predicate table), shapes on either
    side of the kernel's tile edges (127/128/129 x 255/256/257 rows at
@@ -24,23 +26,38 @@ kernel beside the plain version.  Phases:
    and 384 rows), of phase 9 (square blocks of 1024 x 1024, rectangle
    blocks of 512 x 1024, loaded super-rows of 3072 and 2048 rows against
    groups of 2000 and 96, and 4,194,305 loaded rows of 64 sites against
-   8) and of phase 10's staged shard (loaded super-rows of 1024 and 976
-   rows against a group of 8000), sites padded as the engine uploads
-   them; and for raw and tn93 at 4,194,305 x 8 x 16, more x row tiles
-   than one grid axis of 65535 blocks holds;
+   8 and against the 1-row reference) and of phase 10's staged shard
+   (loaded super-rows of 1024 and 976 rows against a group of 8000), the
+   rel baselines (8192 and 2000 rows against the 1-row reference row, it
+   against 8192 and 8000 rows, and itself), sites padded as the engine
+   uploads them; and for raw and tn93 at 4,194,305 x 8 x 16, more x row
+   tiles than one grid axis of 65535 blocks holds.  K2 (rel4 and rel)
+   against its plain version, exactly: the square's 2048 x 2048 diagonal
+   block with its self-pairs and padding masked and the stream's 2000 x
+   8000 group, six measures, and counters with chosen outliers (segments
+   holding 0, 1, 2, 3 and many); K3 against its plain version on the
+   square's 8192 x 29952 upload (its rows equal to the dense upload, pad
+   rows the reference row), with no diffs and capacity-many;
 3. the square path: the CLI on the 8192 x 29904 alignment, ``-m raw
    --backend cuda``; line count, 1200 random rows against the host
-   oracle, the kernel's launch count in that run, and a
-   ``torch.profiler`` split of a second run's device time;
+   oracle, each kernel's launch count in that run (10 blocks at rel4, 3
+   baselines, the refetches by rung), a ``torch.profiler`` split of a
+   second run's device time, and the same square once more dense and
+   int32 (DISTANCE_TPU_NO_DIFF_UPLOAD=1 DISTANCE_TPU_NO_REL_PACK=1):
+   same sha256, its wall and split;
 4. all six measures end to end at 256 x 29904: ``--backend cuda`` and
    ``--backend torch`` write identical bytes;
-5. the kernel against its plain version and the int8-GEMM yardstick
+5. K1 against its plain version and the int8-GEMM yardstick
    (each counter as one ``torch._int_mm`` on its folded features, built
    outside the timed window) at the square path's block shape (2048 x
    2048 x 29952 padded sites) for all six measures: equal, timed on the
    card in turns, beside the bound (2 m n L R int8 operations at 1,979
-   TOP/s, L = 29904 real sites, R = the JAX plan's channels); raw's
-   numbers go into the result line;
+   TOP/s, L = 29904 real sites, R = the JAX plan's channels); K2 at raw
+   on the 2048 x 2048 block and the 2000 x 8000 group and K3 on the
+   8192 x 29952 upload, timed in turns with their plain versions (K3 also
+   with its yardstick, ``expand().clone()`` and ``index_put_``), beside
+   their bounds in bytes at 3.35 TB/s; the numbers at the square's shapes
+   go into the result line;
 6. the rectangle path: the CLI on 4096 x 8192 x 29904 (two files cut
    from one alignment), ``-m raw``; line count, 1200 random rows, launch
    count, and a ``torch.profiler`` split of a second run's device time
@@ -75,11 +92,15 @@ kernel beside the plain version.  Phases:
    wall: ``--launch 2`` of the square of phase 3 and of the stream,
    ``--num-hosts 2 --host-id k`` of the stream (two processes), and
    ``--coordinator 127.0.0.1:<port>`` (a gloo rendezvous) of a 2048-row
-   square (two processes).
+   square (two processes);
+11. the pack ladder: a square of 1024 random records (0.5% N) whose
+   residuals saturate rel4 and rel, so its block is dispatched at rel4,
+   rel and int32; launches per rung, line count and 1200 random rows.
 
 Any failed check raises, and the script exits non-zero without a result.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists the kernels with their launches per path, errors, times and bound.
+lists the four kernels (``counters``, ``pack_rel4``, ``pack_rel``,
+``diff_rebuild``) with their launches per path, errors, times and bounds.
 Without a CUDA device, or without the package beside it, it fails.
 
     python3 chip_smoke.py --measure
@@ -155,6 +176,8 @@ LONG_STREAM = (4_194_305, 8, 64)
 SHARD_STAGED = (400_000_000, 4 << 30, (1024, 1024))
 SHARD_STAGED_LAUNCHES = [(1024, 8000), (976, 8000)]
 N_COORD = 2048
+# Phase 11: records of the diverse alignment whose residuals saturate.
+N_LADDER = 1024
 # Seconds a phase 10 subprocess may take before it is killed.
 PROC_TIMEOUT_S = 300
 
@@ -239,12 +262,17 @@ def phase_environment() -> str:
     nvcc = subprocess.run([_build.nvcc_path(), "--version"],
                           capture_output=True, text=True, check=True)
     print(nvcc.stdout.strip().splitlines()[-1])
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    _build.load("counters")
-    print(f"[1] counter kernel built and loaded in"
+    names = ("counters", "packing", "diffup")
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc a source
+        list(pool.map(_build.load, names))
+    print(f"[1] kernels {', '.join(names)} built together and loaded in"
           f" {time.perf_counter() - t0:.3f} s")
-    for line in _build.PTXAS.get("counters", "").splitlines():
-        print(f"[1] {line}")
+    for name in names:
+        for line in _build.PTXAS.get(name, "").splitlines():
+            print(f"[1] {name}: {line}")
     t0 = time.perf_counter()
     check(get_lib() is not None, "the native host library did not build")
     print(f"[1] native host library built and loaded in"
@@ -312,10 +340,28 @@ def phase_kernel_vs_plain(bench: np.ndarray) -> int:
                  for m, n in SHARD_STAGED_LAUNCHES]
     path_cases = [(f"{tag} {m}x{n}x{l_pad}", padded(bench[:m]),
                    padded(bench[-n:])) for tag, m, n in launches]
+    # the rel baselines: every prepared row against the reference row,
+    # on either side, and the reference row against itself
+    from distance_tpu_torch.ops.diffup import sampled_mode_row
+
+    ref = padded(sampled_mode_row(bench)[None])
+    path_cases += [(f"baseline {tag}", a, b) for tag, a, b in [
+        (f"rows {N_BENCH}x1x{l_pad}", padded(bench), ref),
+        (f"cols 1x{N_BENCH}x{l_pad}", ref, padded(bench)),
+        (f"rows {N_STREAM[0]}x1x{l_pad}", padded(bench[: N_STREAM[0]]), ref),
+        (f"cols 1x{STREAM_GROUPS[0]}x{l_pad}", ref,
+         padded(bench[-STREAM_GROUPS[0]:])),
+        (f"self 1x1x{l_pad}", ref, ref)]]
     # phase 9's long loaded side: every loaded row as x in one launch
     m, n, width = LONG_STREAM
-    path_cases.append((f"long-loaded {m}x{n}x{width} padded to 128",
-                       padded(codes(m, width)), padded(codes(n, width))))
+    long_x, long_y = padded(codes(m, width)), padded(codes(n, width))
+    long_ref = padded(codes(1, width))
+    path_cases += [
+        (f"long-loaded {m}x{n}x{width} padded to 128", long_x, long_y),
+        (f"long-loaded baseline rows {m}x1x{width} padded to 128", long_x,
+         long_ref),
+        (f"long-loaded baseline cols 1x{n}x{width} padded to 128", long_ref,
+         long_y)]
     cases = [
         ("13x7x200", codes(13, 200), codes(7, 200)),
         ("130x257x1000", codes(130, 1000), codes(257, 1000)),
@@ -370,6 +416,159 @@ def phase_kernel_vs_plain(bench: np.ndarray) -> int:
     return worst
 
 
+def bench_baselines(x, y, ref, plan):
+    """K1 counters of x against y and the rel baselines against the
+    reference row ``ref``: (c, rb, cb, cc)."""
+    from distance_tpu_torch.ops.counters import counters_cuda
+
+    r = ref[None]
+    return (counters_cuda(x, y, plan), counters_cuda(x, r, plan)[:, :, 0],
+            counters_cuda(r, y, plan)[:, 0, :],
+            counters_cuda(r, r, plan)[:, 0, 0])
+
+
+def outlier_counters(dev, g: int, m: int, n: int, seed: int):
+    """Counters with zero baselines whose residuals lie in [-7, 7] but
+    for chosen outliers (|res| > 7, -8 among them): a segment with none,
+    one, two, three and many, on each side of a segment's edge."""
+    import torch
+
+    from distance_tpu_torch.ops.packing import REL4_SEGMENTS
+
+    rng = np.random.default_rng(seed)
+    c = rng.integers(-7, 8, size=(g, m, n)).astype(np.int32)
+    flat = c.reshape(-1)
+    seg = -(-flat.size // REL4_SEGMENTS)
+    picks = {1: 1, 2: 2, 4: 3, 7: seg}  # segment -> outliers in it
+    for s, k in picks.items():
+        lo = s * seg
+        cells = rng.choice(np.arange(lo, min(lo + seg, flat.size)),
+                           size=min(k, max(0, min(seg, flat.size - lo))),
+                           replace=False)
+        flat[cells] = rng.choice([-8, 8, -300, 127, 128, -129, 9000],
+                                 size=cells.size)
+    if flat.size:
+        flat[-1] = -8  # the last cell
+    z = np.zeros
+    return tuple(torch.from_numpy(a).to(dev) for a in
+                 (c, z((g, m), np.int32), z((g, n), np.int32),
+                  z(g, np.int32)))
+
+
+def phase_pack_and_rebuild(bench: np.ndarray) -> int:
+    """K2 (rel4 and rel packs) and K3 (the diff rebuild) against their
+    plain versions, exactly: K2 on the main path's blocks (the square's
+    2048 x 2048 diagonal block with its self-pairs and padding masked,
+    and the stream's 2000 x 8000 group) for all six measures, and on
+    counters with chosen outliers (segments with 0, 1, 2, 3 and many,
+    odd rows, odd columns under rel); K3 on the square's 8192 x 29952
+    upload of the bench alignment (and against its dense upload, whose
+    pad rows are zero where the rebuild's hold the reference row), with
+    no diffs, and with as many diffs as the capacity.  Returns the
+    largest absolute difference seen (0)."""
+    import torch
+
+    from distance_tpu_torch.measures import MEASURES
+    from distance_tpu_torch.ops import diffup, packing
+    from distance_tpu_torch.ops.features import get_plan
+    from distance_tpu_torch.ops.plan import plan_to_torch
+
+    dev = torch.device("cuda", 0)
+    l_pad = -(-bench.shape[1] // 128) * 128
+    rows = np.zeros((bench.shape[0], l_pad), dtype=np.uint8)
+    rows[:, : bench.shape[1]] = bench
+    refp = np.zeros(l_pad, dtype=np.uint8)
+    refp[: bench.shape[1]] = diffup.sampled_mode_row(bench)
+    ref = torch.from_numpy(refp).to(dev)
+    square = torch.from_numpy(rows[:BLOCK]).to(dev)
+    loaded = torch.from_numpy(rows[: N_STREAM[0]]).to(dev)
+    group = torch.from_numpy(rows[-STREAM_GROUPS[0]:]).to(dev)
+
+    def same(tag, got, want):
+        for a, b in zip(got, want):
+            check(a.shape == b.shape and torch.equal(a, b),
+                  f"{tag}: kernel != plain")
+
+    def both(tag, c, rb, cb, cc, i0=0, j0=0, nv=None, diag_off=None):
+        mask4 = packing.block_mask(c.shape[1], c.shape[2], i0, j0,
+                                   nv or (i0 + c.shape[1], j0 + c.shape[2]),
+                                   diag_off, dev)
+        mask = packing.block_mask(c.shape[1], c.shape[2], i0, j0, None,
+                                  diag_off, dev)
+        if c.shape[2] % 2 == 0:
+            got = packing.pack_rel4_cuda(c, rb, cb, cc, i0, j0, nv, diag_off)
+            torch.cuda.synchronize()
+            same(f"rel4 {tag}", got,
+                 packing.pack_rel4_torch(c, rb, cb, cc, mask4))
+        got = packing.pack_rel_cuda(c, rb, cb, cc, i0, j0, diag_off)
+        torch.cuda.synchronize()
+        same(f"rel {tag}", [got], [packing.pack_rel_torch(c, rb, cb, cc,
+                                                          mask)])
+
+    outliers = 0
+    for measure in MEASURES:
+        plan = plan_to_torch(get_plan(measure), dev)
+        both(f"{measure} square {BLOCK}x{BLOCK} diagonal block",
+             *bench_baselines(square, square, ref, plan),
+             nv=(BLOCK - 48, BLOCK - 100), diag_off=0)
+        c, rb, cb, cc = bench_baselines(loaded, group, ref, plan)
+        both(f"{measure} stream {N_STREAM[0]}x{STREAM_GROUPS[0]}", c, rb, cb,
+             cc, nv=(N_STREAM[0], STREAM_GROUPS[0]))
+        res = c - rb[:, :, None] - cb[:, None, :] + cc[:, None, None]
+        outliers += int((res.abs() > 7).sum())
+    print(f"[2] K2 == plain (rel4 and rel) on the square's {BLOCK} x {BLOCK}"
+          f" diagonal block (self-pairs and padding masked) and the stream's"
+          f" {N_STREAM[0]} x {STREAM_GROUPS[0]} group, six measures;"
+          f" {outliers} residuals of the stream groups outside [-7, 7]")
+    shapes = [(2, 2048, 2048), (4, 33, 66), (1, 1, 2), (3, 129, 258),
+              (2, 31, 33), (4, 0, 8), (1, 5000, 3000)]
+    for k, (g, m, n) in enumerate(shapes):
+        c, rb, cb, cc = outlier_counters(dev, g, m, n, SEED + 20 + k)
+        both(f"outliers {g}x{m}x{n}", c, rb, cb, cc, 3, 5,
+             (m - 1, n - 2), diag_off=2)
+        both(f"outliers {g}x{m}x{n} unmasked", c, rb, cb, cc)
+    print(f"[2] K2 == plain on counters with chosen outliers (segments with"
+          f" 0, 1, 2, 3 and many; the diagonal and padding masked and"
+          f" not): {shapes}")
+
+    # K3 at the square's upload: the bench alignment, 8192 x 29952 (and
+    # with 64 pad rows more)
+    padded = np.zeros((N_BENCH + 64, l_pad), dtype=np.uint8)
+    padded[: bench.shape[0], : bench.shape[1]] = bench
+    up = diffup.DiffUploader(refp, dev)
+    enc = up.encode(padded[:N_BENCH], n_real=bench.shape[0])
+    check(enc is not None, "the bench alignment did not diff-encode")
+    n_diff = int((enc[0] < N_BENCH * l_pad).sum())
+    cases = [("square 8192x29952", enc, N_BENCH),
+             ("square 8192x29952 and 64 pad rows",
+              up.encode(padded, n_real=bench.shape[0]), N_BENCH + 64)]
+    same_rows = np.repeat(refp[None], 300, axis=0)
+    cases.append(("no diffs 300 rows", up.encode(same_rows, n_real=300), 300))
+    cap = 4096
+    flat = np.sort(np.random.default_rng(SEED + 30).choice(
+        300 * l_pad, size=cap, replace=False)).astype(np.int32)
+    cases.append(("capacity-many diffs", (flat, np.full(cap, 17, np.uint8)),
+                  300))
+    for tag, (idx, vals), nrows in cases:
+        args = (ref, torch.from_numpy(idx).to(dev),
+                torch.from_numpy(vals).to(dev), nrows)
+        got = diffup.diff_rebuild_cuda(*args)
+        torch.cuda.synchronize()
+        want = diffup.diff_rebuild_torch(*args)
+        check(torch.equal(got, want), f"K3 {tag}: kernel != plain")
+        if nrows >= N_BENCH:
+            check(np.array_equal(got[: bench.shape[0]].cpu().numpy(),
+                                 padded[: bench.shape[0]]),
+                  f"K3 {tag}: rows differ from the dense upload")
+            check(bool((got[bench.shape[0]:] == ref).all()),
+                  f"K3 {tag}: pad rows are not the reference row")
+    print(f"[2] K3 == plain: the square's upload ({n_diff} diffs of"
+          f" {N_BENCH * l_pad} codes, capacity {enc[0].size}; its real rows equal"
+          f" the dense upload, pad rows the reference row), no diffs, and"
+          f" capacity-many diffs")
+    return 0
+
+
 def truth_tables(dev) -> None:
     """Code 0 and every Paradis code, each repeated over 64 sites, on x
     against the same on y: the kernel gives 64 times each counter's
@@ -401,24 +600,81 @@ def truth_tables(dev) -> None:
           f" measures at code 0 and the {len(ALL_CODES)} Paradis codes")
 
 
+# The kernels of the port, by the names of the result line.
+KERNELS = ("counters", "pack_rel4", "pack_rel", "diff_rebuild")
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count, the engine's baseline contractions and
+    its blocks by rung of the pack ladder set to 0."""
+    from distance_tpu_torch import engine
+    from distance_tpu_torch.ops import counters, diffup, packing
+
+    counters.LAUNCHES = packing.LAUNCHES_REL4 = packing.LAUNCHES_REL = 0
+    diffup.LAUNCHES = engine.BASELINES = 0
+    for rung in engine.RUNG_BLOCKS:
+        engine.RUNG_BLOCKS[rung] = 0
+
+
+def read_counts() -> dict:
+    """The counts ``reset_counts`` zeroes: kernel launches by name,
+    ``baselines`` (K1 launches against the reference row) and ``blocks``
+    (counter blocks by rung: first dispatches and refetches)."""
+    from distance_tpu_torch import engine
+    from distance_tpu_torch.ops import counters, diffup, packing
+
+    return {"counters": counters.LAUNCHES,
+            "pack_rel4": packing.LAUNCHES_REL4,
+            "pack_rel": packing.LAUNCHES_REL,
+            "diff_rebuild": diffup.LAUNCHES,
+            "baselines": engine.BASELINES,
+            "blocks": dict(engine.RUNG_BLOCKS)}
+
+
 def run_cli(tag: str, args: list, measure: str = "raw") -> tuple:
-    """One CLI run with --backend cuda: (wall s, kernel launches), after
-    printing the host phase totals."""
+    """One CLI run with --backend cuda: (wall s, launch counts of the run,
+    as ``read_counts`` gives them), after printing the host phase totals
+    and the counts."""
     from distance_tpu_torch import cli
-    from distance_tpu_torch.ops import counters as kernels
     from distance_tpu_torch.utils import timing
 
     timing.reset()
-    kernels.LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     rc = cli.main(args + ["-m", measure, "--backend", "cuda"])
     wall = time.perf_counter() - t0
-    launches = kernels.LAUNCHES
+    counts = read_counts()
     check(rc == 0, f"{tag} exited {rc}")
-    check(launches > 0, f"{tag} launched no counter kernel")
+    check(counts["counters"] > 0, f"{tag} launched no counter kernel")
     print(f"{tag} host phase totals (s): " + ", ".join(
         f"{k} {v:.3f}" for k, v in sorted(timing.totals().items())))
-    return wall, launches
+    print(f"{tag} launches: {counts}")
+    return wall, counts
+
+
+def check_packed_path(tag: str, counts: dict, blocks: int, baselines: int,
+                      rebuilds: int = 1, group_baselines: bool = False) -> None:
+    """A run of the in-core packed path: ``blocks`` counter blocks first
+    dispatched at rel4; ``baselines`` K1 launches against the reference
+    row, and with ``group_baselines`` (the stream) one more for each
+    packed block dispatched, whose group's rows are not kept; every K1
+    launch a block (at any rung) or a baseline; one K2 launch a packed
+    block; and at least ``rebuilds`` diff rebuilds."""
+    b = counts["blocks"]
+    if group_baselines:
+        baselines += b["rel4"] + b["rel"]
+    check(b["rel4"] == blocks and counts["baselines"] == baselines
+          and counts["counters"] == sum(b.values()) + baselines
+          and counts["pack_rel4"] == b["rel4"]
+          and counts["pack_rel"] == b["rel"]
+          and counts["diff_rebuild"] >= rebuilds,
+          f"{tag}: launches {counts}, expected {blocks} blocks at rel4 and"
+          f" {baselines} baselines")
+    print(f"{tag} {blocks} blocks at rel4, refetched: {b['rel']} blocks at"
+          f" rel and {b['none']} at int32; K1 {counts['counters']} ="
+          f" {sum(b.values())} blocks + {baselines} baselines, K2"
+          f" {counts['pack_rel4']} rel4 + {counts['pack_rel']} rel, K3"
+          f" {counts['diff_rebuild']}")
 
 
 def sha256(path: str) -> str:
@@ -444,10 +700,11 @@ def phase_main_path(tmp: str, bench: np.ndarray) -> tuple:
     ids = write_fasta(fasta, bench)
     print(f"[3] wrote {n} x {bench.shape[1]} FASTA in"
           f" {time.perf_counter() - t0:.3f} s")
-    wall, launches = run_cli("[3]", [fasta, "-o", out])
+    wall, counts = run_cli("[3]", [fasta, "-o", out])
+    check_packed_path("[3]", counts, 10, 3)
     pairs = n * (n - 1) // 2
     print(f"[3] main path: {pairs} pairs in {wall:.3f} s ="
-          f" {pairs / wall:.6e} pairs/s end to end, {launches} kernel"
+          f" {pairs / wall:.6e} pairs/s end to end, {counts['counters']} K1"
           f" launches ({gpu_line()})")
 
     data, nl = read_tsv(out, 1 + pairs)
@@ -465,7 +722,32 @@ def phase_main_path(tmp: str, bench: np.ndarray) -> tuple:
     del data
     sha = sha256(out)
     profiled_run("[3]", [fasta, "-o", out])
-    return launches, sha
+    # the same square with dense uploads and int32 counters
+    with dense_int32():
+        wall0, counts0 = run_cli("[3] dense int32", [fasta, "-o", out])
+        check(sha256(out) == sha, "[3] dense int32: TSV differs")
+        check(counts0["blocks"]["none"] == 10 and counts0["counters"] == 10
+              and counts0["diff_rebuild"] == 0,
+              f"[3] dense int32: launches {counts0}")
+        profiled_run("[3] dense int32", [fasta, "-o", out])
+    print(f"[3] square wall {wall:.3f} s with diff uploads and rel4,"
+          f" {wall0:.3f} s dense and int32 (DISTANCE_TPU_NO_DIFF_UPLOAD=1"
+          f" DISTANCE_TPU_NO_REL_PACK=1); sha256 equal ({gpu_line()})")
+    return counts, sha
+
+
+@contextlib.contextmanager
+def dense_int32():
+    """Diff uploads and rel packing switched off in this process, as
+    their environment variables switch them off."""
+    names = ("DISTANCE_TPU_NO_DIFF_UPLOAD", "DISTANCE_TPU_NO_REL_PACK")
+    for name in names:
+        os.environ[name] = "1"
+    try:
+        yield
+    finally:
+        for name in names:
+            del os.environ[name]
 
 
 def phase_six_measures(tmp: str, bench: np.ndarray) -> None:
@@ -606,6 +888,113 @@ def phase_timing(bench: np.ndarray):
               f" plain {ms['plain']} ms; library {ms['library']} ms ({card})")
     return times["raw"], worst
 
+def cuda_timed(fn, reps: int) -> float:
+    """Mean ms of ``fn`` over ``reps`` calls, by CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def in_turns(fns: dict, order: tuple) -> dict:
+    """Each kind of ``fns`` ({kind: (fn, reps)}) timed in the given order;
+    the mean ms of each kind."""
+    ms = {k: [] for k in fns}
+    for kind in order:
+        ms[kind].append(cuda_timed(*fns[kind]))
+    return {k: float(np.mean(v)) for k, v in ms.items()}
+
+
+def phase_pack_timing(bench: np.ndarray) -> dict:
+    """K2 and K3 timed on the card in turns with their plain versions (and
+    K3 with its yardstick, the plain version's ``expand().clone()`` and
+    ``index_put_`` of the in-range diffs, selected outside the timed
+    window), at the main path's shapes: K2 at raw on the square's 2048 x
+    2048 block and the stream's 2000 x 8000 group, K3 on the square's
+    8192 x 29952 upload.  Bounds in bytes at the card's memory rate
+    (PEAK_BYTES): K2 reads 4 G m n B and writes G m n / 2 (rel4) or G m n
+    (rel) B; K3 writes rows x l_pad B and reads 5 B a diff.  Returns each
+    kernel's numbers at the square's shapes."""
+    import torch
+
+    from distance_tpu_torch.ops import diffup, packing
+    from distance_tpu_torch.ops.features import get_plan
+    from distance_tpu_torch.ops.plan import plan_to_torch
+
+    dev = torch.device("cuda", 0)
+    card = gpu_line()
+    l_pad = -(-bench.shape[1] // 128) * 128
+    rows = np.zeros((N_BENCH, l_pad), dtype=np.uint8)
+    rows[:, : bench.shape[1]] = bench
+    refp = np.zeros(l_pad, dtype=np.uint8)
+    refp[: bench.shape[1]] = diffup.sampled_mode_row(bench)
+    ref = torch.from_numpy(refp).to(dev)
+    plan = plan_to_torch(get_plan("raw"), dev)
+    order = ("plain", "kernel", "kernel", "plain")
+    out = {}
+    shapes = {"square block": (0, BLOCK, BLOCK, 2 * BLOCK),
+              "stream group": (0, N_STREAM[0], N_BENCH - STREAM_GROUPS[0],
+                               N_BENCH)}
+    for tag, (a, b, c0, c1) in shapes.items():
+        x = torch.from_numpy(rows[a:b]).to(dev)
+        y = torch.from_numpy(rows[c0:c1]).to(dev)
+        c, rb, cb, cc = bench_baselines(x, y, ref, plan)
+        g, m, n = c.shape
+        for name, kern, plain, out_bytes in [
+            ("pack_rel4", lambda: packing.pack_rel4_cuda(c, rb, cb, cc),
+             lambda: packing.pack_rel4_torch(c, rb, cb, cc), g * m * n / 2),
+            ("pack_rel", lambda: packing.pack_rel_cuda(c, rb, cb, cc),
+             lambda: packing.pack_rel_torch(c, rb, cb, cc), g * m * n),
+        ]:
+            ms = in_turns({"kernel": (kern, 20), "plain": (plain, 3)}, order)
+            bound = (4.0 * g * m * n + out_bytes) / PEAK_BYTES * 1e3
+            print(f"[5] K2 {name} raw {tag} {g} x {m} x {n}: kernel"
+                  f" {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms,"
+                  f" bound {bound:.4f} ms (bytes at {PEAK_BYTES:.3e} B/s) ="
+                  f" {bound / ms['kernel']:.4f} of the bound; no single"
+                  f" PyTorch call computes it ({card})")
+            if tag == "square block":
+                out[name] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                                 bound_ms=bound, bound_by="bytes",
+                                 library_ms=None)
+    up = diffup.DiffUploader(refp, dev)
+    idx_h, vals_h = up.encode(rows, n_real=N_BENCH)
+    idx, vals = (torch.from_numpy(a).to(dev) for a in (idx_h, vals_h))
+    total = N_BENCH * l_pad
+    keep = idx < total
+    idx_in, vals_in = idx[keep].long(), vals[keep]
+    n_diff = int(keep.sum())
+
+    def library():
+        o = ref.expand(N_BENCH, l_pad).clone()
+        o.view(-1).index_put_((idx_in,), vals_in)
+        return o
+
+    ms = in_turns({"kernel": (lambda: diffup.diff_rebuild_cuda(
+                       ref, idx, vals, N_BENCH), 20),
+                   "plain": (lambda: diffup.diff_rebuild_torch(
+                       ref, idx, vals, N_BENCH), 5),
+                   "library": (library, 5)},
+                  ("plain", "kernel", "library", "library", "kernel",
+                   "plain"))
+    bound = (total + 5.0 * n_diff) / PEAK_BYTES * 1e3
+    print(f"[5] K3 diff_rebuild square {N_BENCH} x {l_pad}, {n_diff} diffs"
+          f" (capacity {idx_h.size}): kernel {ms['kernel']:.4f} ms, plain"
+          f" {ms['plain']:.4f} ms, library {ms['library']:.4f} ms, bound"
+          f" {bound:.4f} ms (bytes at {PEAK_BYTES:.3e} B/s) ="
+          f" {bound / ms['kernel']:.4f} of the bound ({card})")
+    out["diff_rebuild"] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                               bound_ms=bound, bound_by="bytes",
+                               library_ms=ms["library"])
+    return out
+
+
 def write_inputs(tmp: str, tag: str, n1: int, n2: int, seed: int,
                  prefix2: str) -> tuple:
     """Two FASTA files cut from one alignment, so they share ancestry as
@@ -626,7 +1015,8 @@ def device_split(prof) -> dict:
     device's busy intervals."""
     from torch.autograd import DeviceType
 
-    split = {"K1": 0.0, "H2D": 0.0, "D2H": 0.0, "other": 0.0}
+    split = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "H2D": 0.0, "D2H": 0.0,
+             "other": 0.0}
     spans = []
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
@@ -634,6 +1024,11 @@ def device_split(prof) -> dict:
         t0, t1 = ev.time_range.start, ev.time_range.end
         spans.append((t0, t1))
         kind = ("K1" if "counters_kernel" in ev.name
+                else "K2" if any(k in ev.name for k in (
+                    "rel4_lanes", "rel_lanes", "segments_init",
+                    "rel4_sidecar"))
+                else "K3" if ("fill_rows" in ev.name
+                              or "scatter_diffs" in ev.name)
                 else "H2D" if "HtoD" in ev.name
                 else "D2H" if "DtoH" in ev.name else "other")
         split[kind] += t1 - t0
@@ -666,7 +1061,8 @@ def profiled_run(tag: str, args: list) -> None:
     check(split["K1"] > 0, f"{tag} the profiler saw no counter kernel")
     total = sum(v for k, v in split.items() if k != "busy")
     print(f"{tag} profiled run: wall {wall:.3f} s; device time (ms):"
-          f" K1 {split['K1'] / 1e3:.3f}, H2D {split['H2D'] / 1e3:.3f},"
+          f" K1 {split['K1'] / 1e3:.3f}, K2 {split['K2'] / 1e3:.3f},"
+          f" K3 {split['K3'] / 1e3:.3f}, H2D {split['H2D'] / 1e3:.3f},"
           f" D2H {split['D2H'] / 1e3:.3f}, other {split['other'] / 1e3:.3f};"
           f" H2D share of device time {split['H2D'] / total:.4f}; device"
           f" busy {split['busy'] / 1e6:.3f} s ="
@@ -682,10 +1078,11 @@ def phase_rectangle(tmp: str) -> tuple:
     n1, n2 = N_RECT
     mat, ids1, ids2, f1, f2 = write_inputs(tmp, "[6]", n1, n2, SEED + 3, "b")
     args = [f1, f2, "-o", os.path.join(tmp, "rect.tsv")]
-    wall, launches = run_cli("[6]", args)
+    wall, counts = run_cli("[6]", args)
+    check_packed_path("[6]", counts, 8, 3)
     pairs = n1 * n2
     print(f"[6] rectangle: {pairs} pairs in {wall:.3f} s ="
-          f" {pairs / wall:.6e} pairs/s end to end, {launches} kernel"
+          f" {pairs / wall:.6e} pairs/s end to end, {counts['counters']} K1"
           f" launches ({gpu_line()})")
     data, nl = read_tsv(args[-1], 1 + pairs)
     rng = np.random.default_rng(SEED + 4)
@@ -699,7 +1096,7 @@ def phase_rectangle(tmp: str) -> tuple:
           " oracle")
     del data
     profiled_run("[6]", args)
-    return launches, sha256(args[-1])
+    return counts, sha256(args[-1])
 
 
 def phase_stream(tmp: str) -> tuple:
@@ -714,14 +1111,15 @@ def phase_stream(tmp: str) -> tuple:
     mat, ids1, ids2, f1, f2 = write_inputs(tmp, "[7]", n1, n2, SEED + 5, "s")
     args = [f1, "-s", f2, "-b", str(STREAM_BATCH),
             "-o", os.path.join(tmp, "stream.tsv")]
-    wall, launches = run_cli("[7]", args)
-    check(launches == len(STREAM_GROUPS),
-          f"{launches} stream launches, expected one for each of the groups"
-          f" {STREAM_GROUPS}")
+    wall, counts = run_cli("[7]", args)
+    # one block a group; the baselines: the loaded rows and the reference
+    # row once, and the group's rows with each packed block
+    check_packed_path("[7]", counts, len(STREAM_GROUPS), 2,
+                      group_baselines=True)
     pairs = n1 * n2
     print(f"[7] stream: {pairs} pairs in {wall:.3f} s ="
           f" {pairs / wall:.6e} pairs/s end to end, groups {STREAM_GROUPS},"
-          f" {launches} kernel launches ({gpu_line()})")
+          f" {counts['counters']} K1 launches ({gpu_line()})")
     data, nl = read_tsv(args[-1], 1 + pairs)
     rng = np.random.default_rng(SEED + 6)
     for i, r in zip(rng.integers(0, n1, SAMPLES).tolist(),
@@ -735,7 +1133,7 @@ def phase_stream(tmp: str) -> tuple:
     del data
     sha = sha256(args[-1])
     profiled_run("[7]", args)
-    return launches, sha
+    return counts, sha
 
 
 def phase_cuda_vs_torch(tmp: str, bench: np.ndarray) -> None:
@@ -790,10 +1188,10 @@ def out_of_core(budget: int, host: int, tiles: tuple):
         finally:
             in_get[0] = False
 
-    def prepare(eng, matrix, max_block):
+    def prepare(eng, matrix, max_block, **kw):
         if not in_get[0]:
             seen["x_rows"].append(matrix.shape[0])
-        return real[1](eng, matrix, max_block)
+        return real[1](eng, matrix, max_block, **kw)
 
     def staged(eng, lside, spans, codes, n1, bn):
         seen["groups"].append(bn)
@@ -831,13 +1229,12 @@ def check_layout(tag: str, groups: list, spans: list, min_groups: int):
 
 
 def ooc_cli(tag: str, args: list, mode: str, in_core_sha: str,
-            min_groups: int = 3) -> int:
+            min_groups: int = 3) -> dict:
     """One CLI run out of core (budgets and tiles ``OOC[mode]``), checked
     and then profiled: its layout, its kernel launch shapes against those
     phase 2 holds against the plain version (``OOC_LAUNCHES[mode]``), its
     TSV's sha256 against the in-core run's, its peak device memory
-    against the budget.  Returns the kernel launches of the checked
-    run."""
+    against the budget.  Returns the launch counts of the checked run."""
     spec = OOC[mode]
     import torch
 
@@ -846,7 +1243,7 @@ def ooc_cli(tag: str, args: list, mode: str, in_core_sha: str,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        wall, launches = run_cli(tag, args)
+        wall, counts = run_cli(tag, args)
         peak = torch.cuda.max_memory_allocated() - base
     groups = seen["groups"] or seen["x_rows"]
     rows = check_layout(tag, groups, seen["spans"], min_groups)
@@ -858,21 +1255,24 @@ def ooc_cli(tag: str, args: list, mode: str, in_core_sha: str,
     check(peak <= spec[0], f"{tag}: peak device memory {peak} B over the"
                            f" budget {spec[0]} B")
     check(sha256(out) == in_core_sha, f"{tag}: TSV differs from in core")
-    print(f"{tag} out of core: wall {wall:.3f} s, {launches} K1 launches,"
+    check(counts["counters"] == counts["blocks"]["none"],
+          f"{tag}: out of core launched {counts}, expected int32 blocks only")
+    print(f"{tag} out of core: wall {wall:.3f} s,"
+          f" {counts['counters']} K1 launches,"
           f" groups {groups}, super-rows {[q1 - q0 for q0, q1 in rows]},"
           f" {seen['stagings']} stagings of {len(seen['spans'])} super-row"
           f" sweeps, peak device memory {peak} B <= budget {spec[0]} B;"
           f" TSV sha256 equals the in-core run's ({gpu_line()})")
     with out_of_core(*spec):
         profiled_run(tag, args)
-    return launches
+    return counts
 
 
 def phase_out_of_core(shas: dict) -> dict:
     """The square, rectangle and stream out of core at full size (only the
     budgets are cut), the six measures out of core at small shapes, and
     an in-core stream against a loaded side of 4,194,305 records.
-    Returns the kernel launches by path."""
+    Returns the launch counts by path."""
     from distance_tpu_torch import cli
     from distance_tpu_torch.measures import MEASURES
 
@@ -897,8 +1297,8 @@ def phase_out_of_core(shas: dict) -> dict:
         args = [f1, "-s", f2, "-b", str(STREAM_BATCH), "-o"]
         ref = os.path.join(tmp, "in_core.tsv")
         wall, n = run_cli("[9] stream in core", args + [ref])
-        print(f"[9] stream {n1} x {n2} in core: wall {wall:.3f} s, {n} K1"
-              " launches")
+        print(f"[9] stream {n1} x {n2} in core: wall {wall:.3f} s,"
+              f" {n['counters']} K1 launches")
         launches["stream-staged"] = ooc_cli(
             "[9] stream", args + [os.path.join(tmp, "ooc.tsv")],
             "stream", sha256(ref), min_groups=2)
@@ -939,9 +1339,10 @@ def phase_out_of_core(shas: dict) -> dict:
     return launches
 
 
-def phase_long_loaded(tmp: str) -> int:
+def phase_long_loaded(tmp: str) -> dict:
     """A few records streamed in core against 4,194,305 loaded records of
-    64 sites: one kernel launch over all of them as x rows."""
+    64 sites: one block launch over all of them as x rows (and their
+    baseline); returns the launch counts."""
     from distance_tpu_torch import engine, measures
     from distance_tpu_torch.writer import format_float
 
@@ -957,16 +1358,21 @@ def phase_long_loaded(tmp: str) -> int:
     # the engine's own budgets and tiles: only the launches are watched
     with out_of_core(engine.DEVICE_BUDGET, engine.HOST_BUF_BUDGET,
                      (engine.TILE_I, engine.TILE_J)) as seen:
-        wall, launches = run_cli("[9] long loaded",
-                                 [f1, "-s", f2, "-o", out])
-    check(launches == 1, f"{launches} launches, expected one group")
-    want = {(n1, n2, -(-width // 128) * 128)}
+        wall, counts = run_cli("[9] long loaded",
+                               [f1, "-s", f2, "-o", out])
+    # 40 mutations in 64 sites: too diverse for diff uploads
+    check_packed_path("[9] long loaded", counts, 1, 2, rebuilds=0,
+                      group_baselines=True)
+    l_pad = -(-width // 128) * 128
+    # the group's block, and the baselines of the loaded rows, the
+    # group's rows and the reference row
+    want = {(n1, n2, l_pad), (n1, 1, l_pad), (1, n2, l_pad), (1, 1, l_pad)}
     check(seen["launch_shapes"] == want,
           f"long loaded: launch shapes {sorted(seen['launch_shapes'])},"
           f" phase 2 checked {sorted(want)}")
     pairs = n1 * n2
     print(f"[9] stream {n2} x {n1} loaded x {width}: {pairs} pairs in"
-          f" {wall:.3f} s, {launches} K1 launch of {n1} x rows"
+          f" {wall:.3f} s, one K1 block launch of {n1} x rows"
           f" ({gpu_line()})")
     data, nl = read_tsv(out, 1 + pairs)
     rng = np.random.default_rng(SEED + 9)
@@ -979,7 +1385,7 @@ def phase_long_loaded(tmp: str) -> int:
                            f" {want!r}")
     print(f"[9] {1 + pairs} lines; {SAMPLES} random rows equal the host"
           " oracle")
-    return launches
+    return counts
 
 
 def run_procs(tag: str, commands: list, env: dict) -> float:
@@ -1017,7 +1423,7 @@ def phase_multiprocess(shas: dict) -> int:
     staged, and their merge; then ``--launch 2``, ``--num-hosts`` and
     ``--coordinator`` runs as processes on this card, each TSV against the
     single run's sha256 and each wall beside a single-process one.
-    Returns the kernel launches of the two shards."""
+    Returns the launches of each kernel in the two shards."""
     import torch
 
     from distance_tpu_torch import cli, engine
@@ -1033,13 +1439,17 @@ def phase_multiprocess(shas: dict) -> int:
         *_, f1, f2 = write_inputs(tmp, "[10]", n1, n2, SEED + 5, "s")
         args = [f1, "-s", f2, "-b", str(STREAM_BATCH)]
         parts = [os.path.join(tmp, f"shard{k}.tsv") for k in range(2)]
-        wall0, n_in_core = run_cli("[10] shard 0/2",
+        wall0, c_in_core = run_cli("[10] shard 0/2",
                                    args + ["--shard", "0/2", "-o", parts[0]])
-        check(n_in_core == 2, f"shard 0/2: {n_in_core} launches, expected"
-                              " one for each of groups 0 and 2")
+        # groups 0 and 2, the baselines of the loaded rows and the
+        # reference row, and of each group's rows
+        check_packed_path("[10] shard 0/2", c_in_core, 2, 2,
+                          group_baselines=True)
+        n_in_core = c_in_core["blocks"]["rel4"]
         with out_of_core(*SHARD_STAGED) as seen:
-            wall1, n_staged = run_cli(
+            wall1, c_staged = run_cli(
                 "[10] shard 1/2", args + ["--shard", "1/2", "-o", parts[1]])
+        n_staged = c_staged["counters"]
         want = {(m, n, l_pad) for m, n in SHARD_STAGED_LAUNCHES}
         spans = sorted(set(seen["spans"]))
         check(seen["groups"] == [STREAM_GROUPS[1]]
@@ -1065,7 +1475,7 @@ def phase_multiprocess(shas: dict) -> int:
         merge_wall = time.perf_counter() - t0
         check_sha("[10] --merge of the shards", merged, shas["stream"])
         print(f"[10] stream {n1} x {n2} in two shards in this process:"
-              f" shard 0/2 in core {wall0:.3f} s ({n_in_core} K1 launches,"
+              f" shard 0/2 in core {wall0:.3f} s ({n_in_core} K1 block launches,"
               f" groups 0 and 2), shard 1/2 staged under"
               f" {SHARD_STAGED[0]} B {wall1:.3f} s ({n_staged} K1 launches:"
               f" group 1 against super-rows {[q1 - q0 for q0, q1 in spans]});"
@@ -1129,7 +1539,53 @@ def phase_multiprocess(shas: dict) -> int:
               f" {coordinator}: two processes {wall:.3f} s; sha256 equals"
               f" this process's run ({card})")
     print(f"[10] phase 10 passed in {time.perf_counter() - t_phase:.1f} s")
-    return n_in_core + n_staged
+    return {k: c_in_core[k] + c_staged[k] for k in KERNELS}
+
+
+def phase_ladder(tmp: str) -> dict:
+    """A diverse alignment: N_LADDER records of random bases over the bench
+    width, 0.5% N.  Residuals against any reference row pass the nibble
+    and the int8 ranges, so each block of the square walks the pack
+    ladder rel4 -> rel -> int32, and a kernel launch is made at each
+    rung; line count and 1200 random rows against the host oracle.
+    Returns the launch counts."""
+    from distance_tpu_torch import measures
+    from distance_tpu_torch.encoding import A, C, G, N, T
+    from distance_tpu_torch.writer import format_float
+
+    rng = np.random.default_rng(SEED + 10)
+    mat = rng.choice(np.array([A, C, G, T], dtype=np.uint8),
+                     size=(N_LADDER, L_BENCH))
+    mat[rng.random(mat.shape) < 0.005] = N
+    fasta = os.path.join(tmp, "diverse.fasta")
+    out = os.path.join(tmp, "diverse.tsv")
+    ids = write_fasta(fasta, mat)
+    wall, counts = run_cli("[11]", [fasta, "-o", out])
+    b = counts["blocks"]
+    check(b["rel4"] >= 1 and b["rel"] == b["rel4"] and b["none"] == b["rel"]
+          and counts["pack_rel4"] == b["rel4"]
+          and counts["pack_rel"] == b["rel"]
+          and counts["counters"] == sum(b.values()) + counts["baselines"],
+          f"[11] launches {counts}: expected every block at each rung")
+    n = N_LADDER
+    pairs = n * (n - 1) // 2
+    print(f"[11] diverse square {n} x {L_BENCH}: {pairs} pairs in {wall:.3f}"
+          f" s; K1 block launches by rung: rel4 {b['rel4']}, rel {b['rel']},"
+          f" int32 {b['none']}, and {counts['baselines']} baselines; K2"
+          f" launches: rel4 {counts['pack_rel4']}, rel {counts['pack_rel']};"
+          f" K3 {counts['diff_rebuild']} ({gpu_line()})")
+    data, nl = read_tsv(out, 1 + pairs)
+    ii = rng.integers(0, n - 1, size=SAMPLES)
+    jj = ii + 1 + (rng.random(SAMPLES) * (n - 1 - ii)).astype(np.int64)
+    for i, j in zip(ii.tolist(), jj.tolist()):
+        k = 1 + i * (2 * n - i - 1) // 2 + (j - i - 1)
+        want = (f"{ids[i]}\t{ids[j]}\t"
+                f"{format_float(measures.raw(mat[i], mat[j]))}")
+        check(tsv_line(data, nl, k) == want, f"[11] row ({i}, {j}):"
+              f" {tsv_line(data, nl, k)!r} != {want!r}")
+    print(f"[11] {1 + pairs} lines; {SAMPLES} random rows equal the host"
+          " oracle")
+    return counts
 
 
 def measure_mode() -> None:
@@ -1138,9 +1594,9 @@ def measure_mode() -> None:
     from distance_tpu_torch.measures import MEASURES
 
     def timed(tag, args, pairs, measure="raw"):
-        wall, launches = run_cli(tag, args, measure)
+        wall, counts = run_cli(tag, args, measure)
         print(f"{tag}: {pairs} pairs in {wall:.3f} s = {pairs / wall:.6e}"
-              f" pairs/s, {launches} kernel launches")
+              f" pairs/s, {counts['counters']} K1 launches")
 
     n1, n2 = N_RECT
     with tempfile.TemporaryDirectory() as tmp:
@@ -1199,7 +1655,8 @@ def measure_out_of_core() -> None:
                 check(bool(seen["spans"]), f"{mode} {measure} stayed in core")
                 print(f"[m] {mode} {measure}: {pairs} pairs, in core"
                       f" {ic:.3f} s, out of core {ooc:.3f} s"
-                      f" ({ooc / ic:.3f} x, {n} K1 launches) ({gpu_line()})")
+                      f" ({ooc / ic:.3f} x, {n['counters']} K1 launches)"
+                      f" ({gpu_line()})")
 
 
 def main(argv: list) -> int:
@@ -1229,6 +1686,7 @@ def main(argv: list) -> int:
     print(f"[2] bench alignment {bench.shape} made in"
           f" {time.perf_counter() - t0:.3f} s")
     max_err = phase_kernel_vs_plain(bench)
+    max_err_pack = phase_pack_and_rebuild(bench)
     launches, shas = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         launches["square"], shas["square"] = phase_main_path(tmp, bench)
@@ -1236,6 +1694,9 @@ def main(argv: list) -> int:
         phase_six_measures(tmp, bench)
     (ms, plain_ms, bound, library_ms, bound_by), err = phase_timing(bench)
     max_err = max(max_err, err)
+    times = {"counters": dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                              bound_by=bound_by, library_ms=library_ms)}
+    times.update(phase_pack_timing(bench))
     with tempfile.TemporaryDirectory() as tmp:
         launches["rectangle"], shas["rectangle"] = phase_rectangle(tmp)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1245,24 +1706,31 @@ def main(argv: list) -> int:
     del bench
     launches.update(phase_out_of_core(shas))
     launches["stream_shards"] = phase_multiprocess(shas)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["ladder"] = phase_ladder(tmp)
     print(f"chip_smoke: all phases passed in"
           f" {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "counters",
-        "route": "cuda",
-        "source": "distance_tpu_torch/csrc/counters.cu",
-        "replaces": "distance_tpu/ops/pairwise_pallas.py:110",
-        "launches": sum(launches.values()),
-        "paths": list(launches),
-        "launches_by_path": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
-    }]}))
+    sources = {
+        "counters": ("distance_tpu_torch/csrc/counters.cu",
+                     "distance_tpu/ops/pairwise_pallas.py:110", max_err),
+        "pack_rel4": ("distance_tpu_torch/csrc/packing.cu",
+                      "distance_tpu/ops/packing.py:189", max_err_pack),
+        "pack_rel": ("distance_tpu_torch/csrc/packing.cu",
+                     "distance_tpu/ops/packing.py:141", max_err_pack),
+        "diff_rebuild": ("distance_tpu_torch/csrc/diffup.cu",
+                         "distance_tpu/ops/diffup.py:74", max_err_pack),
+    }
+    kernels = []
+    for name in KERNELS:
+        source, replaces, err = sources[name]
+        by_path = {path: c[name] for path, c in launches.items()}
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces,
+                        "launches": sum(by_path.values()),
+                        "launches_by_path": by_path, "max_abs_err": err,
+                        **times[name]})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -6,30 +6,42 @@ against one loaded alignment.  The loaded sweeps in core:
 
 * parse and encode on the host (``fastaio``);
 * drop invariant columns (``emit._prune_invariant_columns``);
-* upload the padded codes once to the run's device;
+* upload the padded codes once to the run's device: as (index, code)
+  diffs against a reference row that the diff rebuild kernel
+  (``ops/diffup.py``) expands there, or dense through pinned memory when
+  the diffs do not win;
 * per strip of ``ti`` rows, one counter kernel launch per ``tj``-column
-  block (``ops/counters.py``), concatenated on the device;
+  block (``ops/counters.py``), each block packed against K1 baselines of
+  the reference row by the pack kernel (``ops/packing.py``: rel4 nibbles
+  with an exception sidecar, or int8 rel), concatenated on the device
+  with one sidecar bundle per strip;
 * copy each strip into pinned host memory, asynchronously, with at most
-  ``STRIP_LOOKAHEAD`` strips in flight;
+  ``STRIP_LOOKAHEAD`` strips in flight, and finish the counters on the
+  host; a saturated strip is dispatched again at the next rung of the
+  pack ladder (rel4 -> rel -> int32);
 * finalize and emit the upper triangle (square) or the full file1 x file2
   block in row-major order (rectangle) on the host.
 
 The stream (``_run_stream``) keeps the loaded side's variant columns on
-the device and sends the records in groups, one kernel launch per group
-(see there).  A run whose device footprint passes the device budget
-(``_device_budget``) goes out of core: the loaded sweeps stage row groups
-and super-rows through the device (``_sweep_blocked``), and the stream
-sweeps a host-resident loaded side in super-rows per group (the staged
-stream).  The counters travel unpacked as int32 and the codes dense (no
-diff uploads).  A sharded stream (``-s`` with ``--shard K/N``) runs every
-N-th group and indexes its units in a ``.units`` sidecar, which
-``parallel/multihost.merge_parts`` interleaves into the unsharded file.
-Multi-device runs are not ported yet.  Output bytes are identical to the
-JAX engine's for every tile, group, budget and shard.
+the device and sends the records in groups (diff-encoded, with the
+reference retargeted when a group's lineage differs), one kernel launch
+and one pack per group (see there).  A run whose device footprint passes
+the device budget (``_device_budget``) goes out of core: the loaded
+sweeps stage row groups and super-rows through the device
+(``_sweep_blocked``), and the stream sweeps a host-resident loaded side
+in super-rows per group (the staged stream); out of core, the counters
+travel unpacked as int32 and the codes dense.  A sharded stream (``-s``
+with ``--shard K/N``) runs every N-th group and indexes its units in a
+``.units`` sidecar, which ``parallel/multihost.merge_parts`` interleaves
+into the unsharded file.  The knobs of KNOB_ENV follow the JAX CLI's
+environment variables.  Multi-device runs are not ported yet.  Output
+bytes are identical to the JAX engine's for every tile, group, budget,
+shard and pack rung.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os as _os
 import sys
 from dataclasses import dataclass
@@ -56,6 +68,13 @@ from distance_tpu_torch.fastaio import (
 )
 from distance_tpu_torch.finalize import finalize_block
 from distance_tpu_torch.ops import counters as kernels
+from distance_tpu_torch.ops import packing
+from distance_tpu_torch.ops.diffup import (
+    DiffUploader,
+    mode_row,
+    sampled_mode_row,
+    to_device,
+)
 from distance_tpu_torch.ops.features import CounterPlan, get_plan
 from distance_tpu_torch.ops.plan import plan_to_torch
 from distance_tpu_torch.parallel.multihost import CARD_SHARE_ENV, UnitIndex
@@ -87,8 +106,46 @@ HOST_BUF_BUDGET = 4 << 30
 # Fewest streamed records in a staged group: below this the loaded side's
 # re-staging per group dominates.
 STAGED_ROWS_FLOOR = 256
+# After this many consecutive saturated fetches at a rung of the pack
+# ladder (rel4, then rel), dispatch at the next rung.
+NARROW_STICKY_LIMIT = 2
+# Consecutive failed stream-reference retargets before the engine stops
+# probing new references (see _BlockEngine.dispatch_stream).
+RETARGET_FAIL_LIMIT = 3
+
+# The JAX CLI's environment variables of the knobs above.  Each is read
+# when a run starts (``_env_knobs``), so that the workers of a --launch or
+# --num-hosts run inherit it; unset, the module constant stands.
+KNOB_ENV = {
+    "DEVICE_BUDGET": "DISTANCE_TPU_HBM_BUDGET",
+    "HOST_BUF_BUDGET": "DISTANCE_TPU_HOST_BUF_BUDGET",
+    "STREAM_GROUP": "DISTANCE_TPU_STREAM_GROUP",
+    "STRIP_LOOKAHEAD": "DISTANCE_TPU_LOOKAHEAD",
+    "STREAM_PENDING": "DISTANCE_TPU_STREAM_PENDING",
+    "NARROW_STICKY_LIMIT": "DISTANCE_TPU_NARROW_STICKY",
+    "RETARGET_FAIL_LIMIT": "DISTANCE_TPU_RETARGET_LIMIT",
+}
 
 BACKENDS = ("cuda", "torch")
+
+
+@contextlib.contextmanager
+def _env_knobs():
+    """The knobs of KNOB_ENV set from the environment for one run, and
+    restored after it."""
+    saved = {name: globals()[name] for name in KNOB_ENV}
+    try:
+        for name, var in KNOB_ENV.items():
+            value = _os.environ.get(var)
+            if value:
+                try:
+                    globals()[name] = int(value)
+                except ValueError:
+                    raise DistanceError(
+                        f"{var}={value!r}: expected an integer") from None
+        yield
+    finally:
+        globals().update(saved)
 
 
 @dataclass
@@ -261,7 +318,15 @@ def _input_fingerprint(paths: Sequence[str]) -> List[dict]:
 
 
 def run(setup: Setup) -> None:
-    """Dispatch to the loaded or streamed sweep (lib.rs:490-498)."""
+    """Dispatch to the loaded or streamed sweep (lib.rs:490-498), with the
+    knobs the environment sets and the run's card as the current one."""
+    device = device_of(setup.backend)
+    with _env_knobs(), (torch.cuda.device(device) if device.type == "cuda"
+                        else contextlib.nullcontext()):
+        _run(setup)
+
+
+def _run(setup: Setup) -> None:
     if setup.shard is not None and setup.shard[0] != 0:
         setup.writer.suppress_header()
     _resolve_auto_tiles(setup)
@@ -338,8 +403,10 @@ def _progress_mark(setup: Setup, units_done: int) -> None:
 
 
 def device_of(backend: str) -> torch.device:
-    """The device a backend runs on: ``cuda`` the card (cuda:0), ``torch``
-    the CPU.  ``cuda`` without a CUDA device is an error, not a CPU run."""
+    """The device a backend runs on: ``cuda`` the card, ``torch`` the CPU.
+    The card is cuda:0, or for a rank that torchrun started on a host of
+    several cards, cuda:(LOCAL_RANK mod the card count).  ``cuda`` without
+    a CUDA device is an error, not a CPU run."""
     if backend == "torch":
         return torch.device("cpu")
     if backend != "cuda":
@@ -351,7 +418,27 @@ def device_of(backend: str) -> torch.device:
             "--backend cuda needs a CUDA device and none is available"
             " (--backend torch runs the plain version on the CPU)"
         )
-    return torch.device("cuda", 0)
+    return torch.device("cuda", _local_rank() % torch.cuda.device_count())
+
+
+def _local_rank() -> int:
+    """This process's rank among torchrun's ranks on its host (0 when
+    torchrun did not start it)."""
+    return int(_os.environ.get("LOCAL_RANK") or 0)
+
+
+def _card_share() -> int:
+    """How many processes of this run share this process's card: the
+    workers of a ``--launch N`` (told by the launcher), or the ranks
+    torchrun started on this host whose LOCAL_RANK maps to the same card
+    (LOCAL_WORLD_SIZE of them, spread over the cards round-robin)."""
+    share = int(_os.environ.get(CARD_SHARE_ENV) or 1)
+    local_world = int(_os.environ.get("LOCAL_WORLD_SIZE") or 1)
+    if local_world > 1:
+        cards = max(1, torch.cuda.device_count())
+        card = _local_rank() % cards
+        share *= len(range(card, local_world, cards))
+    return share
 
 
 def _card_memory(device: torch.device) -> Optional[Tuple[int, int]]:
@@ -373,96 +460,496 @@ def _device_budget(device: torch.device,
     set, else half the memory the card can hand out now (the rest is
     headroom for the allocator and the plain version's temporaries), or
     with ``of_total`` half the card's total, which other processes cannot
-    move (sizes recorded for a resume come from it).  A worker of a
-    ``--launch N`` takes 1/N of that: its N workers start together, and
-    each sees the whole card free.  None on the CPU unless DEVICE_BUDGET
-    is set: there the plain version keeps everything in core."""
+    move (sizes recorded for a resume come from it).  A process that
+    shares its card with others of the run (``_card_share``: a worker of
+    a ``--launch N``, or torchrun ranks on one card) takes its share of
+    that: they start together, and each sees the whole card free.  None
+    on the CPU unless DEVICE_BUDGET is set: there the plain version keeps
+    everything in core."""
     if DEVICE_BUDGET:
         return DEVICE_BUDGET
     memory = _card_memory(device)
     if memory is None:
         return None
-    share = int(_os.environ.get(CARD_SHARE_ENV) or 1)
-    return memory[1 if of_total else 0] // 2 // share
+    return memory[1 if of_total else 0] // 2 // _card_share()
+
+
+# K1 contractions against the reference row (the rel baselines rb, cb and
+# cc) made by engines in this process, and the counter blocks dispatched
+# at each rung of the pack ladder (first dispatches and refetches alike).
+BASELINES = 0
+RUNG_BLOCKS = {"rel4": 0, "rel": 0, "none": 0}
 
 
 class _BlockEngine:
-    """Counter blocks for (strip, block) tile pairs on one torch device."""
+    """Counter blocks for (strip, block) tile pairs on one torch device.
 
-    def __init__(self, measure: str, device: torch.device, ti: int) -> None:
+    With ``rel`` (the in-core sweeps and stream) ``prepare`` picks a
+    reference row and the blocks leave the device packed: the ladder
+    rel4 -> (saturations) -> rel -> (saturations) -> none of the JAX
+    engine at unpacked widths (``pack_mode``), each residual pack against
+    K1 baselines computed once per prepared matrix.  Without it every
+    block is int32 counters (the out-of-core sweeps and the staged
+    stream).  ``prepare(diff_ref=...)`` sends codes diff-encoded.
+    """
+
+    def __init__(self, measure: str, device: torch.device, ti: int,
+                 width: int = 0, rel: bool = False) -> None:
+        self.measure = measure
         self.plan = get_plan(measure)
         self.kplan = plan_to_torch(self.plan, device)
         self.device = device
         self.ti = ti
+        self.width = width
+        self.rel = rel
+        # Diff-encoded uploads: set by prepare(diff_ref=), swapped by a
+        # stream retarget; the identity of the diff_ref array the
+        # uploader was built from, so that prepares sharing one reuse it
+        self.diff_up: Optional[DiffUploader] = None
+        self._diff_ref_src = None
+        # The reference row of the rel baselines, on the device
+        self.rel_ref: Optional[torch.Tensor] = None
+        # Consecutive saturated fetches at the rel4 and rel rungs
+        self._rel_overflow_streak = 0
+        self._rel4_overflow_streak = 0
+        # Retargeting of the stream diff reference (see dispatch_stream)
+        import threading
 
-    def prepare(self, matrix: np.ndarray, max_block: int) -> torch.Tensor:
+        self._retarget_fail_streak = 0
+        self._retarget_lock = threading.Lock()
+        # Prepared matrices (id -> handle) and their baselines ((id, side)
+        # -> (matrix, reference row, baseline)); a stream group's codes
+        # are not prepared, and their baselines are not kept
+        self._prepared: Dict[int, torch.Tensor] = {}
+        self._bases: Dict[tuple, tuple] = {}
+
+    def prepare(self, matrix: np.ndarray, max_block: int,
+                diff_ref: Optional[np.ndarray] = None) -> torch.Tensor:
         """Pad and upload a sequence matrix once.
 
         Rows are padded so that every strip and block slice of up to
         ``max_block`` rows stays in bounds (torch slicing past the end
         returns a shorter tensor where the JAX engine's dynamic_slice
-        clamps); padding rows and sites hold code 0, which adds nothing
-        to any counter."""
+        clamps); padding sites hold code 0, which adds nothing to any
+        counter, and so do padding rows of a dense upload.  ``diff_ref``
+        (a width-length code row) enables diff-encoded uploads against it
+        for this matrix and later ones (stream groups too): a padding row
+        of a diff upload holds the reference row, and the rel4 pack masks
+        it.  A dense upload goes through pinned memory.  An engine with
+        ``rel`` also sets the reference row of its baselines: the diff
+        reference, else a row sample's per-column mode; none under
+        DISTANCE_TPU_NO_REL_PACK."""
         n, width = matrix.shape
-        padded = np.zeros(
-            _padded_shape(n, width, self.ti, max_block), dtype=np.uint8
-        )
+        n_pad, l_pad = _padded_shape(n, width, self.ti, max_block)
+        padded = np.zeros((n_pad, l_pad), dtype=np.uint8)
         padded[:n, :width] = matrix
-        return torch.from_numpy(padded).to(self.device, copy=True)
+        if diff_ref is not None and not (
+            self.diff_up is not None
+            and self._diff_ref_src is diff_ref
+            and self.diff_up.l_pad == l_pad
+        ):
+            refp = np.zeros(l_pad, dtype=np.uint8)
+            refp[:width] = diff_ref
+            self.diff_up = DiffUploader(refp, self.device)
+            self._diff_ref_src = diff_ref
+        enc = (self.diff_up.encode(padded, n_real=n)
+               if self.diff_up is not None else None)
+        if enc is not None:
+            dev = self.diff_up.upload_encoded(enc, n_pad)
+        else:
+            dev = to_device(padded, self.device)
+        if (self.rel and width > 0 and n
+                and not _os.environ.get("DISTANCE_TPU_NO_REL_PACK")):
+            if self.diff_up is not None:
+                self.rel_ref = self.diff_up.ref_dev()
+            else:
+                refp = np.zeros(l_pad, dtype=np.uint8)
+                refp[:width] = sampled_mode_row(matrix)
+                self.rel_ref = to_device(refp, self.device)
+        self._prepared[id(dev)] = dev
+        return dev
+
+    def diff_ref_for(self, source: np.ndarray) -> Optional[np.ndarray]:
+        """Reference row for diff-encoded uploads of ``source`` (a row
+        sample's per-column mode), or None when diff uploads don't apply
+        (an empty source, or disabled by DISTANCE_TPU_NO_DIFF_UPLOAD)."""
+        if not source.size or _os.environ.get("DISTANCE_TPU_NO_DIFF_UPLOAD"):
+            return None
+        return sampled_mode_row(source)
+
+    def _baseline(self, m: torch.Tensor, ref: torch.Tensor,
+                  side: str) -> torch.Tensor:
+        """K1 of the prepared rows ``m`` against the reference row: side
+        "row" c(m, ref) (G, rows), "col" c(ref, m) (G, rows), "self"
+        c(ref, ref) (G,) (``m`` is ``ref``).  Kept for a prepared matrix
+        and its reference row."""
+        global BASELINES
+        key = (id(m), side)
+        hit = self._bases.get(key)
+        if hit is not None and hit[0] is m and hit[1] is ref:
+            return hit[2]
+        r = ref[None]
+        if side == "row":
+            value = kernels.counters(m, r, self.kplan)[:, :, 0]
+        elif side == "col":
+            value = kernels.counters(r, m, self.kplan)[:, 0, :]
+        else:
+            value = kernels.counters(r, r, self.kplan)[:, 0, 0]
+        BASELINES += 1
+        if side == "self" or id(m) in self._prepared:
+            self._bases[key] = (m, ref, value)
+        return value
 
     def block(self, m1: torch.Tensor, m2: torch.Tensor, i0: int, j0: int,
-              ti: int, tj: int) -> torch.Tensor:
-        """One (G, ti, tj) counter block on the device."""
+              ti: int, tj: int, mode: str = "none", nv=None, diag_off=None,
+              ref: Optional[torch.Tensor] = None):
+        """One (ti, tj) block of rows i0.. of ``m1`` against rows j0.. of
+        ``m2``: (G, ti, tj) int32 counters under ``mode`` "none"; else
+        (lanes, cb, rb_cc[, exc_idx, exc_val]) packed against ``ref``
+        (the engine's reference row by default).  ``nv`` = (valid rows
+        of m1, of m2): the rel4 pack zeroes padding cells so they cannot
+        flood the exception sidecar.  ``diag_off`` (sweeps over one
+        source): m1's row offset minus m2's, for masking self-pairs;
+        None when the two sides hold no self-pairs."""
         if i0 + ti > m1.shape[0] or j0 + tj > m2.shape[0]:
             raise ValueError(
                 f"block ({i0}+{ti}, {j0}+{tj}) outside the prepared rows"
                 f" ({m1.shape[0]}, {m2.shape[0]})"
             )
-        return kernels.counters(
-            m1[i0 : i0 + ti], m2[j0 : j0 + tj], self.kplan
+        RUNG_BLOCKS[mode] += 1
+        c = kernels.counters(m1[i0 : i0 + ti], m2[j0 : j0 + tj], self.kplan)
+        if mode == "none":
+            return c
+        if ref is None:
+            ref = self.rel_ref
+        rb = self._baseline(m1, ref, "row")[:, i0 : i0 + ti]
+        cb = self._baseline(m2, ref, "col")[:, j0 : j0 + tj]
+        cc = self._baseline(ref, ref, "self")
+        rb_cc = torch.cat([rb, cc[:, None]], dim=1)
+        if mode == "rel4":
+            nv1, nv2 = nv if nv is not None else (m1.shape[0], m2.shape[0])
+            lanes, exc_idx, exc_val = packing.pack_rel4(
+                c, rb, cb, cc, i0, j0, (nv1, nv2), diag_off)
+            return lanes, cb, rb_cc, exc_idx, exc_val
+        return packing.pack_rel(c, rb, cb, cc, i0, j0, diag_off), cb, rb_cc
+
+    def dispatch_stream(self, m1: torch.Tensor, padded: np.ndarray,
+                        send_dense) -> Tuple[torch.Tensor, object]:
+        """One stream group's codes on the device, against the loaded codes
+        ``m1``: diff-encoded when the batch is low-diversity, else by
+        ``send_dense()`` (the group's pinned dense send).  Returns the
+        codes and the reference row of the group's baselines.  The diffs
+        are weighed against the dense bytes of the group's own rows (the
+        JAX engine pads a group to its full size first).
+
+        When the current reference cannot compress the batch, it is
+        retargeted at the batch's own per-column mode (a stream from
+        another lineage than the loaded set, or one that drifted); after
+        RETARGET_FAIL_LIMIT consecutive candidates that fail too, probing
+        stops.  The retarget swaps ``diff_up`` (and, when rel packing is
+        on, ``rel_ref``) under the lock, after an unlocked probe; each
+        group keeps the uploader it was encoded with, so its codes and
+        its baselines always share one reference."""
+        bn = padded.shape[0]
+        up = self.diff_up
+        enc = up.encode(padded, n_real=bn) if up is not None else None
+        if enc is None and up is not None:
+            with self._retarget_lock:
+                probe = self._retarget_fail_streak < RETARGET_FAIL_LIMIT
+            if probe:
+                refp = np.zeros(up.l_pad, dtype=np.uint8)
+                refp[:] = sampled_mode_row(padded)
+                refp[self.width:] = 0  # keep pad columns zero
+                cand = DiffUploader(refp, self.device)
+                enc2 = cand.encode(padded, n_real=bn)
+                if enc2 is not None:
+                    cand.ref_dev()  # upload before publishing
+                with self._retarget_lock:
+                    if enc2 is not None:
+                        self._retarget_fail_streak = 0
+                        self.diff_up = cand  # later groups start here
+                        if self.rel_ref is not None:
+                            self.rel_ref = cand.ref_dev()
+                    else:
+                        self._retarget_fail_streak += 1
+                if enc2 is not None:
+                    up, enc = cand, enc2
+        if enc is not None:
+            return up.upload_encoded(enc, bn), up.ref_dev()
+        return send_dense(), up.ref_dev() if up is not None else self.rel_ref
+
+    def mode_for(self, cols: int) -> str:
+        """The rung of a dispatch whose blocks have ``cols`` columns: rel4
+        packs columns two a byte, so an odd count takes rel."""
+        mode = self.pack_mode
+        return "rel" if mode == "rel4" and cols % 2 else mode
+
+    @property
+    def _rel_usable(self) -> bool:
+        return (
+            self.rel_ref is not None
+            and self._rel_overflow_streak < NARROW_STICKY_LIMIT
+        )
+
+    @property
+    def _rel4_usable(self) -> bool:
+        return (
+            self.rel_ref is not None
+            and self._rel4_overflow_streak < NARROW_STICKY_LIMIT
+        )
+
+    @property
+    def pack_mode(self) -> str:
+        """Escalation ladder: rel4 (4-bit residuals) -> (saturations) ->
+        rel (int8) -> (saturations) -> none (int32 counters)."""
+        if self._rel4_usable:
+            return "rel4"
+        if self._rel_usable:
+            return "rel"
+        return "none"
+
+    def note_rel(self, saturated: bool) -> None:
+        self._rel_overflow_streak = (
+            self._rel_overflow_streak + 1 if saturated else 0
+        )
+
+    def note_rel4(self, saturated: bool) -> None:
+        self._rel4_overflow_streak = (
+            self._rel4_overflow_streak + 1 if saturated else 0
         )
 
     def release(self, handle: torch.Tensor) -> None:
         """Free a prepared matrix's memory now rather than when its last
-        reference goes; the handle is empty afterwards."""
-        handle.untyped_storage().resize_(0)
+        reference goes (the handle is empty afterwards), with its
+        baselines."""
+        self._prepared.pop(id(handle), None)
+        for side in ("row", "col"):
+            self._bases.pop((id(handle), side), None)
+        storage = handle.untyped_storage()
+        if storage.resizable():
+            storage.resize_(0)
 
 
-def _dispatch_strip(eng: _BlockEngine, m1, m2, i0: int, col_starts, ti,
-                    tj) -> torch.Tensor:
-    """Launch every column block of one strip; concatenate them on the
-    device into one (G, ti, span) strip."""
-    handles = [eng.block(m1, m2, i0, j0, ti, tj) for j0 in col_starts]
-    return torch.cat(handles, dim=-1) if len(handles) > 1 else handles[0]
+def _dispatch_strip(eng: _BlockEngine, m1, m2, i0: int, col_starts, ti, tj,
+                    mode: Optional[str] = None, nv=None, diag_off=None,
+                    ref: Optional[torch.Tensor] = None):
+    """Launch every column block of one strip at ``mode`` (the engine's
+    ladder by default) and concatenate them on the device: one (G, ti,
+    span) int32 strip, or under rel packing (lanes, bundle): lanes
+    concatenated along columns, and one sidecar bundle of the column
+    baselines (concatenated), the strip-constant row baselines with the
+    self-counter, and under rel4 the blocks' sidecars stacked to (B,
+    CAP) with block-local indices (the host maps them by tj).  A strip
+    costs two device-to-host copies."""
+    if mode is None:
+        mode = eng.mode_for(tj)
+    handles = [eng.block(m1, m2, i0, j0, ti, tj, mode, nv, diag_off, ref)
+               for j0 in col_starts]
+    if mode == "none":
+        return torch.cat(handles, dim=-1) if len(handles) > 1 else handles[0]
+    lanes = torch.cat([h[0] for h in handles], dim=-1)
+    cb = torch.cat([h[1] for h in handles], dim=-1)
+    if mode == "rel4":
+        bundle = packing.bundle_sidecars(
+            cb, handles[0][2], torch.stack([h[3] for h in handles]),
+            torch.stack([h[4] for h in handles]))
+    else:
+        bundle = packing.bundle_sidecars(cb, handles[0][2])
+    return lanes, bundle
 
 
 class _AsyncFetch:
-    """Device->host copy of one strip into pinned memory, started at
-    construction; ``result()`` waits for it and returns a numpy view."""
+    """Device->host copy of one strip (a tensor, or the (lanes, bundle)
+    pair of a packed strip) into pinned memory, started at construction;
+    ``result()`` waits for it and returns numpy views."""
 
-    def __init__(self, handle: torch.Tensor) -> None:
+    def __init__(self, handle) -> None:
         self._event = None
-        if handle.device.type == "cpu":
-            self._host = handle
+        self._pair = isinstance(handle, tuple)
+        parts = handle if self._pair else (handle,)
+        if parts[0].device.type == "cpu":
+            self._host = parts
             return
-        self._host = torch.empty(
-            handle.shape, dtype=handle.dtype, pin_memory=True
+        self._host = tuple(
+            torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+            for p in parts
         )
-        self._host.copy_(handle, non_blocking=True)
+        for host, part in zip(self._host, parts):
+            host.copy_(part, non_blocking=True)
         self._event = torch.cuda.Event()
         self._event.record()
 
-    def result(self) -> np.ndarray:
+    def result(self):
         if self._event is not None:
             self._event.synchronize()
-        return self._host.numpy()
+        arrs = tuple(h.numpy() for h in self._host)
+        return arrs if self._pair else arrs[0]
 
 
-def _fetch_strip(handle: _AsyncFetch, valid_rows: int,
-                 valid_cols: int) -> np.ndarray:
-    """Wait for a strip and crop it to the region that is emitted ->
-    (G, rows, cols) int32 counters."""
-    return handle.result()[:, :valid_rows, :valid_cols]
+def _fetch_strip(eng: _BlockEngine, handle: _AsyncFetch, valid_rows: int,
+                 valid_cols: int, redispatch=None) -> np.ndarray:
+    """Wait for a strip (or a stream group) and unpack the region that is
+    emitted -> (G, rows, cols) int32 counters; ``redispatch(mode)``
+    dispatches it again at a lower rung after a saturation."""
+    return _finish_fetched(eng, handle.result(), valid_rows, valid_cols,
+                           redispatch)
+
+
+def _finish_fetched(eng: _BlockEngine, arr, vr: int, vc: int,
+                    redispatch) -> np.ndarray:
+    """Unpack a fetched strip (the JAX ``_finish_fetched`` at unpacked
+    widths): a rel-family pair reconstructs through ``_unpack_rel_parts``
+    and, on a saturation, takes the refetch ladder; int32 counters are
+    cropped."""
+    if isinstance(arr, tuple):
+        counters, was4 = _unpack_rel_parts(eng, arr, vr, vc)
+        (eng.note_rel4 if was4 else eng.note_rel)(counters is None)
+        if counters is not None:
+            return counters
+        return _rel_wide_refetch(eng, redispatch, vr, vc, try_rel=was4)
+    return arr[:, :vr, :vc]
+
+
+def _rel_wide_refetch(eng: _BlockEngine, redispatch, vr: int, vc: int,
+                      try_rel: bool = False) -> np.ndarray:
+    """Dispatch a saturated rel-family strip again.  A rel4 saturation
+    first tries the adjacent int8 rel rung (nibble outliers are almost
+    always within int8 range); only a rel saturation pays the int32
+    refetch."""
+    if try_rel and eng.rel_ref is not None:
+        parts = _AsyncFetch(redispatch("rel")).result()
+        counters, _ = _unpack_rel_parts(eng, parts, vr, vc)
+        eng.note_rel(counters is None)  # the ladder must see rel failing
+        if counters is not None:
+            return counters
+    return _AsyncFetch(redispatch("none")).result()[:, :vr, :vc]
+
+
+def _unpack_rel_parts(eng: _BlockEngine, parts, vr: int, vc: int):
+    """Crop a rel-packed fetch — (lanes, bundle) with the fused sidecar
+    bundle, or an unbundled (lanes, cb, rb_cc[, exc_idx, exc_val])
+    tuple — to the valid region and reconstruct int32 counters.
+    Returns (counters_or_None, was_rel4); counters is None on lane
+    saturation (sidecar overflow under rel4).
+
+    rel4 lanes expand to full-width residuals first: exception indices
+    address the padded tensor, and a strip's sidecars are per-block
+    ((B, CAP) int32, block-local flat indices into (G, ti, tj))."""
+    from distance_tpu_torch.ops.packing import (
+        REL4_SAT, finish_host_rel4, unbundle_sidecars, unpack_host_rel,
+        unpack_rel4_nibbles,
+    )
+
+    if len(parts) == 2:
+        cb_, rb_cc_, ei, ev = unbundle_sidecars(parts[1])
+        parts = (parts[0], cb_, rb_cc_) + (
+            (ei, ev) if ei is not None else ()
+        )
+    lanes, cb, rb_cc = parts[:3]
+    rb, cc = rb_cc[:, :vr], rb_cc[:, -1]
+    if len(parts) == 5:
+        exc_idx, exc_val = parts[3], parts[4]
+        from distance_tpu_torch._native import get_lib
+
+        lib = get_lib()
+        if (
+            lib is not None
+            and isinstance(lanes, np.ndarray)
+            and lanes.flags.c_contiguous
+        ):
+            return _rel4_finish_native(
+                lib, lanes, rb, cb, cc, exc_idx, exc_val, vr, vc
+            ), True
+        res = unpack_rel4_nibbles(lanes)  # full padded (G, rows, span)
+        # -8 is saturation ONLY where no exception patches it (a patched
+        # residual may legitimately be -8)
+        bad = res == REL4_SAT
+        flat, flatbad = res.reshape(-1), bad.reshape(-1)
+        if exc_idx.ndim == 1:  # single tensor (stream group / one block)
+            sel = exc_idx >= 0
+            idx = exc_idx[sel]
+            flat[idx] = exc_val[sel]
+            flatbad[idx] = False
+        else:  # (B, CAP): block-local indices into (G, ti, tj)
+            g_span = res.shape[1] * res.shape[2]
+            n_blocks = exc_idx.shape[0]
+            tj = res.shape[2] // n_blocks
+            for b in range(n_blocks):
+                idx = exc_idx[b]
+                sel = idx >= 0
+                idx = idx[sel]
+                g, rem = idx // (res.shape[1] * tj), idx % (res.shape[1] * tj)
+                r, c = rem // tj, rem % tj
+                pos = g * g_span + r * res.shape[2] + b * tj + c
+                flat[pos] = exc_val[b][sel]
+                flatbad[pos] = False
+        return finish_host_rel4(
+            res[:, :vr, :vc], rb, cb[:, :vc], cc, bad[:, :vr, :vc]
+        ), True
+    return (
+        unpack_host_rel(lanes[:, :vr, :vc], rb, cb[:, :vc], cc),
+        False,
+    )
+
+
+def _rel4_finish_native(lib, lanes, rb, cb, cc, exc_idx, exc_val,
+                        vr: int, vc: int):
+    """Native rel4 finish: one GIL-released C pass per row chunk expands
+    the nibble lanes, applies the rank-1 baseline, and counts -8
+    sentinels in the cropped region; exception positions are then
+    patched vectorized on host (each was emitted as a sentinel, so
+    sentinels minus patched positions = genuine saturations).  Returns
+    (G, vr, vc) int32 counters, or None on saturation (caller refetches).
+    Bit-identical to the numpy path (tests/test_packing.py)."""
+    import ctypes
+
+    from distance_tpu_torch.ops.diffup import _get_pool, _row_chunks
+
+    g_n, rows, ch = lanes.shape
+    out = np.empty((g_n, vr, vc), dtype=np.int32)
+    rb_c = np.ascontiguousarray(rb, dtype=np.int32)         # (G, vr)
+    cb_c = np.ascontiguousarray(cb[:, :vc], dtype=np.int32)  # (G, vc)
+    p_i8 = ctypes.POINTER(ctypes.c_int8)
+    p_i32 = ctypes.POINTER(ctypes.c_int32)
+    pool = _get_pool()
+    chunks = _row_chunks(vr, pool._max_workers)
+
+    def run(task):
+        g, (r0, r1) = task
+        return lib.dt_rel4_expand_add(
+            lanes[g].ctypes.data_as(p_i8), ch, r0, r1,
+            rb_c[g].ctypes.data_as(p_i32), cb_c[g].ctypes.data_as(p_i32),
+            ctypes.c_int32(int(cc[g])), vc,
+            out[g].ctypes.data_as(p_i32),
+        )
+
+    tasks = [(g, span) for g in range(g_n) for span in chunks]
+    sent = sum(pool.map(run, tasks) if len(tasks) > 1 else [run(tasks[0])])
+
+    patched = 0
+    ei = exc_idx if exc_idx.ndim == 2 else exc_idx[None]
+    ev = exc_val if exc_val.ndim == 2 else exc_val[None]
+    span_res = 2 * ch
+    tj = span_res // ei.shape[0]
+    for b in range(ei.shape[0]):
+        idx = ei[b]
+        sel = idx >= 0
+        idx = idx[sel].astype(np.int64)
+        if not idx.size:
+            continue
+        g = idx // (rows * tj)
+        rem = idx % (rows * tj)
+        r, c = rem // tj, rem % tj
+        gcol = b * tj + c
+        m = (r < vr) & (gcol < vc)
+        g, r, gcol = g[m], r[m], gcol[m]
+        out[g, r, gcol] = (
+            ev[b][sel][m] + rb_c[g, r] + cb_c[g, gcol] - cc[g]
+        )
+        patched += int(m.sum())
+    if sent - patched:
+        return None
+    return out
 
 
 def _pipeline_strips(strip_iter, emit_fn):
@@ -732,11 +1219,21 @@ def _sweep_load(setup: Setup) -> None:
         _sweep_blocked(setup, sources, width, same_offset, device, ti, tj,
                        budget)
         return
-    eng = _BlockEngine(setup.measure, device, ti)
+    eng = _BlockEngine(setup.measure, device, ti, width, rel=True)
+    with phase_timer("diff-ref"):
+        diff_ref = eng.diff_ref_for(sources[0])
     with phase_timer("prepare-upload"):
-        mats = [eng.prepare(src, mb) for src, (_, mb) in zip(sources, prepared)]
+        mats = [eng.prepare(src, mb, diff_ref=diff_ref)
+                for src, (_, mb) in zip(sources, prepared)]
     m1, m2 = mats[0], mats[-1]
     plan = eng.plan
+    # the square masks its self-pairs; rel4 masks rows and columns past
+    # the records
+    diag_off = 0 if square else None
+
+    def dispatch(i0, col_starts, mode=None):
+        return _dispatch_strip(eng, m1, m2, i0, col_starts, ti, tj, mode,
+                               (n1, n2), diag_off)
 
     strip_starts, weights = _strip_grid(square, n1, n2, ti)
     a, b = _split_strips(weights, setup.shard)
@@ -752,17 +1249,18 @@ def _sweep_load(setup: Setup) -> None:
             if ordinal < done:
                 continue
             col_starts = list(range(i0 if square else 0, n2, tj))
-            yield ordinal, i0, _AsyncFetch(
-                _dispatch_strip(eng, m1, m2, i0, col_starts, ti, tj)
-            )
+            yield ordinal, i0, col_starts, _AsyncFetch(
+                dispatch(i0, col_starts))
 
     def emit(item):
-        ordinal, i0, handle = item
+        ordinal, i0, col_starts, handle = item
         si = min(ti, n1 - i0)
         col0 = i0 if square else 0
+        strip = _fetch_strip(
+            eng, handle, si, n2 - col0,
+            redispatch=lambda mode: dispatch(i0, col_starts, mode))
         _emit_strip(
-            setup, plan, _fetch_strip(handle, si, n2 - col0), si, i0, col0,
-            same_offset, emitter, pool,
+            setup, plan, strip, si, i0, col0, same_offset, emitter, pool,
             after=lambda: (_progress_mark(setup, ordinal + 1), meter.tick()),
         )
 
@@ -907,7 +1405,7 @@ def _sweep_blocked(setup: Setup, sources: List[np.ndarray], width: int,
             i0_loc, lo, handle = item
             si = min(ti, g1 - g0 - i0_loc)
             with phase_timer("ooc-fetch-wait"):
-                strip = _fetch_strip(handle, si, q1 - q0 - lo)
+                strip = _fetch_strip(eng, handle, si, q1 - q0 - lo)
             dst = q0 + lo - col0
             if dst < 0:
                 # the first aligned block begins before the group's column
@@ -1255,8 +1753,9 @@ class _GroupUploads:
     the copy guards its buffer: ``take`` waits on it before the buffer is
     refilled (the copy returns at once, and would otherwise read the next
     group's codes), and the compute stream waits on it before the kernel
-    reads the codes.  On the CPU the one buffer is handed over as it is:
-    the plain version has read it before the next group refills it.
+    reads the codes.  On the CPU there is one buffer, and a group gets a
+    copy of it: a refetch after a saturation reads the group's codes
+    again after the next groups have refilled the buffer.
 
     Buffers are zeroed once; a group overwrites the rows it sends, and
     the site columns past the loaded width stay code 0.
@@ -1289,7 +1788,7 @@ class _GroupUploads:
         self._k = (k + 1) % len(self._bufs)
         host = self._bufs[k][:rows]
         if self._side is None:
-            return host
+            return host.clone()
         compute = torch.cuda.current_stream(self.device)
         with torch.cuda.stream(self._side):
             # allocated on the side stream, which writes it first
@@ -1314,12 +1813,17 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
     Records are read at the user's ``-b`` granularity and gathered into
     groups of at most ``layout.group`` rows; a group holds whole user
     batches (a batch larger than a group fills groups of its own).  Per
-    group, one kernel launch computes the (G, n1, rows) counters, which
-    are copied back asynchronously into pinned memory with
-    ``layout.pending`` groups in flight; the host transposes them to
-    streamed-major order, adds each record's invariant-column offset and
-    emits.  A staged stream (``layout.sr_rows``) keeps the loaded side on
-    the host and sweeps it in super-rows per group instead
+    group, the codes go to the device diff-encoded (``dispatch_stream``,
+    which retargets the reference row) or dense, one kernel launch
+    computes the (G, n1, rows) counters, and one pack against the
+    baselines gives rel4 (an odd group rel) lanes and a sidecar bundle,
+    which are copied back asynchronously into pinned memory with
+    ``layout.pending`` groups in flight; the host finishes the counters
+    (a saturated group is dispatched again from its codes, still on the
+    device, at the next rung), transposes them to streamed-major order,
+    adds each record's invariant-column offset and emits.  A staged
+    stream (``layout.sr_rows``) keeps the loaded side on the host and
+    sweeps it in super-rows per group instead, dense and int32
     (``_dispatch_stream_staged``).  A group is one resume unit.  On a bad
     streamed record every fully read user batch is emitted first, then
     the error is raised.
@@ -1364,8 +1868,10 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
     device = device_of(setup.backend)
     l_pad = _padded_shape(n1, width_dev, 1, 1)[1]
     # one launch covers every loaded row (of a super-row, when staged), so
-    # they need no strip padding
-    eng = _BlockEngine(setup.measure, device, 1)
+    # they need no strip padding; in core, groups are diff-encoded and
+    # packed, staged they stay dense and int32
+    eng = _BlockEngine(setup.measure, device, 1, width_dev,
+                       rel=not layout.sr_rows)
     mat_loaded = (
         np.ascontiguousarray(aln.matrix[:, split.keep])
         if split is not None else aln.matrix
@@ -1384,11 +1890,15 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
     else:
         def prepare():
             with phase_timer("stream-prepare-upload"):
-                return eng.prepare(mat_loaded, 1)
+                # streamed records share ancestry with the loaded set, so
+                # its per-column mode is the diff reference of both
+                diff_ref = (None if _os.environ.get(
+                    "DISTANCE_TPU_NO_DIFF_UPLOAD") else mode_row(mat_loaded))
+                return eng.prepare(mat_loaded, 1, diff_ref=diff_ref)
 
-        # The loaded side's upload overlaps the stream parse.  Its
-        # future's result() raises a failed upload on the thread that
-        # consumes it.
+        # The loaded side's upload (with its reference row) overlaps the
+        # stream parse.  Its future's result() raises a failed upload on
+        # the thread that consumes it.
         preparer = ThreadPoolExecutor(1)
         prep_fut = preparer.submit(prepare)
         preparer.shutdown(wait=False)
@@ -1403,9 +1913,10 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
     spool = _ScratchPool()
 
     def flush_one() -> None:
-        g_ord, local_ord, ids2, bcounts, offs, bn, handle = pending.pop(0)
+        (g_ord, local_ord, ids2, bcounts, offs, bn, handle,
+         redispatch) = pending.pop(0)
         with phase_timer("stream-fetch-wait"):
-            strip = handle.result()  # (G, n1, bn)
+            strip = _fetch_strip(eng, handle, n1, bn, redispatch)  # (G, n1, bn)
         # Emission: for each streamed record (outer), all loaded (inner)
         # with columns (loaded_id, streamed_id) — lib.rs:322-333.
         with phase_timer("stream-gather"):
@@ -1535,14 +2046,26 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
                 if split is not None
                 else None
             )
-            codes = uploads.send(bn)
+            if lside is not None:
+                codes = uploads.send(bn)
+            else:
+                m1 = prep_fut.result()
+                codes, ref = eng.dispatch_stream(
+                    m1, buf[:bn], lambda: uploads.send(bn))
+        redispatch = None
         if lside is not None:
             fetch = _dispatch_stream_staged(eng, lside, spans, codes, n1, bn)
         else:
-            fetch = _AsyncFetch(eng.block(prep_fut.result(), codes, 0, 0,
-                                          n1, bn))
+            # one K1 launch, the baselines and one pack over the whole
+            # (G, n1, bn) group; its codes stay on the device for a
+            # refetch at a lower rung
+            def redispatch(mode, m1=m1, codes=codes, ref=ref):
+                return _dispatch_strip(eng, m1, codes, 0, [0], n1, bn, mode,
+                                       (n1, bn), None, ref)
+
+            fetch = _AsyncFetch(redispatch(eng.mode_for(bn)))
         pending.append((this_global, this_local, ids2, bcounts, offs, bn,
-                        fetch))
+                        fetch, redispatch))
         while len(pending) > layout.pending:
             flush_one()
 

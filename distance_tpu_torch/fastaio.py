@@ -502,6 +502,10 @@ def _assemble_rows(rows: List[np.ndarray], width: int) -> np.ndarray:
             and base.flags.c_contiguous
             and base.shape[1] == width
             and r.ndim == 1
+            # a full unit-stride row: a shorter or strided view of the
+            # base would be copied as the whole row it starts
+            and r.size == width
+            and r.strides == (1,)
         ):
             p0 = r.__array_interface__["data"][0]
             b0 = base.__array_interface__["data"][0]
@@ -514,6 +518,8 @@ def _assemble_rows(rows: List[np.ndarray], width: int) -> np.ndarray:
                     j < n
                     and rows[j].base is base
                     and rows[j].__array_interface__["data"][0] == nxt
+                    and rows[j].size == width
+                    and rows[j].strides == (1,)
                 ):
                     j += 1
                     nxt += width
@@ -592,9 +598,10 @@ STREAM_PIECE_CAP = int(
 )
 
 
-def _read_pieces(handle: BinaryIO, batch_rows: int = 0) -> Iterator[bytes]:
+def _read_pieces(handle: BinaryIO,
+                 batch_rows: int = 0) -> Iterator[Tuple[bytes, int]]:
     """Pieces of the stream, each cut at a record boundary so every
-    piece holds whole records.
+    piece holds whole records, with the number of records each holds.
 
     With ``batch_rows == 0``: ~STREAM_READ_BYTES pieces cut at the last
     record boundary (legacy shape).  With ``batch_rows > 0``: each piece

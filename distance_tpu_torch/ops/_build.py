@@ -26,6 +26,8 @@ NVCC_FLAGS = [
 ]
 
 _lock = threading.Lock()
+# One lock a source, so that different sources build at once.
+_name_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 # ptxas's report (registers, shared memory, spills) of each source built
 # by this process.
@@ -72,8 +74,11 @@ def build(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    """The loaded library of ``csrc/<name>.cu``, built at first use.
+    Different sources may be loaded from several threads at once."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(build(name))

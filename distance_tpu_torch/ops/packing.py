@@ -1,0 +1,369 @@
+"""Rank-1 residual packing of counter blocks before they leave the device.
+
+Every counter is a sum over columns of f(x_col, y_col), so for any
+reference row ``ref`` the residual
+
+    c(i, r) - c(i, ref) - c(ref, r) + c(ref, ref)
+
+accrues only on columns where both records differ from ``ref``: a handful
+of columns even for diverse data.  The device ships it as int8 lanes
+(``rel``, -128 = saturated) or as two 4-bit lanes a byte (``rel4``, -8 =
+saturated) with a segmented exception sidecar for the outliers, beside
+the small int32 baselines rb = c(i, ref), cb = c(ref, r), cc = c(ref,
+ref); the host adds the baselines back.
+
+``pack_rel4_cuda``/``pack_rel_cuda`` launch the hand-written kernel of
+``csrc/packing.cu`` (the port of ``distance_tpu/ops/packing.py``'s
+``pack_device_rel4`` and ``pack_device_rel``, which XLA ran inside the
+JAX engine's block and stream functions); ``pack_rel4_torch`` and
+``pack_rel_torch`` are their plain PyTorch versions, computing exactly
+what the JAX functions compute with ``xp=np``.  ``pack_rel4`` and
+``pack_rel`` take the plain version for CPU tensors and the kernel for
+CUDA tensors, and raise rather than fall back.  ``bundle_sidecars`` fuses
+the small arrays into one int32 vector (torch glue).
+
+The host halves (constants, ``unpack_host_rel``, ``unpack_rel4_nibbles``,
+``finish_host_rel4``, ``unbundle_sidecars``) are copied verbatim from the
+JAX module; ``tests/test_torch_host_copies.py`` pins them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from distance_tpu_torch.ops import _build
+
+REL_SAT = -128  # sentinel: residual out of [-127, 127] (wide refetch)
+REL4_SAT = -8   # nibble sentinel: residual out of [-7, 7]
+
+# Exception sidecar of rel4: the flat (G, m, n) residual tensor splits
+# into REL4_SEGMENTS ranges of ceil(G m n / REL4_SEGMENTS) cells, and the
+# first and last outlier of each travel as (flat index, value); a segment
+# holding three or more leaves the others at -8, and the block takes the
+# refetch.  Sidecar = 2 * REL4_SEGMENTS entries.
+REL4_SEGMENTS = 8192
+REL4_EXC_CAP = 2 * REL4_SEGMENTS
+
+SIDECAR_MAGIC = 0x52454C42  # 'RELB'
+_HDR = 6  # [magic, G, ti, span, exc_b, cap]
+
+# Kernel launches made by pack_rel4_cuda and pack_rel_cuda in this process.
+LAUNCHES_REL4 = 0
+LAUNCHES_REL = 0
+
+_bound = None
+
+
+def block_mask(m: int, n: int, i0: int = 0, j0: int = 0,
+               nv: Optional[Tuple[int, int]] = None,
+               diag_off: Optional[int] = None,
+               device: Optional[torch.device] = None
+               ) -> Optional[torch.Tensor]:
+    """(m, n) bool of a block's cells that the pack zeroes, or None: its
+    rows are records i0.. and its columns j0.. of their sides.  With
+    ``diag_off`` the self-pairs of a sweep over one source (row i0 + r is
+    column j0 + c when i0 + r + diag_off == j0 + c); with ``nv`` = (valid
+    rows, valid columns) the padding past them."""
+    if diag_off is None and nv is None:
+        return None
+    ri = torch.arange(m, device=device)[:, None] + i0
+    cj = torch.arange(n, device=device)[None, :] + j0
+    mask = None
+    if diag_off is not None:
+        mask = (ri + diag_off) == cj
+    if nv is not None:
+        pad = (ri >= nv[0]) | (cj >= nv[1])
+        mask = pad if mask is None else mask | pad
+    return mask
+
+
+def _residual(c, rb, cb, cc, mask):
+    res = c - rb[:, :, None] - cb[:, None, :] + cc[:, None, None]
+    if mask is not None:
+        res = torch.where(mask[None, :, :], 0, res)
+    return res
+
+
+def pack_rel_torch(c: torch.Tensor, rb: torch.Tensor, cb: torch.Tensor,
+                   cc: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of rel: (G, m, n) int32 counters -> (G, m, n) int8
+    residual lanes; ``rb`` (G, m), ``cb`` (G, n), ``cc`` (G,) int32, cells
+    of ``mask`` (m, n) zeroed."""
+    res = _residual(c, rb, cb, cc, mask)
+    return torch.where(res.abs() > 127, REL_SAT, res).to(torch.int8)
+
+
+def pack_rel4_torch(c: torch.Tensor, rb: torch.Tensor, cb: torch.Tensor,
+                    cc: torch.Tensor, mask: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of rel4: (G, m, n) int32 counters (n even) -> lanes
+    (G, m, n/2) int8, two's-complement nibbles two a byte along columns
+    (the even column in the low nibble), and the exception sidecar
+    exc_idx, exc_val (REL4_EXC_CAP,) int32: the first outlier of each
+    segment, then the last of each that holds two or more (-1 and 0 in
+    unused slots)."""
+    res = _residual(c, rb, cb, cc, mask)
+    sat = res.abs() > 7
+    nib = (torch.where(sat, REL4_SAT, res) & 0xF).to(torch.uint8)
+    lanes = (nib[..., 0::2] | (nib[..., 1::2] << 4)).view(torch.int8)
+    n_flat = res.numel()
+    exc_idx = torch.full((REL4_EXC_CAP,), -1, dtype=torch.int32,
+                         device=c.device)
+    exc_val = torch.zeros(REL4_EXC_CAP, dtype=torch.int32, device=c.device)
+    if not n_flat:
+        return lanes, exc_idx, exc_val
+    seg_len = -(-n_flat // REL4_SEGMENTS)
+    flat_sat = torch.zeros(REL4_SEGMENTS * seg_len, dtype=torch.uint8,
+                           device=c.device)
+    flat_sat[:n_flat] = sat.reshape(-1)
+    flat_sat = flat_sat.reshape(REL4_SEGMENTS, seg_len)
+    count = flat_sat.sum(dim=1, dtype=torch.int64)
+    first = flat_sat.argmax(dim=1)
+    last = seg_len - 1 - flat_sat.flip(1).argmax(dim=1)
+    base = torch.arange(REL4_SEGMENTS, device=c.device) * seg_len
+    idx = torch.cat([torch.where(count >= 1, base + first, -1),
+                     torch.where(count >= 2, base + last, -1)])
+    flat_res = res.reshape(-1)
+    exc_idx[:] = idx
+    exc_val[:] = torch.where(idx >= 0, flat_res[idx.clamp(0, n_flat - 1)], 0)
+    return lanes, exc_idx, exc_val
+
+
+def _check(c, rb, cb, cc) -> None:
+    if c.dim() != 3 or rb.dim() != 2 or cb.dim() != 2 or cc.dim() != 1:
+        raise ValueError(
+            f"expected c (G, m, n), rb (G, m), cb (G, n), cc (G,); got"
+            f" {tuple(c.shape)}, {tuple(rb.shape)}, {tuple(cb.shape)},"
+            f" {tuple(cc.shape)}"
+        )
+    g, m, n = c.shape
+    if rb.shape != (g, m) or cb.shape != (g, n) or cc.shape != (g,):
+        raise ValueError(
+            f"baselines {tuple(rb.shape)}, {tuple(cb.shape)},"
+            f" {tuple(cc.shape)} do not fit counters {tuple(c.shape)}"
+        )
+    for t in (c, rb, cb, cc):
+        if t.dtype != torch.int32:
+            raise ValueError(f"counters and baselines must be int32, got"
+                             f" {t.dtype}")
+        if t.device != c.device:
+            raise ValueError(f"tensors on {c.device} and {t.device}")
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    global _bound
+    if _bound is None:
+        lib = _build.load("packing")
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.dt_pack_rel4_launch.argtypes = [
+            vp, vp, vp, vp, ll, ll, ll, ll, ll, ll, ll, i, ll,
+            vp, vp, vp, vp, vp,
+        ]
+        lib.dt_pack_rel4_launch.restype = ctypes.c_int
+        lib.dt_pack_rel_launch.argtypes = [
+            vp, vp, vp, vp, ll, ll, ll, ll, ll, i, ll, vp, vp,
+        ]
+        lib.dt_pack_rel_launch.restype = ctypes.c_int
+        _bound = lib
+    return _bound
+
+
+def _cuda_inputs(c, rb, cb, cc):
+    if c.device.type != "cuda":
+        raise ValueError(f"the pack kernel needs CUDA tensors, got {c.device}")
+    if c.numel() >= 1 << 31:
+        raise ValueError(
+            f"the pack kernel takes fewer than 2^31 cells, got"
+            f" {tuple(c.shape)}")
+    return (c.contiguous(), rb.contiguous(), cb.contiguous(),
+            cc.contiguous())
+
+
+def pack_rel4_cuda(c: torch.Tensor, rb: torch.Tensor, cb: torch.Tensor,
+                   cc: torch.Tensor, i0: int = 0, j0: int = 0,
+                   nv: Optional[Tuple[int, int]] = None,
+                   diag_off: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the rel4 kernel on the current stream of the counters'
+    device: ``pack_rel4_torch`` of the cells ``block_mask`` names."""
+    global LAUNCHES_REL4
+    _check(c, rb, cb, cc)
+    c, rb, cb, cc = _cuda_inputs(c, rb, cb, cc)
+    g, m, n = c.shape
+    if n % 2:
+        raise ValueError(f"rel4 packs columns two a byte: {n} is odd")
+    if c.data_ptr() % 8:
+        raise ValueError("rel4 reads counters in 8-byte pairs: c must be"
+                         " 8-byte aligned")
+    nv1, nv2 = nv if nv is not None else (i0 + m, j0 + n)
+    lanes = torch.empty((g, m, n // 2), dtype=torch.int8, device=c.device)
+    exc_idx = torch.empty(REL4_EXC_CAP, dtype=torch.int32, device=c.device)
+    exc_val = torch.empty(REL4_EXC_CAP, dtype=torch.int32, device=c.device)
+    scratch = torch.empty((REL4_SEGMENTS, 2), dtype=torch.int32,
+                          device=c.device)
+    stream = torch.cuda.current_stream(c.device).cuda_stream
+    with torch.cuda.device(c.device):
+        rc = _kernel_lib().dt_pack_rel4_launch(
+            c.data_ptr(), rb.data_ptr(), cb.data_ptr(), cc.data_ptr(),
+            g, m, n, i0, j0, nv1, nv2, int(diag_off is not None),
+            diag_off or 0, lanes.data_ptr(), scratch.data_ptr(),
+            exc_idx.data_ptr(), exc_val.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"rel4 pack kernel launch failed: CUDA error {rc}")
+    LAUNCHES_REL4 += 1
+    return lanes, exc_idx, exc_val
+
+
+def pack_rel_cuda(c: torch.Tensor, rb: torch.Tensor, cb: torch.Tensor,
+                  cc: torch.Tensor, i0: int = 0, j0: int = 0,
+                  diag_off: Optional[int] = None) -> torch.Tensor:
+    """Launch the rel kernel on the current stream of the counters'
+    device: ``pack_rel_torch`` with the self-pair diagonal masked."""
+    global LAUNCHES_REL
+    _check(c, rb, cb, cc)
+    c, rb, cb, cc = _cuda_inputs(c, rb, cb, cc)
+    g, m, n = c.shape
+    lanes = torch.empty((g, m, n), dtype=torch.int8, device=c.device)
+    stream = torch.cuda.current_stream(c.device).cuda_stream
+    with torch.cuda.device(c.device):
+        rc = _kernel_lib().dt_pack_rel_launch(
+            c.data_ptr(), rb.data_ptr(), cb.data_ptr(), cc.data_ptr(),
+            g, m, n, i0, j0, int(diag_off is not None), diag_off or 0,
+            lanes.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"rel pack kernel launch failed: CUDA error {rc}")
+    LAUNCHES_REL += 1
+    return lanes
+
+
+def pack_rel4(c: torch.Tensor, rb: torch.Tensor, cb: torch.Tensor,
+              cc: torch.Tensor, i0: int = 0, j0: int = 0,
+              nv: Optional[Tuple[int, int]] = None,
+              diag_off: Optional[int] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """rel4 lanes and sidecar of a block whose rows are records i0.. and
+    columns j0.. of their sides, masked as ``block_mask`` says: the plain
+    version for CPU tensors, the kernel for CUDA tensors."""
+    if c.device.type != "cpu":
+        return pack_rel4_cuda(c, rb, cb, cc, i0, j0, nv, diag_off)
+    _check(c, rb, cb, cc)
+    if c.shape[2] % 2:
+        raise ValueError(f"rel4 packs columns two a byte: {c.shape[2]} is odd")
+    mask = block_mask(c.shape[1], c.shape[2], i0, j0, nv, diag_off)
+    return pack_rel4_torch(c, rb, cb, cc, mask)
+
+
+def pack_rel(c: torch.Tensor, rb: torch.Tensor, cb: torch.Tensor,
+             cc: torch.Tensor, i0: int = 0, j0: int = 0,
+             diag_off: Optional[int] = None) -> torch.Tensor:
+    """rel lanes of a block, its self-pair diagonal masked (``diag_off``):
+    the plain version for CPU tensors, the kernel for CUDA tensors."""
+    if c.device.type != "cpu":
+        return pack_rel_cuda(c, rb, cb, cc, i0, j0, diag_off)
+    _check(c, rb, cb, cc)
+    mask = block_mask(c.shape[1], c.shape[2], i0, j0, None, diag_off)
+    return pack_rel_torch(c, rb, cb, cc, mask)
+
+
+_headers: Dict[tuple, torch.Tensor] = {}
+
+
+def bundle_sidecars(cb: torch.Tensor, rb_cc: torch.Tensor,
+                    exc_idx: Optional[torch.Tensor] = None,
+                    exc_val: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The small rel-family arrays fused into one 1-D int32 vector on
+    their device, laid out as the JAX ``bundle_sidecars`` lays them out:
+    the header [magic, G, ti, span, exc_b, cap], ``cb`` (G, span),
+    ``rb_cc`` (G, ti + 1) and, under rel4, the sidecar ``exc_idx`` and
+    ``exc_val`` ((CAP,) or block-stacked (B, CAP); a (CAP,) sidecar is
+    recorded as B = 1)."""
+    g, span = cb.shape
+    ti = rb_cc.shape[1] - 1
+    if exc_idx is None:
+        exc_b = cap = 0
+        tail = []
+    else:
+        exc_b = 1 if exc_idx.dim() == 1 else int(exc_idx.shape[0])
+        cap = int(exc_idx.shape[-1])
+        tail = [exc_idx.reshape(-1), exc_val.reshape(-1)]
+    key = (cb.device, g, ti, span, exc_b, cap)
+    header = _headers.get(key)
+    if header is None:
+        header = _headers[key] = torch.tensor(
+            [SIDECAR_MAGIC, g, ti, span, exc_b, cap], dtype=torch.int32,
+            device=cb.device)
+    return torch.cat([header, cb.reshape(-1), rb_cc.reshape(-1), *tail])
+
+
+def unpack_host_rel(
+    packed: np.ndarray, rb: np.ndarray, cb: np.ndarray, cc: np.ndarray
+) -> Optional[np.ndarray]:
+    """Residual lanes + baselines -> (G, m, n) int32 counters, or None
+    if any lane saturated (caller must refetch wide).
+
+    The saturation scan runs BEFORE the int32 widening: a saturated
+    strip (the case this function exists to detect) must not pay a
+    4x-size allocation it immediately discards."""
+    if (packed == REL_SAT).any():
+        return None
+    a = packed.astype(np.int32)
+    return a + rb[:, :, None] + cb[:, None, :] - cc[:, None, None]
+
+
+def unpack_rel4_nibbles(packed: np.ndarray) -> np.ndarray:
+    """(..., n/2) int8 packed bytes -> (..., n) int32 residuals
+    (sign-extended; REL4_SAT marks saturation — caller checks after
+    cropping away padding columns)."""
+    b = packed.view(np.uint8)
+    nib = np.empty(b.shape[:-1] + (b.shape[-1] * 2,), dtype=np.uint8)
+    nib[..., 0::2] = b & 0xF
+    nib[..., 1::2] = b >> 4
+    val = nib.astype(np.int32)
+    val -= (val > 7) * 16
+    return val
+
+
+def finish_host_rel4(
+    res: np.ndarray,
+    rb: np.ndarray,
+    cb: np.ndarray,
+    cc: np.ndarray,
+    bad: Optional[np.ndarray] = None,
+) -> Optional[np.ndarray]:
+    """Cropped int32 nibble residuals + baselines -> counters, or None
+    on saturation.  ``bad`` marks cells whose -8 is an UNPATCHED
+    sentinel (callers that patched the exception sidecar clear patched
+    positions first — a patched value may legitimately be -8); without
+    it any -8 counts as saturation."""
+    if bad is None:
+        bad = res == REL4_SAT
+    if bad.any():
+        return None
+    return res + rb[:, :, None] + cb[:, None, :] - cc[:, None, None]
+
+
+def unbundle_sidecars(flat: np.ndarray):
+    """Split a fetched bundle back into (cb, rb_cc, exc_idx, exc_val);
+    the exception entries are None for plain rel."""
+    h = flat[:_HDR]
+    if int(h[0]) != SIDECAR_MAGIC:
+        raise ValueError("not a sidecar bundle")
+    g, ti, span, exc_b, cap = (int(v) for v in h[1:])
+    o = _HDR
+    cb = flat[o : o + g * span].reshape(g, span)
+    o += g * span
+    rb_cc = flat[o : o + g * (ti + 1)].reshape(g, ti + 1)
+    o += g * (ti + 1)
+    if not exc_b:
+        return cb, rb_cc, None, None
+    exc_idx = flat[o : o + exc_b * cap].reshape(exc_b, cap)
+    o += exc_b * cap
+    exc_val = flat[o : o + exc_b * cap].reshape(exc_b, cap)
+    return cb, rb_cc, exc_idx, exc_val

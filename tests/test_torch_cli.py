@@ -72,9 +72,9 @@ def test_small_tiles_give_several_strips_and_blocks(tmp_path, monkeypatch,
     calls = []
     real = port_engine._BlockEngine.block
 
-    def spy(self, m1, m2, i0, j0, ti, tj):
+    def spy(self, m1, m2, i0, j0, ti, tj, *packing):
         calls.append((i0, j0))
-        return real(self, m1, m2, i0, j0, ti, tj)
+        return real(self, m1, m2, i0, j0, ti, tj, *packing)
 
     monkeypatch.setattr(port_engine._BlockEngine, "block", spy)
     out = tmp_path / "out.tsv"

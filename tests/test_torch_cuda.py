@@ -1,4 +1,4 @@
-"""The CUDA counter kernel on the card, against its plain version.
+"""The CUDA kernels on the card, against their plain versions.
 
 These tests need a CUDA device and skip without one.  They import
 neither jax nor ``tests.conftest`` (which loads jax), so on a GPU host
@@ -17,6 +17,7 @@ from distance_tpu_torch import engine  # noqa: E402
 from distance_tpu_torch.encoding import ALL_CODES, CODE_TO_CHAR  # noqa: E402
 from distance_tpu_torch.measures import MEASURES  # noqa: E402
 from distance_tpu_torch.ops import counters as kernels  # noqa: E402
+from distance_tpu_torch.ops import diffup, packing  # noqa: E402
 from distance_tpu_torch.ops.features import (  # noqa: E402
     get_plan,
     reference_counter_matrix,
@@ -157,11 +158,14 @@ def test_small_tiles_on_card(dev, tmp_path):
         )
         setup = engine.set_up(args)
         setup.tile_i = setup.tile_j = 16
-        before = kernels.LAUNCHES
+        before, rel4 = kernels.LAUNCHES, engine.RUNG_BLOCKS["rel4"]
         engine.run(setup)
         setup.writer.close()
         if backend == "cuda":
-            assert kernels.LAUNCHES - before == 5 + 4 + 3 + 2 + 1
+            # 15 blocks at rel4 (no segment of 1 cell saturates), and the
+            # baselines of the matrix's rows, its columns and the reference
+            assert engine.RUNG_BLOCKS["rel4"] - rel4 == 5 + 4 + 3 + 2 + 1
+            assert kernels.LAUNCHES - before == 5 + 4 + 3 + 2 + 1 + 3
         outs.append(out.read_bytes())
     assert outs[0] == outs[1]
 
@@ -253,7 +257,10 @@ def test_cli_cuda_equals_torch_rect_stream(dev, tmp_path, monkeypatch, mode,
         if backend == "torch":
             assert launched == 0
         elif mode == "stream":
-            assert launched == 11 * 2 + 1  # 11 batches of 7, then 3
+            # 11 batches of 7, then 3: 23 groups, each a block and its
+            # column baseline; the loaded rows' and the reference's
+            # baselines once
+            assert launched == 2 * (11 * 2 + 1) + 2
     assert outs["cuda"].read_bytes() == outs["torch"].read_bytes()
 
 
@@ -262,7 +269,7 @@ def test_stream_shards_on_card_merge_to_plain_bytes(dev, tmp_path,
                                                     monkeypatch, measure):
     """Two stream shards on the card (groups of 14 records: two -b 7
     batches, 22 groups in all, round-robin) merge to the plain version's
-    unsharded bytes; each shard launches K1 once per group it owns."""
+    unsharded bytes; each shard launches a K1 block per group it owns."""
     rng = np.random.default_rng(30)
     anc = random_codes(rng, 1, 300)
     mat = np.repeat(anc, 428, axis=0)
@@ -276,13 +283,160 @@ def test_stream_shards_on_card_merge_to_plain_bytes(dev, tmp_path,
     parts, launched = [], []
     for k in range(2):
         parts.append(str(tmp_path / f"p{k}"))
-        before = kernels.LAUNCHES
+        before, rel4 = kernels.LAUNCHES, engine.RUNG_BLOCKS["rel4"]
         rc = cli.main(args + ["--backend", "cuda", "--shard", f"{k}/2",
                               "-o", parts[-1]])
         assert rc == 0
-        launched.append(kernels.LAUNCHES - before)
-    assert launched == [11, 11]
+        launched.append((engine.RUNG_BLOCKS["rel4"] - rel4,
+                         kernels.LAUNCHES - before))
+    # a block and a column baseline a group, and two baselines a shard
+    assert launched == [(11, 24), (11, 24)]
     merged, plain = tmp_path / "merged.tsv", tmp_path / "plain.tsv"
     assert cli.main(["--merge", *parts, "-o", str(merged)]) == 0
     assert cli.main(args + ["--backend", "torch", "-o", str(plain)]) == 0
     assert merged.read_bytes() == plain.read_bytes()
+
+
+def test_counters_with_a_one_row_side(dev):
+    """The rel baselines: every row against the reference row, it against
+    every row, and it against itself."""
+    rng = np.random.default_rng(31)
+    rows = torch.from_numpy(random_codes(rng, 3000, 640)).to(dev)
+    ref = torch.from_numpy(random_codes(rng, 1, 640)).to(dev)
+    for measure in MEASURES:
+        plan = plan_to_torch(get_plan(measure), dev)
+        for x, y in ((rows, ref), (ref, rows), (ref, ref)):
+            got = kernels.counters_cuda(x, y, plan)
+            torch.cuda.synchronize()
+            assert torch.equal(got, kernels.counters_torch(x, y, plan))
+
+
+def outlier_counters(rng, g, m, n):
+    """int32 counters whose residuals (zero baselines) lie in [-7, 7] but
+    for segments holding 1, 2, 3 and every cell as outliers."""
+    c = rng.integers(-7, 8, size=(g, m, n)).astype(np.int32)
+    flat = c.reshape(-1)
+    seg = -(-flat.size // packing.REL4_SEGMENTS)
+    for s, k in ((1, 1), (3, 2), (5, 3), (8, seg)):
+        lo = s * seg
+        hi = min(lo + seg, flat.size)
+        if lo < hi:
+            cells = rng.choice(np.arange(lo, hi), size=min(k, hi - lo),
+                               replace=False)
+            flat[cells] = rng.choice([-8, 8, 127, -128, 300], size=cells.size)
+    return c
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 2), (2, 33, 64), (4, 129, 258),
+                                   (3, 500, 1000), (2, 0, 8)])
+def test_pack_kernels_match_plain(dev, shape):
+    """K2 (rel4 and rel) against its plain version, exactly: random
+    baselines, segments with 0, 1, 2, 3 and many outliers, with and
+    without the self-pair diagonal and the padding masked."""
+    rng = np.random.default_rng(sum(shape))
+    g, m, n = shape
+    c = torch.from_numpy(outlier_counters(rng, g, m, n)).to(dev)
+    rb = torch.from_numpy(rng.integers(-3, 4, (g, m)).astype(np.int32)).to(dev)
+    cb = torch.from_numpy(rng.integers(-3, 4, (g, n)).astype(np.int32)).to(dev)
+    cc = torch.from_numpy(rng.integers(-3, 4, g).astype(np.int32)).to(dev)
+    for i0, j0, nv, diag in ((0, 0, None, None), (3, 1, (m - 1, n - 3), 2),
+                             (0, 0, (m, n), 0)):
+        got = packing.pack_rel4_cuda(c, rb, cb, cc, i0, j0, nv, diag)
+        torch.cuda.synchronize()
+        mask = packing.block_mask(m, n, i0, j0, nv or (i0 + m, j0 + n),
+                                  diag, dev)
+        want = packing.pack_rel4_torch(c, rb, cb, cc, mask)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (i0, j0, nv, diag)
+        got = packing.pack_rel_cuda(c, rb, cb, cc, i0, j0, diag)
+        torch.cuda.synchronize()
+        mask = packing.block_mask(m, n, i0, j0, None, diag, dev)
+        assert torch.equal(got, packing.pack_rel_torch(c, rb, cb, cc, mask))
+
+
+def test_pack_kernels_take_odd_columns_under_rel_only(dev):
+    rng = np.random.default_rng(33)
+    c = torch.from_numpy(outlier_counters(rng, 2, 31, 33)).to(dev)
+    rb = torch.zeros((2, 31), dtype=torch.int32, device=dev)
+    cb = torch.zeros((2, 33), dtype=torch.int32, device=dev)
+    cc = torch.zeros(2, dtype=torch.int32, device=dev)
+    got = packing.pack_rel(c, rb, cb, cc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, packing.pack_rel_torch(c, rb, cb, cc))
+    with pytest.raises(ValueError, match="odd"):
+        packing.pack_rel4(c, rb, cb, cc)
+
+
+def test_pack_kernels_count_launches(dev):
+    z = torch.zeros((1, 4, 4), dtype=torch.int32, device=dev)
+    b = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    cc = torch.zeros(1, dtype=torch.int32, device=dev)
+    before = (packing.LAUNCHES_REL4, packing.LAUNCHES_REL)
+    packing.pack_rel4(z, b, b, cc)
+    packing.pack_rel(z, b, b, cc)
+    assert (packing.LAUNCHES_REL4, packing.LAUNCHES_REL) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("n_diffs", [0, 1, 777, 4096])
+def test_diff_rebuild_matches_plain(dev, n_diffs):
+    """K3 against its plain version: no diffs, some, and as many as the
+    capacity; pad rows hold the reference row, and the out-of-range tail
+    is dropped."""
+    rng = np.random.default_rng(n_diffs)
+    rows, l_pad = 40, 384
+    ref = torch.from_numpy(random_codes(rng, 1, l_pad)[0]).to(dev)
+    cap = diffup._round_cap(n_diffs)
+    idx = np.empty(cap, dtype=np.int32)
+    idx[:n_diffs] = np.sort(rng.choice((rows - 3) * l_pad, n_diffs,
+                                       replace=False))
+    idx[n_diffs:] = np.arange(rows * l_pad, rows * l_pad + cap - n_diffs)
+    vals = np.zeros(cap, dtype=np.uint8)
+    vals[:n_diffs] = rng.choice(ALL_CODES, n_diffs)
+    args = (ref, torch.from_numpy(idx).to(dev),
+            torch.from_numpy(vals).to(dev), rows)
+    before = diffup.LAUNCHES
+    got = diffup.diff_rebuild_cuda(*args)
+    torch.cuda.synchronize()
+    assert diffup.LAUNCHES == before + 1
+    want = diffup.diff_rebuild_torch(*args)
+    assert torch.equal(got, want)
+    assert bool((got[rows - 3:] == ref).all())
+
+
+def test_diff_upload_on_card_equals_dense(dev, monkeypatch):
+    """A low-diversity matrix sent diff-encoded to the card rebuilds to
+    the dense matrix on its real rows."""
+    monkeypatch.setenv("DISTANCE_TPU_DIFF_UPLOAD", "force")
+    rng = np.random.default_rng(34)
+    ref = random_codes(rng, 1, 512)[0]
+    padded = np.repeat(ref[None], 700, axis=0)
+    hits = rng.random(padded.shape) < 0.01
+    padded[hits] = rng.choice(ALL_CODES, size=int(hits.sum()))
+    padded[650:] = 0  # pad rows
+    up = diffup.DiffUploader(ref, dev)
+    enc = up.encode(padded, n_real=650)
+    assert enc is not None
+    got = up.upload_encoded(enc, 700).cpu().numpy()
+    np.testing.assert_array_equal(got[:650], padded[:650])
+    np.testing.assert_array_equal(got[650:], np.repeat(ref[None], 50, 0))
+
+
+@pytest.mark.parametrize("mode", ["square", "stream"])
+def test_ladder_on_card_equals_torch(dev, tmp_path, mode):
+    """Random records whose residuals saturate: the card's blocks walk
+    rel4 -> rel -> int32 and the bytes are the plain version's."""
+    rng = np.random.default_rng(35)
+    mat = random_codes(rng, 300, 400)
+    a, b = tmp_path / "a.fasta", tmp_path / "b.fasta"
+    write_fasta(a, mat[:150])
+    write_fasta(b, mat[150:])
+    args = [str(a)] + ([] if mode == "square" else ["-s", str(b)])
+    outs = {}
+    for backend in ("cuda", "torch"):
+        outs[backend] = tmp_path / f"{backend}.tsv"
+        before = dict(engine.RUNG_BLOCKS)
+        assert cli.main(args + ["-m", "raw", "--backend", backend, "-o",
+                                str(outs[backend])]) == 0
+        assert all(engine.RUNG_BLOCKS[k] > before[k] for k in before)
+    assert outs["cuda"].read_bytes() == outs["torch"].read_bytes()

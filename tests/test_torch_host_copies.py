@@ -24,10 +24,12 @@ torch = pytest.importorskip("torch")
 
 import distance_tpu.engine as jax_engine  # noqa: E402
 import distance_tpu.ops.diffup as jax_diffup  # noqa: E402
+import distance_tpu.ops.packing as jax_packing  # noqa: E402
 import distance_tpu.parallel.multihost as jax_multihost  # noqa: E402
 import distance_tpu_torch.emit as port_emit  # noqa: E402
 import distance_tpu_torch.engine as port_engine  # noqa: E402
 import distance_tpu_torch.ops.diffup as port_diffup  # noqa: E402
+import distance_tpu_torch.ops.packing as port_packing  # noqa: E402
 import distance_tpu_torch.parallel.multihost as port_multihost  # noqa: E402
 from distance_tpu_torch.ops.features import get_plan  # noqa: E402
 from tests.conftest import make_fasta, oracle_tsv, random_seqs  # noqa: E402
@@ -58,10 +60,12 @@ ENGINE_HELPERS = [
     "_input_fingerprint", "_resume_skip", "_progress_mark",
     "_pipeline_strips", "_AsyncEmitter", "_split_strips",
     "_strip_ram_budget", "_cap_tile_ram", "_pow2_at_least",
-    "_StreamSplit", "_transpose_add", "_threaded_iter",
+    "_StreamSplit", "_transpose_add", "_threaded_iter", "_unpack_rel_parts",
+    "_rel4_finish_native",
 ]
 
-DIFFUP_HELPERS = ["_get_pool", "_row_chunks"]
+DIFFUP_HELPERS = ["_get_pool", "_row_chunks", "_round_cap",
+                  "sampled_mode_row"]
 
 MULTIHOST_HELPERS = [
     "_merge_stream", "_check_no_stdin", "MultihostCtx", "_run_fingerprint",
@@ -104,22 +108,65 @@ SANCTIONED_FUNCTIONS = {
     ],
 }
 
-# Repairs the port makes to a copy: file -> (original text, port's text).
-# fastaio._assemble_rows took `off % width` at width 0 (ZeroDivisionError
-# in the native stream path); the port returns the empty rows first, as
-# the pure-Python stream path does.
+# Repairs the port makes to a copy: file -> [(original text, port's
+# text)].  fastaio._assemble_rows took `off % width` at width 0
+# (ZeroDivisionError in the native stream path); the port returns the
+# empty rows first, as the pure-Python stream path does.  Its run
+# detection took any 1-D view starting on a row of the piece matrix for
+# that whole row; the port also asks for a full, unit-stride row.  And
+# _read_pieces yields (piece, records), not bytes.
 SANCTIONED = {
-    "fastaio.py": (
-        """    if n == 0:
+    "fastaio.py": [
+        ("""    if n == 0:
         return np.zeros((0, width), np.uint8)
-""",
-        """    if n == 0 or width == 0:
+""", """    if n == 0 or width == 0:
         # width 0: the rows hold no codes (and `off % width` would divide
         # by zero)
         return np.zeros((n, width), np.uint8)
-""",
-    ),
+"""),
+        ("""            and base.shape[1] == width
+            and r.ndim == 1
+        ):
+""", """            and base.shape[1] == width
+            and r.ndim == 1
+            # a full unit-stride row: a shorter or strided view of the
+            # base would be copied as the whole row it starts
+            and r.size == width
+            and r.strides == (1,)
+        ):
+"""),
+        ("""                    and rows[j].__array_interface__["data"][0] == nxt
+                ):
+""", """                    and rows[j].__array_interface__["data"][0] == nxt
+                    and rows[j].size == width
+                    and rows[j].strides == (1,)
+                ):
+"""),
+        ("def _read_pieces(handle: BinaryIO, batch_rows: int = 0)"
+         " -> Iterator[bytes]:\n"
+         '    """Pieces of the stream, each cut at a record boundary so every\n'
+         "    piece holds whole records.\n",
+         "def _read_pieces(handle: BinaryIO,\n"
+         "                 batch_rows: int = 0) -> Iterator[Tuple[bytes, int]]:\n"
+         '    """Pieces of the stream, each cut at a record boundary so every\n'
+         "    piece holds whole records, with the number of records each"
+         " holds.\n"),
+    ],
 }
+
+# The diff uploader's host half, copied; its __init__ takes the port's
+# torch device where the JAX one takes a mesh flag.
+DIFFUP_METHODS = ["encode", "_rejects", "_with_tail", "_encode_native"]
+DIFFUP_INIT = [
+    ("    def __init__(self, ref_padded: np.ndarray, sharded: bool = False):\n",
+     "    def __init__(self, ref_padded: np.ndarray, device: torch.device):\n"),
+    ("        self.sharded = bool(sharded)\n", "        self.device = device\n"),
+]
+
+PACKING_HELPERS = ["unpack_host_rel", "unpack_rel4_nibbles",
+                   "finish_host_rel4", "unbundle_sidecars"]
+PACKING_CONSTANTS = ["REL_SAT", "REL4_SAT", "REL4_SEGMENTS", "REL4_EXC_CAP",
+                     "SIDECAR_MAGIC", "_HDR"]
 
 
 def ported(text: str) -> str:
@@ -133,8 +180,7 @@ def ported(text: str) -> str:
 @pytest.mark.parametrize("rel", COPIED_FILES)
 def test_copied_file_is_verbatim(rel):
     want = ported((ROOT / "distance_tpu" / rel).read_text())
-    if rel in SANCTIONED:
-        old, new = SANCTIONED[rel]
+    for old, new in SANCTIONED.get(rel, []):
         assert want.count(old) == 1
         want = want.replace(old, new)
     assert (ROOT / "distance_tpu_torch" / rel).read_text() == want
@@ -163,6 +209,63 @@ def test_diffup_helper_is_verbatim(name):
     assert inspect.getsource(getattr(port_diffup, name)) == want
 
 
+@pytest.mark.parametrize("name", ["_MIN_CAP", "_MIN_WIN"])
+def test_diffup_constant_is_verbatim(name):
+    assert getattr(port_diffup, name) == getattr(jax_diffup, name)
+
+
+@pytest.mark.parametrize("name", DIFFUP_METHODS + ["__init__"])
+def test_diff_uploader_host_half_is_verbatim(name):
+    want = ported(inspect.getsource(getattr(jax_diffup.DiffUploader, name)))
+    for old, new in DIFFUP_INIT if name == "__init__" else []:
+        assert want.count(old) == 1
+        want = want.replace(old, new)
+    assert inspect.getsource(getattr(port_diffup.DiffUploader, name)) == want
+
+
+@pytest.mark.parametrize("name", PACKING_HELPERS)
+def test_packing_host_half_is_verbatim(name):
+    want = ported(inspect.getsource(getattr(jax_packing, name)))
+    assert inspect.getsource(getattr(port_packing, name)) == want
+
+
+@pytest.mark.parametrize("name", PACKING_CONSTANTS)
+def test_packing_constant_is_verbatim(name):
+    assert getattr(port_packing, name) == getattr(jax_packing, name)
+
+
+def test_assemble_rows_copies_a_strided_row_as_itself():
+    """A 1-D view that starts on a row of a piece matrix but is not that
+    whole row (here every other byte of two rows) is copied as it is,
+    not taken for the row it starts (the JAX copy's latent fault)."""
+    from distance_tpu_torch import fastaio
+
+    base = np.empty((4, 16), dtype=np.uint8)  # owns its memory
+    base[:] = np.arange(4 * 16).reshape(4, 16)
+    strided = base.reshape(-1)[16:48:2]
+    assert strided.base is base and strided.size == 16
+    out = fastaio._assemble_rows([base[0], strided, base[3]], 16)
+    np.testing.assert_array_equal(out, np.stack([base[0], strided, base[3]]))
+    # full rows still assemble as one zero-copy run
+    run = fastaio._assemble_rows([base[1], base[2]], 16)
+    assert run.base is base
+    np.testing.assert_array_equal(run, base[1:3])
+
+
+def test_read_pieces_yields_pieces_with_their_record_counts():
+    import io
+
+    from distance_tpu_torch import fastaio
+
+    assert (fastaio._read_pieces.__annotations__["return"]
+            == "Iterator[Tuple[bytes, int]]")
+    data = b">a\nAC\n>b\nGT\n>c\nTT\n"
+    for batch_rows in (0, 1, 2):
+        pieces = list(fastaio._read_pieces(io.BytesIO(data), batch_rows))
+        assert [p.count(b">") for p, _ in pieces] == [n for _, n in pieces]
+        assert b"".join(p for p, _ in pieces) == data
+
+
 @pytest.mark.parametrize("name", MULTIHOST_HELPERS + list(SANCTIONED_FUNCTIONS))
 def test_multihost_helper_is_verbatim(name):
     want = ported(inspect.getsource(getattr(jax_multihost, name)))
@@ -185,6 +288,8 @@ import sys
 sys.modules["jax"] = None
 import distance_tpu_torch.cli
 import distance_tpu_torch.engine
+import distance_tpu_torch.ops.diffup
+import distance_tpu_torch.ops.packing
 assert "distance_tpu" not in sys.modules
 argv = sys.argv[1:]
 while argv:

@@ -161,9 +161,9 @@ def test_rectangle_small_tiles_give_strips_and_blocks(tmp_path, monkeypatch,
     calls = []
     real = port_engine._BlockEngine.block
 
-    def spy(self, m1, m2, i0, j0, bi, bj):
+    def spy(self, m1, m2, i0, j0, bi, bj, *packing):
         calls.append((i0, j0))
-        return real(self, m1, m2, i0, j0, bi, bj)
+        return real(self, m1, m2, i0, j0, bi, bj, *packing)
 
     monkeypatch.setattr(port_engine._BlockEngine, "block", spy)
     out = tmp_path / "out.tsv"
@@ -261,9 +261,9 @@ def test_stream_batch_and_group_sizes_give_one_output(tmp_path, monkeypatch,
     calls = []
     real = port_engine._BlockEngine.block
 
-    def spy(self, m1, m2, i0, j0, bi, bj):
+    def spy(self, m1, m2, i0, j0, bi, bj, *packing):
         calls.append(bj)
-        return real(self, m1, m2, i0, j0, bi, bj)
+        return real(self, m1, m2, i0, j0, bi, bj, *packing)
 
     monkeypatch.setattr(port_engine._BlockEngine, "block", spy)
     got = run_port(tmp_path, [a, "-s", b, "-m", "tn93", "-b", str(batch)])
@@ -280,9 +280,10 @@ def test_auto_groups_hold_whole_batches_up_to_the_cap(tmp_path, monkeypatch):
     calls = []
     real = port_engine._BlockEngine.block
 
-    def spy(self, m1, m2, i0, j0, bi, bj):
-        calls.append(bj)
-        return real(self, m1, m2, i0, j0, bi, bj)
+    def spy(self, m1, m2, i0, j0, bi, bj, mode="none", *packing):
+        if mode == "rel4":  # first dispatches (a refetch is rel or int32)
+            calls.append(bj)
+        return real(self, m1, m2, i0, j0, bi, bj, mode, *packing)
 
     monkeypatch.setattr(port_engine._BlockEngine, "block", spy)
     a, b = write(tmp_path, f1, f2)
@@ -352,7 +353,7 @@ def test_stream_mid_error_matches_jax_cli(tmp_path, capsys, monkeypatch,
 
 
 def test_stream_prepare_failure_surfaces(tmp_path, monkeypatch, fastas):
-    def broken(self, matrix, max_block):
+    def broken(self, matrix, max_block, diff_ref=None):
         raise _Boom("upload failed")
 
     monkeypatch.setattr(port_engine._BlockEngine, "prepare", broken)
