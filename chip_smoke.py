@@ -5,11 +5,11 @@
 
 Run from the root of a checkout.  It builds the kernels from
 ``distance_tpu_torch/csrc`` (K1 the counters, K2 the rel4/rel packs, K3
-the diff rebuild), holds each against its plain PyTorch version, drives
-the port's CLI on SARS-CoV-2-scale synthetic alignments made from a seed
-(29904 sites) in its three modes, with diff-encoded uploads and rel4
-packing on, checks the output, and times the kernels beside their plain
-versions.  Phases:
+the diff rebuild, K4 the narrow/wide packs), holds each against its plain
+PyTorch version, drives the port's CLI on SARS-CoV-2-scale synthetic
+alignments made from a seed (29904 sites) in its three modes, in and out
+of core, with diff-encoded uploads and the pack ladder on, checks the
+output, and times the kernels beside their plain versions.  Phases:
 
 1. environment: the card, torch, CUDA, nvcc; build the kernels and print
    ptxas's registers, shared memory and spills; the free device memory,
@@ -37,14 +37,23 @@ versions.  Phases:
    8000 group, six measures, and counters with chosen outliers (segments
    holding 0, 1, 2, 3 and many); K3 against its plain version on the
    square's 8192 x 29952 upload (its rows equal to the dense upload, pad
-   rows the reference row), with no diffs and capacity-many;
+   rows the reference row), with no diffs and capacity-many; K4 (narrow
+   and wide) byte-equal to its plain version for six measures on the
+   square's block and the stream's group and on counters around the
+   saturation points (254, 255, 256 in a lane, width - sum at 255) at
+   widths 1, 29904 and 65535; and K2 and K4 at every packed block of
+   phase 9's out-of-core runs and phase 10's staged shard
+   (``OOC_LAYOUTS``, ``ooc_blocks``): K2 at the block's position with its
+   out-of-core masks (valid rows of both sides, self-pair offset), K4 at
+   its shape;
 3. the square path: the CLI on the 8192 x 29904 alignment, ``-m raw
    --backend cuda``; line count, 1200 random rows against the host
    oracle, each kernel's launch count in that run (10 blocks at rel4, 3
    baselines, the refetches by rung), a ``torch.profiler`` split of a
    second run's device time, and the same square once more dense and
-   int32 (DISTANCE_TPU_NO_DIFF_UPLOAD=1 DISTANCE_TPU_NO_REL_PACK=1):
-   same sha256, its wall and split;
+   without a reference row (DISTANCE_TPU_NO_DIFF_UPLOAD=1
+   DISTANCE_TPU_NO_REL_PACK=1: the ladder narrow -> wide): same sha256,
+   its launches per rung, wall and split;
 4. all six measures end to end at 256 x 29904: ``--backend cuda`` and
    ``--backend torch`` write identical bytes;
 5. K1 against its plain version and the int8-GEMM yardstick
@@ -56,8 +65,9 @@ versions.  Phases:
    on the 2048 x 2048 block and the 2000 x 8000 group and K3 on the
    8192 x 29952 upload, timed in turns with their plain versions (K3 also
    with its yardstick, ``expand().clone()`` and ``index_put_``), beside
-   their bounds in bytes at 3.35 TB/s; the numbers at the square's shapes
-   go into the result line;
+   their bounds in bytes at 3.35 TB/s, and K4 narrow and wide at raw on
+   the 2048 x 2048 block likewise; the numbers at the square's shapes go
+   into the result line;
 6. the rectangle path: the CLI on 4096 x 8192 x 29904 (two files cut
    from one alignment), ``-m raw``; line count, 1200 random rows, launch
    count, and a ``torch.profiler`` split of a second run's device time
@@ -73,11 +83,17 @@ versions.  Phases:
 9. out of core: the engine's device and host budgets (and tiles) are
    lowered in this process, the data keeps its full size.  The square of
    phase 3, the rectangle of phase 6 and a stream of 8192 loaded x 4096
-   streamed records (``-b 1000``) run out of core with at least 3 X
-   groups (the stream: 2 groups) and 3 super-rows, the last of each
-   ragged; its kernel launches have the shapes phase 2 checked, each
-   TSV's sha256 equals the in-core run's, the peak device memory stays
-   within the budget, and a profiled repeat splits the device time.  Then the six measures out of core at small shapes
+   streamed records (``-b 1000``) run out of core, diff-uploaded and
+   packed, with at least 3 X groups (the stream: 2 groups) and 3
+   super-rows, the last of each ragged; its kernel launches have the
+   shapes phase 2 checked (K1), its packed blocks the positions and masks
+   of its layout and its K2/K4 launches ones phase 2 checked, each TSV's
+   sha256 equals the in-core run's,
+   the peak device memory stays within the budget, the K1 launches split
+   into blocks by rung and baselines, the host diff encodes per super-row
+   show the memo's hits, CUDA events time the K1 launches, and a
+   profiled repeat splits the device time; the square once more dense
+   and without a reference row (same sha256).  Then the six measures out of core at small shapes
    (square 256, rectangle 128 x 256, stream 128 x 300 ``-b 7``) against
    the in-core ``--backend torch`` bytes, and an in-core stream of 8
    records against 4,194,305 loaded records of 64 sites (one launch;
@@ -95,12 +111,15 @@ versions.  Phases:
    square (two processes);
 11. the pack ladder: a square of 1024 random records (0.5% N) whose
    residuals saturate rel4 and rel, so its block is dispatched at rel4,
-   rel and int32; launches per rung, line count and 1200 random rows.
+   rel and wide; the same square without a reference row, narrow and
+   wide; and a square of 256 random records at 65600 sites, rel4, rel
+   and int32; launches per rung, line count and 1200 random rows each.
 
 Any failed check raises, and the script exits non-zero without a result.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists the four kernels (``counters``, ``pack_rel4``, ``pack_rel``,
-``diff_rebuild``) with their launches per path, errors, times and bounds.
+lists the six kernels (``counters``, ``pack_rel4``, ``pack_rel``,
+``pack_narrow``, ``pack_wide``, ``diff_rebuild``) with their launches per
+path, errors, times and bounds.
 Without a CUDA device, or without the package beside it, it fails.
 
     python3 chip_smoke.py --measure
@@ -109,7 +128,12 @@ builds the kernel and measures instead of checking: the rectangle and
 the stream above for each of the six measures, the stream with ``-b 1``
 and ``-b 100``, a stream of 131072 records (wall, host phase totals
 and the profiler split), and phase 9's three runs in core and out of
-core for each measure.
+core for each measure (with the K1 launches and their time by CUDA
+events out of core).
+
+    python3 chip_smoke.py --measure-ooc
+
+measures that last part alone.
 """
 
 from __future__ import annotations
@@ -144,24 +168,31 @@ LONG_X = (4_194_305, 8, 16)
 # Phase 9.  Each out-of-core run keeps its data at full size and lowers
 # only the engine's budgets and tiles, in this process: (device budget,
 # host budget, (TILE_I, TILE_J)).  At raw and 29904 sites they give 3 X
-# groups (stream: 3 groups) and 3 super-rows, the last of each ragged:
+# groups (stream: 3 groups) and 3 or more super-rows, the last of each
+# ragged:
 #   square 8192:        groups 3072/3072/2048, super-rows 3072/3072/2048;
 #   rectangle 4096 x 8192: groups 1536/1536/1024, super-rows 3072/3072/2048;
 #   stream 8192 loaded x 4096 streamed, -b 1000: groups 2000/2000/96,
-#                       loaded super-rows 3072/3072/2048.
+#                       loaded super-rows 1536 (5 of them) and 512.
 OOC = {
-    "square": (460_000_000, 450_000_000, (1024, 1024)),
-    "rectangle": (320_000_000, 240_000_000, (512, 1024)),
-    "stream": (230_000_000, 300_000_000, (1024, 1024)),
+    "square": (660_000_000, 450_000_000, (1024, 1024)),
+    "rectangle": (450_000_000, 240_000_000, (512, 1024)),
+    "stream": (230_000_000, 300_000_000, (512, 1024)),
 }
 N_OOC_STREAM = (8192, 4096)
 # The (x rows, y rows) of the kernel launches these layouts make: the
 # square's and the rectangle's (TILE_I, TILE_J) blocks, and each loaded
-# super-row against each streamed group.
+# super-row against each streamed group; then the baselines: each
+# prepared X group (loaded super-row) against the reference row, it
+# against each prepared super-row (streamed group), and itself.  A
+# prepared matrix is padded to whole strips and one block more.
 OOC_LAUNCHES = {
-    "square": [(1024, 1024)],
-    "rectangle": [(512, 1024)],
-    "stream": [(3072, 2000), (3072, 96), (2048, 2000), (2048, 96)],
+    "square": [(1024, 1024), (3072, 1), (2048, 1), (1, 3072), (1, 2048),
+               (1, 1)],
+    "rectangle": [(512, 1024), (1536, 1), (1024, 1), (1, 3584), (1, 2560),
+                  (1, 1)],
+    "stream": [(1536, 2000), (1536, 96), (512, 2000), (512, 96), (1536, 1),
+               (512, 1), (1, 2000), (1, 96), (1, 1)],
 }
 # The six measures out of core at small shapes (square 256, rectangle
 # 128 x 256, stream 128 x 300 with -b 7) against the in-core plain version.
@@ -172,12 +203,27 @@ OOC_SMALL_STREAM = (2_000_000, 200_000, (64, 64))
 LONG_STREAM = (4_194_305, 8, 64)
 # Phase 10: the staged stream shard's (device budget, host budget, tiles),
 # and the launches they give at raw: group 1 of the phase 7 stream (8000
-# records) against loaded super-rows of 1024 and 976 rows.
-SHARD_STAGED = (400_000_000, 4 << 30, (1024, 1024))
+# records) against loaded super-rows of 1024 and 976 rows, and the
+# baselines.
+SHARD_STAGED = (600_000_000, 4 << 30, (1024, 1024))
 SHARD_STAGED_LAUNCHES = [(1024, 8000), (976, 8000)]
+SHARD_STAGED_BASELINES = [(1024, 1), (976, 1), (1, 8000), (1, 1)]
+# The X groups (stream groups) and Y super-rows (loaded super-rows) of
+# phase 9's out-of-core runs and of phase 10's staged shard, as the
+# comments above give them.  Every packed block these runs dispatch
+# (``ooc_blocks``), at its position and with its out-of-core masks, is one
+# at which phase 2 holds K2 and K4 against their plain versions.
+OOC_LAYOUTS = {
+    "square": ((3072, 3072, 2048), (3072, 3072, 2048)),
+    "rectangle": ((1536, 1536, 1024), (3072, 3072, 2048)),
+    "stream": ((2000, 2000, 96), (1536,) * 5 + (512,)),
+    "stream-shard-staged": ((8000,), (1024, 976)),
+}
 N_COORD = 2048
-# Phase 11: records of the diverse alignment whose residuals saturate.
+# Phase 11: records of the diverse alignment whose residuals saturate, and
+# the (records, sites) of its square past 2^16 sites.
 N_LADDER = 1024
+LADDER_UNPACKED = (256, 65600)
 # Seconds a phase 10 subprocess may take before it is killed.
 PROC_TIMEOUT_S = 300
 
@@ -297,8 +343,9 @@ def print_crossover() -> None:
     for measure in ("raw", "tn93"):
         g = len(get_plan(measure).counters)
         n = 0
-        while engine._device_footprint([(n + 8192, 8192)], L_BENCH, 8192,
-                                       g) <= budget:
+        while engine._blocked_footprint(
+                0, engine._padded_shape(n + 8192, L_BENCH, 8192, 8192)[0],
+                L_BENCH, g, 8192, 8192) <= budget:
             n += 8192
         print(f"[1] {measure}: the square at {L_BENCH} sites and 8192-row"
               f" tiles stays in core up to {n} records")
@@ -337,7 +384,7 @@ def phase_kernel_vs_plain(bench: np.ndarray) -> int:
     launches += [(f"{mode}-ooc", m, n) for mode, shapes in OOC_LAUNCHES.items()
                  for m, n in shapes]
     launches += [("stream-shard-staged", m, n)
-                 for m, n in SHARD_STAGED_LAUNCHES]
+                 for m, n in SHARD_STAGED_LAUNCHES + SHARD_STAGED_BASELINES]
     path_cases = [(f"{tag} {m}x{n}x{l_pad}", padded(bench[:m]),
                    padded(bench[-n:])) for tag, m, n in launches]
     # the rel baselines: every prepared row against the reference row,
@@ -456,12 +503,14 @@ def outlier_counters(dev, g: int, m: int, n: int, seed: int):
 
 
 def phase_pack_and_rebuild(bench: np.ndarray) -> int:
-    """K2 (rel4 and rel packs) and K3 (the diff rebuild) against their
-    plain versions, exactly: K2 on the main path's blocks (the square's
-    2048 x 2048 diagonal block with its self-pairs and padding masked,
-    and the stream's 2000 x 8000 group) for all six measures, and on
-    counters with chosen outliers (segments with 0, 1, 2, 3 and many,
-    odd rows, odd columns under rel); K3 on the square's 8192 x 29952
+    """K2 (rel4 and rel packs), K3 (the diff rebuild) and K4 (narrow and
+    wide packs) against their plain versions, exactly.  K2 and K4 on the
+    main path's blocks (the square's 2048 x 2048 diagonal block, under K2
+    with its self-pairs and padding masked, and the stream's 2000 x 8000
+    group) for all six measures; K2 on counters with chosen outliers
+    (segments with 0, 1, 2, 3 and many, odd rows, odd columns under rel);
+    K4 at widths 1, 29904 and 65535 and on counters around the narrow
+    lanes' 255 (``chosen_lane_counters``); K3 on the square's 8192 x 29952
     upload of the bench alignment (and against its dense upload, whose
     pad rows are zero where the rebuild's hold the reference row), with
     no diffs, and with as many diffs as the capacity.  Returns the
@@ -470,6 +519,7 @@ def phase_pack_and_rebuild(bench: np.ndarray) -> int:
 
     from distance_tpu_torch.measures import MEASURES
     from distance_tpu_torch.ops import diffup, packing
+    from distance_tpu_torch.ops.counters import counters_cuda
     from distance_tpu_torch.ops.features import get_plan
     from distance_tpu_torch.ops.plan import plan_to_torch
 
@@ -566,7 +616,148 @@ def phase_pack_and_rebuild(bench: np.ndarray) -> int:
           f" {N_BENCH * l_pad} codes, capacity {enc[0].size}; its real rows equal"
           f" the dense upload, pad rows the reference row), no diffs, and"
           f" capacity-many diffs")
+
+    # K4 on the main path's blocks and on counters around the saturation
+    # points of the narrow lanes, at widths 1, the bench's and 2^16 - 1
+    def lanes_equal(tag, measure, c, width):
+        for kind, kern, plain in (
+                ("narrow", lambda: packing.pack_narrow_cuda(measure, c, width),
+                 lambda: packing.pack_narrow_torch(measure, c, width)),
+                ("wide", lambda: packing.pack_wide_cuda(measure, c),
+                 lambda: packing.pack_wide_torch(measure, c))):
+            got = kern()
+            torch.cuda.synchronize()
+            want = plain()
+            check(got.dtype == want.dtype and torch.equal(got, want),
+                  f"K4 {kind} {measure} {tag} width {width}: kernel != plain")
+
+    widths = (1, bench.shape[1], (1 << 16) - 1)
+    saturated = 0
+    for measure in MEASURES:
+        plan = plan_to_torch(get_plan(measure), dev)
+        block = counters_cuda(square, square, plan)
+        for width in widths:
+            lanes_equal(f"square {BLOCK}x{BLOCK}", measure, block, width)
+            lanes_equal(f"stream {N_STREAM[0]}x{STREAM_GROUPS[0]}", measure,
+                        counters_cuda(loaded, group, plan), width)
+            for k, (m, n) in enumerate([(2, 3), (33, 65), (BLOCK, BLOCK)]):
+                lanes_equal(f"chosen {m}x{n}", measure, chosen_lane_counters(
+                    dev, plan.counters, m, n, width, SEED + 40 + k), width)
+        narrow = packing.pack_narrow_cuda(measure, block, bench.shape[1])
+        saturated += int((narrow.view(torch.uint8) == 255).any(0).sum())
+    print(f"[2] K4 == plain (narrow and wide), six measures: the square's"
+          f" {BLOCK} x {BLOCK} block and the stream's {N_STREAM[0]} x"
+          f" {STREAM_GROUPS[0]} group at widths {widths}, and chosen counters"
+          f" around 255 (2 x 3, 33 x 65, {BLOCK} x {BLOCK}); {saturated}"
+          f" pairs of the square's blocks saturate a narrow lane at"
+          f" {bench.shape[1]} sites (six measures together)")
+    ooc_packs_vs_plain(dev, rows, ref, both, lanes_equal, widths)
     return 0
+
+
+def cut(sizes) -> list:
+    """(start, end) of consecutive spans of these sizes."""
+    ends = np.cumsum(sizes).tolist()
+    return list(zip([0] + ends[:-1], ends))
+
+
+def ooc_blocks(mode: str) -> set:
+    """(rows, cols, i0, j0, nv, diag_off) of every packed block the
+    out-of-core run of ``mode`` dispatches, as ``_BlockEngine.block`` gets
+    them, from ``OOC_LAYOUTS``: the blocked sweeps' (TILE_I, TILE_J)
+    blocks of each strip of each X group against each super-row (the
+    square's from the block holding its diagonal on), with the valid rows
+    of both and, on the square, the self-pair offset g0 - q0; the staged
+    stream's one block of each loaded super-row against each group."""
+    xs, ys = OOC_LAYOUTS[mode]
+    if mode.startswith("stream"):
+        return {(q, bn, 0, 0, (q, bn), None) for q in ys for bn in xs}
+    ti, tj = OOC[mode][2]
+    square = mode == "square"
+    blocks = set()
+    for g0, g1 in cut(xs):
+        for q0, q1 in cut(ys):
+            if q1 <= (g0 if square else 0):
+                continue
+            for i0 in range(0, g1 - g0, ti):
+                lo = 0
+                if square and q1 <= g0 + i0 + 1:
+                    continue
+                if square and q0 <= g0 + i0:
+                    lo = (g0 + i0 - q0) // tj * tj
+                for j0 in range(lo, q1 - q0, tj):
+                    blocks.add((ti, tj, i0, j0, (g1 - g0, q1 - q0),
+                                g0 - q0 if square else None))
+    return blocks
+
+
+# The K2 and K4 launches phase 2 held against their plain versions at the
+# out-of-core blocks: ("rel4", rows, cols, i0, j0, nv, diag_off), ("rel",
+# rows, cols, i0, j0, diag_off), ("narrow", rows, cols) and ("wide", rows,
+# cols), for all six measures.  Phases 9 and 10 fail on a launch outside it.
+CHECKED_PACKS: set = set()
+
+
+def ooc_packs_vs_plain(dev, rows: np.ndarray, ref, both, lanes_equal,
+                       widths: tuple) -> None:
+    """Phase 2 at every block of ``ooc_blocks``, for the six measures: K2
+    (rel4 and rel) with the block's i0, j0, valid rows and self-pair
+    offset, on counters whose residuals fill [-7, 7] with chosen outliers
+    (zero baselines, so a cell masked wrongly shows), and on the bench
+    alignment's counters and baselines at each block shape; K4 (narrow
+    and wide) at each block shape on the bench alignment's counters at
+    ``widths``.  Fills CHECKED_PACKS."""
+    import torch
+
+    from distance_tpu_torch.measures import MEASURES
+    from distance_tpu_torch.ops.features import get_plan
+    from distance_tpu_torch.ops.plan import plan_to_torch
+
+    by_shape = {}
+    for mode in OOC_LAYOUTS:
+        for m, n, *mask in ooc_blocks(mode):
+            by_shape.setdefault((m, n), set()).add(tuple(mask))
+    for k, ((m, n), masks) in enumerate(sorted(by_shape.items())):
+        x = torch.from_numpy(rows[:m]).to(dev)
+        y = torch.from_numpy(rows[-n:]).to(dev)
+        outliers = outlier_counters(dev, 4, m, n, SEED + 50 + k)
+        for measure in MEASURES:
+            plan = plan_to_torch(get_plan(measure), dev)
+            g = plan.counters
+            c, rb, cb, cc = bench_baselines(x, y, ref, plan)
+            for i0, j0, nv, diag_off in sorted(masks, key=str):
+                both(f"{measure} out-of-core {m}x{n} at ({i0}, {j0}) nv {nv}"
+                     f" diag_off {diag_off}", *(t[:g] for t in outliers),
+                     i0, j0, nv, diag_off)
+                CHECKED_PACKS.update({("rel4", m, n, i0, j0, nv, diag_off),
+                                      ("rel", m, n, i0, j0, diag_off)})
+            i0, j0, nv, diag_off = min(masks, key=str)
+            both(f"{measure} out-of-core {m}x{n} bench", c, rb, cb, cc, i0,
+                 j0, nv, diag_off)
+            for width in widths:
+                lanes_equal(f"out-of-core {m}x{n}", measure, c, width)
+        CHECKED_PACKS.update({("narrow", m, n), ("wide", m, n)})
+        print(f"[2] K2 == plain (rel4, rel) at the {len(masks)} out-of-core"
+              f" positions and masks of {m} x {n} blocks and K4 == plain"
+              f" (narrow, wide) at that shape, six measures")
+    torch.cuda.synchronize()
+
+
+def chosen_lane_counters(dev, g: int, m: int, n: int, width: int,
+                         seed: int):
+    """(g, m, n) int32 counters whose narrow lanes fall on either side of
+    255: cells at 254, 255, 256, 0, the width, the width less 255 (and
+    with it a lane of width - sum at 255), -1 and past 2^16, the rest
+    random below the width."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    c = rng.integers(0, min(width, 600) + 2, size=(g, m, n)).astype(np.int32)
+    flat = c.reshape(g, -1)
+    for k, v in enumerate([254, 255, 256, 0, width, width - 255, -1,
+                           70000]):
+        flat[:, k % flat.shape[1]] = v
+    return torch.from_numpy(c).to(dev)
 
 
 def truth_tables(dev) -> None:
@@ -601,7 +792,8 @@ def truth_tables(dev) -> None:
 
 
 # The kernels of the port, by the names of the result line.
-KERNELS = ("counters", "pack_rel4", "pack_rel", "diff_rebuild")
+KERNELS = ("counters", "pack_rel4", "pack_rel", "pack_narrow", "pack_wide",
+           "diff_rebuild")
 
 
 def reset_counts() -> None:
@@ -611,6 +803,7 @@ def reset_counts() -> None:
     from distance_tpu_torch.ops import counters, diffup, packing
 
     counters.LAUNCHES = packing.LAUNCHES_REL4 = packing.LAUNCHES_REL = 0
+    packing.LAUNCHES_NARROW = packing.LAUNCHES_WIDE = 0
     diffup.LAUNCHES = engine.BASELINES = 0
     for rung in engine.RUNG_BLOCKS:
         engine.RUNG_BLOCKS[rung] = 0
@@ -626,6 +819,8 @@ def read_counts() -> dict:
     return {"counters": counters.LAUNCHES,
             "pack_rel4": packing.LAUNCHES_REL4,
             "pack_rel": packing.LAUNCHES_REL,
+            "pack_narrow": packing.LAUNCHES_NARROW,
+            "pack_wide": packing.LAUNCHES_WIDE,
             "diff_rebuild": diffup.LAUNCHES,
             "baselines": engine.BASELINES,
             "blocks": dict(engine.RUNG_BLOCKS)}
@@ -657,23 +852,35 @@ def check_packed_path(tag: str, counts: dict, blocks: int, baselines: int,
     """A run of the in-core packed path: ``blocks`` counter blocks first
     dispatched at rel4; ``baselines`` K1 launches against the reference
     row, and with ``group_baselines`` (the stream) one more for each
-    packed block dispatched, whose group's rows are not kept; every K1
-    launch a block (at any rung) or a baseline; one K2 launch a packed
-    block; and at least ``rebuilds`` diff rebuilds."""
+    packed block dispatched, whose group's rows are not kept; then
+    ``check_launches``."""
     b = counts["blocks"]
     if group_baselines:
         baselines += b["rel4"] + b["rel"]
     check(b["rel4"] == blocks and counts["baselines"] == baselines
-          and counts["counters"] == sum(b.values()) + baselines
+          and counts["diff_rebuild"] >= rebuilds,
+          f"{tag}: launches {counts}, expected {blocks} blocks at rel4,"
+          f" {baselines} baselines and {rebuilds} rebuilds")
+    check_launches(tag, counts)
+
+
+def check_launches(tag: str, counts: dict) -> None:
+    """Every K1 launch a block (at any rung) or a baseline, one K2 launch
+    a block at rel4 or rel, and one K4 launch a block at narrow or wide;
+    prints the split."""
+    b = counts["blocks"]
+    check(counts["counters"] == sum(b.values()) + counts["baselines"]
           and counts["pack_rel4"] == b["rel4"]
           and counts["pack_rel"] == b["rel"]
-          and counts["diff_rebuild"] >= rebuilds,
-          f"{tag}: launches {counts}, expected {blocks} blocks at rel4 and"
-          f" {baselines} baselines")
-    print(f"{tag} {blocks} blocks at rel4, refetched: {b['rel']} blocks at"
-          f" rel and {b['none']} at int32; K1 {counts['counters']} ="
-          f" {sum(b.values())} blocks + {baselines} baselines, K2"
-          f" {counts['pack_rel4']} rel4 + {counts['pack_rel']} rel, K3"
+          and counts["pack_narrow"] == b["narrow"]
+          and counts["pack_wide"] == b["wide"],
+          f"{tag}: launches {counts} do not add up")
+    print(f"{tag} K1 {counts['counters']} = {sum(b.values())} blocks (rel4"
+          f" {b['rel4']}, rel {b['rel']}, narrow {b['narrow']}, wide"
+          f" {b['wide']}, int32 {b['none']}: first dispatches and"
+          f" refetches) + {counts['baselines']} baselines; K2"
+          f" {counts['pack_rel4']} rel4 + {counts['pack_rel']} rel, K4"
+          f" {counts['pack_narrow']} narrow + {counts['pack_wide']} wide, K3"
           f" {counts['diff_rebuild']}")
 
 
@@ -689,7 +896,7 @@ def sha256(path: str) -> str:
 
 def phase_main_path(tmp: str, bench: np.ndarray) -> tuple:
     """The CLI at the bench shape; returns the kernel launches of the run
-    and its TSV's sha256."""
+    and of its dense repeat, and its TSV's sha256."""
     from distance_tpu_torch import measures
     from distance_tpu_torch.writer import format_float
 
@@ -722,22 +929,27 @@ def phase_main_path(tmp: str, bench: np.ndarray) -> tuple:
     del data
     sha = sha256(out)
     profiled_run("[3]", [fasta, "-o", out])
-    # the same square with dense uploads and int32 counters
-    with dense_int32():
-        wall0, counts0 = run_cli("[3] dense int32", [fasta, "-o", out])
-        check(sha256(out) == sha, "[3] dense int32: TSV differs")
-        check(counts0["blocks"]["none"] == 10 and counts0["counters"] == 10
-              and counts0["diff_rebuild"] == 0,
-              f"[3] dense int32: launches {counts0}")
-        profiled_run("[3] dense int32", [fasta, "-o", out])
+    # the same square with dense uploads and no reference row: the ladder
+    # narrow -> wide
+    with dense_no_ref():
+        wall0, counts0 = run_cli("[3] dense, no reference row",
+                                 [fasta, "-o", out])
+        check(sha256(out) == sha, "[3] dense, no reference row: TSV differs")
+        b = counts0["blocks"]
+        check(b["rel4"] == b["rel"] == b["none"] == 0 and b["narrow"] >= 1
+              and counts0["baselines"] == counts0["diff_rebuild"] == 0,
+              f"[3] dense, no reference row: launches {counts0}")
+        check_launches("[3] dense, no reference row", counts0)
+        profiled_run("[3] dense, no reference row", [fasta, "-o", out])
     print(f"[3] square wall {wall:.3f} s with diff uploads and rel4,"
-          f" {wall0:.3f} s dense and int32 (DISTANCE_TPU_NO_DIFF_UPLOAD=1"
-          f" DISTANCE_TPU_NO_REL_PACK=1); sha256 equal ({gpu_line()})")
-    return counts, sha
+          f" {wall0:.3f} s dense and narrow -> wide"
+          f" (DISTANCE_TPU_NO_DIFF_UPLOAD=1 DISTANCE_TPU_NO_REL_PACK=1);"
+          f" sha256 equal ({gpu_line()})")
+    return counts, counts0, sha
 
 
 @contextlib.contextmanager
-def dense_int32():
+def dense_no_ref():
     """Diff uploads and rel packing switched off in this process, as
     their environment variables switch them off."""
     names = ("DISTANCE_TPU_NO_DIFF_UPLOAD", "DISTANCE_TPU_NO_REL_PACK")
@@ -912,15 +1124,16 @@ def in_turns(fns: dict, order: tuple) -> dict:
 
 
 def phase_pack_timing(bench: np.ndarray) -> dict:
-    """K2 and K3 timed on the card in turns with their plain versions (and
-    K3 with its yardstick, the plain version's ``expand().clone()`` and
-    ``index_put_`` of the in-range diffs, selected outside the timed
-    window), at the main path's shapes: K2 at raw on the square's 2048 x
-    2048 block and the stream's 2000 x 8000 group, K3 on the square's
-    8192 x 29952 upload.  Bounds in bytes at the card's memory rate
-    (PEAK_BYTES): K2 reads 4 G m n B and writes G m n / 2 (rel4) or G m n
-    (rel) B; K3 writes rows x l_pad B and reads 5 B a diff.  Returns each
-    kernel's numbers at the square's shapes."""
+    """K2, K4 and K3 timed on the card in turns with their plain versions
+    (and K3 with its yardstick, the plain version's ``expand().clone()``
+    and ``index_put_`` of the in-range diffs, selected outside the timed
+    window), at the main path's shapes: K2 and K4 at raw on the square's
+    2048 x 2048 block and the stream's 2000 x 8000 group, K3 on the
+    square's 8192 x 29952 upload.  Bounds in bytes at the card's memory
+    rate (PEAK_BYTES): K2 and K4 read 4 G m n B and write G m n / 2
+    (rel4), G m n (rel, narrow) or 4 m n (raw's wide words) B; K3 writes
+    rows x l_pad B and reads 5 B a diff.  Returns each kernel's numbers at
+    the square's shapes."""
     import torch
 
     from distance_tpu_torch.ops import diffup, packing
@@ -946,15 +1159,22 @@ def phase_pack_timing(bench: np.ndarray) -> dict:
         y = torch.from_numpy(rows[c0:c1]).to(dev)
         c, rb, cb, cc = bench_baselines(x, y, ref, plan)
         g, m, n = c.shape
+        width = bench.shape[1]
         for name, kern, plain, out_bytes in [
             ("pack_rel4", lambda: packing.pack_rel4_cuda(c, rb, cb, cc),
              lambda: packing.pack_rel4_torch(c, rb, cb, cc), g * m * n / 2),
             ("pack_rel", lambda: packing.pack_rel_cuda(c, rb, cb, cc),
              lambda: packing.pack_rel_torch(c, rb, cb, cc), g * m * n),
+            ("pack_narrow",
+             lambda: packing.pack_narrow_cuda("raw", c, width),
+             lambda: packing.pack_narrow_torch("raw", c, width), g * m * n),
+            ("pack_wide", lambda: packing.pack_wide_cuda("raw", c),
+             lambda: packing.pack_wide_torch("raw", c), 4 * m * n),
         ]:
             ms = in_turns({"kernel": (kern, 20), "plain": (plain, 3)}, order)
             bound = (4.0 * g * m * n + out_bytes) / PEAK_BYTES * 1e3
-            print(f"[5] K2 {name} raw {tag} {g} x {m} x {n}: kernel"
+            k = "K4" if name in ("pack_narrow", "pack_wide") else "K2"
+            print(f"[5] {k} {name} raw {tag} {g} x {m} x {n}: kernel"
                   f" {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms,"
                   f" bound {bound:.4f} ms (bytes at {PEAK_BYTES:.3e} B/s) ="
                   f" {bound / ms['kernel']:.4f} of the bound; no single"
@@ -992,7 +1212,64 @@ def phase_pack_timing(bench: np.ndarray) -> dict:
     out["diff_rebuild"] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
                                bound_ms=bound, bound_by="bytes",
                                library_ms=ms["library"])
+    time_glue(rows, refp, card)
     return out
+
+
+def time_glue(rows: np.ndarray, refp: np.ndarray, card: str) -> None:
+    """Two device steps that are no kernel of their own, timed with CUDA
+    events beside their bounds: ``bundle_sidecars`` (``torch.cat``) at the
+    square's first strip (4 blocks of 2048 columns at rel4: cb (2, 8192),
+    rb_cc (2, 2049), sidecars (4, 16384) twice; bytes read once and
+    written once), and one in-core stream group as the port runs the JAX
+    ``_jit_stream_fn`` (K3 rebuild of the group's diffs, then K1, the
+    group's column baseline, K2 rel4 and the bundle, for 2000 loaded x
+    8000 records at raw; bound: K1's 2 n1 bn L R int8 operations at the
+    peak int8 rate, which outweigh its bytes)."""
+    import torch
+
+    from distance_tpu_torch import engine
+    from distance_tpu_torch.ops import diffup, packing
+    from distance_tpu_torch.ops.features import get_plan
+
+    dev = torch.device("cuda", 0)
+    g, ti, span, blocks = 2, BLOCK, 4 * BLOCK, 4
+    z = torch.zeros
+    cb = z((g, span), dtype=torch.int32, device=dev)
+    rb_cc = z((g, ti + 1), dtype=torch.int32, device=dev)
+    ei = z((blocks, packing.REL4_EXC_CAP), dtype=torch.int32, device=dev)
+    ev = torch.ones_like(ei)
+    moved = 4.0 * (cb.numel() + rb_cc.numel() + 2 * ei.numel()) + 4 * 6
+    ms = cuda_timed(lambda: packing.bundle_sidecars(cb, rb_cc, ei, ev), 50)
+    bound = 2 * moved / PEAK_BYTES * 1e3
+    print(f"[5] bundle_sidecars, the square's first strip ({blocks} blocks):"
+          f" {ms:.4f} ms, bound {bound:.5f} ms (bytes at {PEAK_BYTES:.3e}"
+          f" B/s) = {bound / ms:.4f} of the bound ({card})")
+
+    n1, bn = N_STREAM[0], STREAM_GROUPS[0]
+    width = L_BENCH
+    eng = engine._BlockEngine("raw", dev, 1, width, rel=True)
+    m1 = eng.prepare(rows[:n1, :width], 1, diff_ref=refp[:width])
+    group = rows[-bn:]
+    codes, ref = eng.dispatch_stream(group, lambda: diffup.to_device(group,
+                                                                      dev))
+    enc = eng.diff_up.encode(group, n_real=bn)
+
+    def step():
+        c = eng.diff_up.upload_encoded(enc, bn) if enc is not None else codes
+        return engine._dispatch_strip(eng, m1, c, 0, [0], n1, bn, "rel4",
+                                      (n1, bn), None, ref)
+
+    step()
+    ms = cuda_timed(step, 5)
+    ops = 2.0 * n1 * bn * width * get_plan("raw").total_channels
+    bound = ops / PEAK_INT8_OPS * 1e3
+    print(f"[5] one in-core stream group (the JAX _jit_stream_fn) raw"
+          f" {n1} x {bn} x {width}, {'diff' if enc is not None else 'dense'}"
+          f" upload: {ms:.4f} ms, bound {bound:.4f} ms (operations at"
+          f" {PEAK_INT8_OPS:.3e} int8 op/s) = {bound / ms:.4f} of the bound"
+          f" ({card})")
+    eng.release(m1)
 
 
 def write_inputs(tmp: str, tag: str, n1: int, n2: int, seed: int,
@@ -1015,8 +1292,8 @@ def device_split(prof) -> dict:
     device's busy intervals."""
     from torch.autograd import DeviceType
 
-    split = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "H2D": 0.0, "D2H": 0.0,
-             "other": 0.0}
+    split = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0, "H2D": 0.0,
+             "D2H": 0.0, "other": 0.0}
     spans = []
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
@@ -1029,6 +1306,8 @@ def device_split(prof) -> dict:
                     "rel4_sidecar"))
                 else "K3" if ("fill_rows" in ev.name
                               or "scatter_diffs" in ev.name)
+                else "K4" if ("narrow_lanes" in ev.name
+                              or "wide_words" in ev.name)
                 else "H2D" if "HtoD" in ev.name
                 else "D2H" if "DtoH" in ev.name else "other")
         split[kind] += t1 - t0
@@ -1043,8 +1322,8 @@ def device_split(prof) -> dict:
 
 def profiled_run(tag: str, args: list) -> None:
     """One more ``-m raw`` CLI run under torch.profiler: its device time
-    split into the kernel, H2D and D2H, and the device's busy share of
-    the wall."""
+    split into the kernels (K1-K4), H2D and D2H, and the device's busy
+    share of the wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1062,7 +1341,8 @@ def profiled_run(tag: str, args: list) -> None:
     total = sum(v for k, v in split.items() if k != "busy")
     print(f"{tag} profiled run: wall {wall:.3f} s; device time (ms):"
           f" K1 {split['K1'] / 1e3:.3f}, K2 {split['K2'] / 1e3:.3f},"
-          f" K3 {split['K3'] / 1e3:.3f}, H2D {split['H2D'] / 1e3:.3f},"
+          f" K3 {split['K3'] / 1e3:.3f}, K4 {split['K4'] / 1e3:.3f},"
+          f" H2D {split['H2D'] / 1e3:.3f},"
           f" D2H {split['D2H'] / 1e3:.3f}, other {split['other'] / 1e3:.3f};"
           f" H2D share of device time {split['H2D'] / total:.4f}; device"
           f" busy {split['busy'] / 1e6:.3f} s ="
@@ -1167,39 +1447,81 @@ def out_of_core(budget: int, host: int, tiles: tuple):
     """Lower the engine's budgets and tiles in this process, and watch
     what its out-of-core steps do: the rows of each X-group upload, each
     super-row asked of a staged side (and the uploads among them), the
+    host diff encodes made while a super-row is staged, by super-row, the
     records of each staged stream group, and the (x rows, y rows, padded
-    sites) of each kernel launch."""
+    sites) of each kernel launch, with CUDA events around each."""
+    import torch
+
     from distance_tpu_torch import engine
+    from distance_tpu_torch.ops import diffup
 
     names = ("DEVICE_BUDGET", "HOST_BUF_BUDGET", "TILE_I", "TILE_J")
     saved = [getattr(engine, k) for k in names]
     real = (engine._StagedSide.get, engine._BlockEngine.prepare,
-            engine._dispatch_stream_staged, engine.kernels.counters)
+            engine._dispatch_stream_staged, engine.kernels.counters,
+            diffup.DiffUploader.encode, engine._BlockEngine.block)
+    packs = ("rel4", "rel", "narrow", "wide")
+    real_packs = [getattr(engine.packing, f"pack_{k}") for k in packs]
     seen = {"x_rows": [], "spans": [], "stagings": 0, "groups": [],
-            "launch_shapes": set()}
-    in_get = [False]
+            "launch_shapes": set(), "encodes": {}, "k1_events": [],
+            "blocks": set(), "packs": set()}
+    staging = []
 
     def get(side, q0, q1):
         seen["spans"].append((q0, q1))
         seen["stagings"] += side._key != (q0, q1)
-        in_get[0] = True
+        staging.append((q0, q1))
         try:
             return real[0](side, q0, q1)
         finally:
-            in_get[0] = False
+            staging.pop()
 
     def prepare(eng, matrix, max_block, **kw):
-        if not in_get[0]:
+        if not staging:
             seen["x_rows"].append(matrix.shape[0])
         return real[1](eng, matrix, max_block, **kw)
 
-    def staged(eng, lside, spans, codes, n1, bn):
-        seen["groups"].append(bn)
-        return real[2](eng, lside, spans, codes, n1, bn)
+    def staged(*args):
+        seen["groups"].append(args[-1])  # the group's records
+        return real[2](*args)
 
     def counters(x, y, plan):
         seen["launch_shapes"].add((x.shape[0], y.shape[0], x.shape[1]))
-        return real[3](x, y, plan)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real[3](x, y, plan)
+        end.record()
+        seen["k1_events"].append((start, end))
+        return out
+
+    def encode(up, padded, n_real=None):
+        if staging:
+            key = staging[-1]
+            seen["encodes"][key] = seen["encodes"].get(key, 0) + 1
+        return real[4](up, padded, n_real)
+
+    def block(eng, m1, m2, i0, j0, ti, tj, mode="none", nv=None,
+              diag_off=None, ref=None):
+        if mode != "none":
+            seen["blocks"].add((ti, tj, i0, j0, nv, diag_off))
+        return real[5](eng, m1, m2, i0, j0, ti, tj, mode, nv, diag_off, ref)
+
+    def rel4(c, rb, cb, cc, i0=0, j0=0, nv=None, diag_off=None):
+        seen["packs"].add(("rel4", *c.shape[1:], i0, j0, nv, diag_off))
+        return real_packs[0](c, rb, cb, cc, i0, j0, nv, diag_off)
+
+    def rel(c, rb, cb, cc, i0=0, j0=0, diag_off=None):
+        seen["packs"].add(("rel", *c.shape[1:], i0, j0, diag_off))
+        return real_packs[1](c, rb, cb, cc, i0, j0, diag_off)
+
+    def narrow(measure, c, width):
+        seen["packs"].add(("narrow", *c.shape[1:]))
+        return real_packs[2](measure, c, width)
+
+    def wide(measure, c):
+        seen["packs"].add(("wide", *c.shape[1:]))
+        return real_packs[3](measure, c)
 
     for k, v in zip(names, (budget, host, *tiles)):
         setattr(engine, k, v)
@@ -1207,13 +1529,37 @@ def out_of_core(budget: int, host: int, tiles: tuple):
     engine._BlockEngine.prepare = prepare
     engine._dispatch_stream_staged = staged
     engine.kernels.counters = counters
+    diffup.DiffUploader.encode = encode
+    engine._BlockEngine.block = block
+    for k, fn in zip(packs, (rel4, rel, narrow, wide)):
+        setattr(engine.packing, f"pack_{k}", fn)
     try:
         yield seen
     finally:
         for k, v in zip(names, saved):
             setattr(engine, k, v)
         (engine._StagedSide.get, engine._BlockEngine.prepare,
-         engine._dispatch_stream_staged, engine.kernels.counters) = real
+         engine._dispatch_stream_staged, engine.kernels.counters,
+         diffup.DiffUploader.encode, engine._BlockEngine.block) = real
+        for k, fn in zip(packs, real_packs):
+            setattr(engine.packing, f"pack_{k}", fn)
+
+
+def check_packs(tag: str, seen: dict, mode: str) -> None:
+    """The run dispatched packed blocks at exactly the positions and masks
+    of ``ooc_blocks(mode)``, and launched K2 and K4 only where phase 2
+    held them against their plain versions (CHECKED_PACKS)."""
+    blocks = ooc_blocks(mode)
+    check(seen["blocks"] == blocks,
+          f"{tag}: packed blocks differ from the layout's at"
+          f" {sorted(map(str, seen['blocks'] ^ blocks))[:6]}")
+    unchecked = seen["packs"] - CHECKED_PACKS
+    check(seen["packs"] and not unchecked,
+          f"{tag}: K2/K4 launches phase 2 did not check:"
+          f" {sorted(map(str, unchecked))[:6]}")
+    print(f"{tag}: {len(blocks)} packed block positions, the layout's; K2/K4"
+          f" launched at {len(seen['packs'])} (rung, shape, mask) keys, each"
+          f" held against its plain version in phase 2")
 
 
 def check_layout(tag: str, groups: list, spans: list, min_groups: int):
@@ -1229,12 +1575,16 @@ def check_layout(tag: str, groups: list, spans: list, min_groups: int):
 
 
 def ooc_cli(tag: str, args: list, mode: str, in_core_sha: str,
-            min_groups: int = 3) -> dict:
+            min_groups: int = 3, packed: bool = True) -> dict:
     """One CLI run out of core (budgets and tiles ``OOC[mode]``), checked
     and then profiled: its layout, its kernel launch shapes against those
-    phase 2 holds against the plain version (``OOC_LAUNCHES[mode]``), its
-    TSV's sha256 against the in-core run's, its peak device memory
-    against the budget.  Returns the launch counts of the checked run."""
+    phase 2 holds against the plain version (``OOC_LAUNCHES[mode]``: the
+    blocks alone when not ``packed``, which runs without a reference row
+    and so without baselines), its TSV's sha256 against the in-core
+    run's, its peak device memory against the budget, its launches by
+    rung, the host diff encodes of each super-row against its stagings,
+    and the K1 time by CUDA events.  Returns the launch counts of the
+    checked run."""
     spec = OOC[mode]
     import torch
 
@@ -1244,25 +1594,45 @@ def ooc_cli(tag: str, args: list, mode: str, in_core_sha: str,
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         wall, counts = run_cli(tag, args)
+        torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
+    k1_ms = sum(a.elapsed_time(b) for a, b in seen["k1_events"])
     groups = seen["groups"] or seen["x_rows"]
     rows = check_layout(tag, groups, seen["spans"], min_groups)
     l_pad = -(-L_BENCH // 128) * 128
-    want = {(m, n, l_pad) for m, n in OOC_LAUNCHES[mode]}
+    want = {(m, n, l_pad) for m, n in OOC_LAUNCHES[mode]
+            if packed or 1 not in (m, n)}
     check(seen["launch_shapes"] == want,
           f"{tag}: launch shapes {sorted(seen['launch_shapes'])}, phase 2"
           f" checked {sorted(want)}")
+    check_packs(tag, seen, mode)
     check(peak <= spec[0], f"{tag}: peak device memory {peak} B over the"
                            f" budget {spec[0]} B")
     check(sha256(out) == in_core_sha, f"{tag}: TSV differs from in core")
-    check(counts["counters"] == counts["blocks"]["none"],
-          f"{tag}: out of core launched {counts}, expected int32 blocks only")
+    b = counts["blocks"]
+    if packed:
+        check(b["rel4"] >= 1 and b["none"] == 0 and counts["baselines"] >= 3
+              and counts["diff_rebuild"] >= 1,
+              f"{tag}: launches {counts}, expected packed blocks and diffs")
+        # each super-row is encoded once however often it is staged (the
+        # X groups' uploads are encoded apart)
+        check(set(seen["encodes"].values()) == {1}
+              and set(seen["encodes"]) == set(seen["spans"]),
+              f"{tag}: host encodes per super-row {seen['encodes']}")
+    else:
+        check(b["narrow"] >= 1 and b["rel4"] == b["rel"] == b["none"] == 0
+              and counts["baselines"] == counts["diff_rebuild"] == 0,
+              f"{tag}: launches {counts}, expected narrow -> wide")
+    check_launches(tag, counts)
+    encodes = sum(seen["encodes"].values())
     print(f"{tag} out of core: wall {wall:.3f} s,"
-          f" {counts['counters']} K1 launches,"
-          f" groups {groups}, super-rows {[q1 - q0 for q0, q1 in rows]},"
-          f" {seen['stagings']} stagings of {len(seen['spans'])} super-row"
-          f" sweeps, peak device memory {peak} B <= budget {spec[0]} B;"
-          f" TSV sha256 equals the in-core run's ({gpu_line()})")
+          f" {counts['counters']} K1 launches taking {k1_ms:.3f} ms by CUDA"
+          f" events, groups {groups}, super-rows"
+          f" {[q1 - q0 for q0, q1 in rows]}, {seen['stagings']} stagings of"
+          f" {len(seen['spans'])} super-row sweeps, {encodes} of them"
+          f" diff-encoded on the host (the rest kept encodings), peak device"
+          f" memory {peak} B <= budget {spec[0]} B; TSV sha256 equals the"
+          f" in-core run's ({gpu_line()})")
     with out_of_core(*spec):
         profiled_run(tag, args)
     return counts
@@ -1282,9 +1652,13 @@ def phase_out_of_core(shas: dict) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         fasta = os.path.join(tmp, "bench.fasta")
         write_fasta(fasta, make_alignment(N_BENCH, L_BENCH, SEED))
-        launches["square-ooc"] = ooc_cli(
-            "[9] square", [fasta, "-o", os.path.join(tmp, "ooc.tsv")],
-            "square", shas["square"])
+        args = [fasta, "-o", os.path.join(tmp, "ooc.tsv")]
+        launches["square-ooc"] = ooc_cli("[9] square", args, "square",
+                                         shas["square"])
+        with dense_no_ref():
+            launches["square-ooc-dense"] = ooc_cli(
+                "[9] square, dense, no reference row", args, "square",
+                shas["square"], packed=False)
     with tempfile.TemporaryDirectory() as tmp:
         n1, n2 = N_RECT
         *_, f1, f2 = write_inputs(tmp, "[9]", n1, n2, SEED + 3, "b")
@@ -1450,15 +1824,21 @@ def phase_multiprocess(shas: dict) -> int:
             wall1, c_staged = run_cli(
                 "[10] shard 1/2", args + ["--shard", "1/2", "-o", parts[1]])
         n_staged = c_staged["counters"]
-        want = {(m, n, l_pad) for m, n in SHARD_STAGED_LAUNCHES}
+        want = {(m, n, l_pad)
+                for m, n in SHARD_STAGED_LAUNCHES + SHARD_STAGED_BASELINES}
         spans = sorted(set(seen["spans"]))
+        blocks = c_staged["blocks"]
         check(seen["groups"] == [STREAM_GROUPS[1]]
               and [q1 - q0 for q0, q1 in spans] == [m for m, _ in
                                                     SHARD_STAGED_LAUNCHES]
-              and seen["launch_shapes"] == want and n_staged == 2,
+              and seen["launch_shapes"] == want
+              and blocks["rel4"] == 2 and c_staged["baselines"] == 4,
               f"shard 1/2: groups {seen['groups']}, super-rows {spans},"
-              f" launch shapes {sorted(seen['launch_shapes'])}, {n_staged}"
-              " launches; expected one staged group against two super-rows")
+              f" launch shapes {sorted(seen['launch_shapes'])}, launches"
+              f" {c_staged}; expected one staged group against two"
+              " super-rows at rel4, and 4 baselines")
+        check_launches("[10] shard 1/2", c_staged)
+        check_packs("[10] shard 1/2", seen, "stream-shard-staged")
         units = []
         for p in parts:
             with open(p + ".units") as f:
@@ -1478,7 +1858,8 @@ def phase_multiprocess(shas: dict) -> int:
               f" shard 0/2 in core {wall0:.3f} s ({n_in_core} K1 block launches,"
               f" groups 0 and 2), shard 1/2 staged under"
               f" {SHARD_STAGED[0]} B {wall1:.3f} s ({n_staged} K1 launches:"
-              f" group 1 against super-rows {[q1 - q0 for q0, q1 in spans]});"
+              f" group 1 against super-rows {[q1 - q0 for q0, q1 in spans]}"
+              f" and 4 baselines);"
               f" --merge {merge_wall:.3f} s; sha256 equals phase 7's ({card})")
         for part in parts:
             os.remove(part)
@@ -1543,37 +1924,63 @@ def phase_multiprocess(shas: dict) -> int:
 
 
 def phase_ladder(tmp: str) -> dict:
-    """A diverse alignment: N_LADDER records of random bases over the bench
-    width, 0.5% N.  Residuals against any reference row pass the nibble
-    and the int8 ranges, so each block of the square walks the pack
-    ladder rel4 -> rel -> int32, and a kernel launch is made at each
-    rung; line count and 1200 random rows against the host oracle.
-    Returns the launch counts."""
-    from distance_tpu_torch import measures
+    """Diverse alignments, random bases with 0.5% N, whose residuals
+    against any reference row pass the nibble and the int8 ranges: the
+    square of N_LADDER records at the bench width walks the pack ladder
+    rel4 -> rel -> wide, the same without a reference row narrow -> wide
+    (its lanes saturate), and a square past 2^16 sites
+    (``LADDER_UNPACKED``), where no 16-bit field holds a counter, rel4 ->
+    rel -> int32; a kernel launch is made at each rung.  Line count and
+    1200 random rows against the host oracle each.  Returns the kernel
+    launches of the three runs together."""
     from distance_tpu_torch.encoding import A, C, G, N, T
-    from distance_tpu_torch.writer import format_float
 
     rng = np.random.default_rng(SEED + 10)
-    mat = rng.choice(np.array([A, C, G, T], dtype=np.uint8),
-                     size=(N_LADDER, L_BENCH))
-    mat[rng.random(mat.shape) < 0.005] = N
+
+    def diverse(n, width):
+        mat = rng.choice(np.array([A, C, G, T], dtype=np.uint8),
+                         size=(n, width))
+        mat[rng.random(mat.shape) < 0.005] = N
+        return mat
+
+    mat = diverse(N_LADDER, L_BENCH)
+    runs = [("[11]", mat, ("rel4", "rel", "wide")),
+            ("[11] no reference row", mat, ("narrow", "wide")),
+            (f"[11] {LADDER_UNPACKED[1]} sites", diverse(*LADDER_UNPACKED),
+             ("rel4", "rel", "none"))]
+    total = dict.fromkeys(KERNELS, 0)
+    for tag, m, rungs in runs:
+        with (dense_no_ref() if "rel4" not in rungs
+              else contextlib.nullcontext()):
+            counts = ladder_square(tmp, tag, m, rungs, rng)
+        for k in KERNELS:
+            total[k] += counts[k]
+    return total
+
+
+def ladder_square(tmp: str, tag: str, mat: np.ndarray, rungs: tuple,
+                  rng) -> dict:
+    """The square of ``mat``: every block first dispatched at ``rungs[0]``
+    and refetched at each later rung, no other rung used; line count and
+    1200 random rows.  Returns the launch counts."""
+    from distance_tpu_torch import measures
+    from distance_tpu_torch.writer import format_float
+
     fasta = os.path.join(tmp, "diverse.fasta")
     out = os.path.join(tmp, "diverse.tsv")
     ids = write_fasta(fasta, mat)
-    wall, counts = run_cli("[11]", [fasta, "-o", out])
+    wall, counts = run_cli(tag, [fasta, "-o", out])
     b = counts["blocks"]
-    check(b["rel4"] >= 1 and b["rel"] == b["rel4"] and b["none"] == b["rel"]
-          and counts["pack_rel4"] == b["rel4"]
-          and counts["pack_rel"] == b["rel"]
-          and counts["counters"] == sum(b.values()) + counts["baselines"],
-          f"[11] launches {counts}: expected every block at each rung")
-    n = N_LADDER
+    check(b[rungs[0]] >= 1
+          and all(b[r] == b[rungs[0]] for r in rungs)
+          and not any(v for r, v in b.items() if r not in rungs),
+          f"{tag} launches {counts}: expected every block at {rungs}")
+    check_launches(tag, counts)
+    n = mat.shape[0]
     pairs = n * (n - 1) // 2
-    print(f"[11] diverse square {n} x {L_BENCH}: {pairs} pairs in {wall:.3f}"
-          f" s; K1 block launches by rung: rel4 {b['rel4']}, rel {b['rel']},"
-          f" int32 {b['none']}, and {counts['baselines']} baselines; K2"
-          f" launches: rel4 {counts['pack_rel4']}, rel {counts['pack_rel']};"
-          f" K3 {counts['diff_rebuild']} ({gpu_line()})")
+    print(f"{tag} diverse square {n} x {mat.shape[1]}: {pairs} pairs in"
+          f" {wall:.3f} s; blocks by rung {' -> '.join(rungs)}:"
+          f" {[b[r] for r in rungs]} ({gpu_line()})")
     data, nl = read_tsv(out, 1 + pairs)
     ii = rng.integers(0, n - 1, size=SAMPLES)
     jj = ii + 1 + (rng.random(SAMPLES) * (n - 1 - ii)).astype(np.int64)
@@ -1581,9 +1988,9 @@ def phase_ladder(tmp: str) -> dict:
         k = 1 + i * (2 * n - i - 1) // 2 + (j - i - 1)
         want = (f"{ids[i]}\t{ids[j]}\t"
                 f"{format_float(measures.raw(mat[i], mat[j]))}")
-        check(tsv_line(data, nl, k) == want, f"[11] row ({i}, {j}):"
+        check(tsv_line(data, nl, k) == want, f"{tag} row ({i}, {j}):"
               f" {tsv_line(data, nl, k)!r} != {want!r}")
-    print(f"[11] {1 + pairs} lines; {SAMPLES} random rows equal the host"
+    print(f"{tag} {1 + pairs} lines; {SAMPLES} random rows equal the host"
           " oracle")
     return counts
 
@@ -1627,7 +2034,8 @@ def measure_mode() -> None:
 
 def measure_out_of_core() -> None:
     """Phase 9's three runs in core and out of core, one after the other,
-    for each measure: their walls side by side."""
+    for each measure: their walls side by side, and out of core the K1
+    launches (blocks and baselines) with their time by CUDA events."""
     from distance_tpu_torch.measures import MEASURES
 
     def inputs(tmp, mode):
@@ -1652,16 +2060,23 @@ def measure_out_of_core() -> None:
                 with out_of_core(*spec) as seen:
                     ooc, n = run_cli(f"[m] {mode} {measure} out of core",
                                      args, measure)
-                check(bool(seen["spans"]), f"{mode} {measure} stayed in core")
+                if not seen["spans"]:
+                    print(f"[m] {mode} {measure}: stayed in core under"
+                          f" {spec[0]} B")
+                    continue
+                k1_ms = sum(a.elapsed_time(b) for a, b in seen["k1_events"])
                 print(f"[m] {mode} {measure}: {pairs} pairs, in core"
                       f" {ic:.3f} s, out of core {ooc:.3f} s"
-                      f" ({ooc / ic:.3f} x, {n['counters']} K1 launches)"
-                      f" ({gpu_line()})")
+                      f" ({ooc / ic:.3f} x, {n['counters']} K1 launches ="
+                      f" {sum(n['blocks'].values())} blocks +"
+                      f" {n['baselines']} baselines, {k1_ms:.3f} ms by CUDA"
+                      f" events) ({gpu_line()})")
 
 
 def main(argv: list) -> int:
-    if argv not in ([], ["--measure"]):
-        print("usage: chip_smoke.py [--measure]", file=sys.stderr)
+    if argv not in ([], ["--measure"], ["--measure-ooc"]):
+        print("usage: chip_smoke.py [--measure | --measure-ooc]",
+              file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "distance_tpu_torch")):
@@ -1676,7 +2091,7 @@ def main(argv: list) -> int:
     t_start = time.perf_counter()
     card = phase_environment()
     if argv:
-        measure_mode()
+        measure_mode() if argv == ["--measure"] else measure_out_of_core()
         print(f"chip_smoke --measure: done in"
               f" {time.perf_counter() - t_start:.1f} s")
         print(card)
@@ -1689,7 +2104,8 @@ def main(argv: list) -> int:
     max_err_pack = phase_pack_and_rebuild(bench)
     launches, shas = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        launches["square"], shas["square"] = phase_main_path(tmp, bench)
+        (launches["square"], launches["square-dense"],
+         shas["square"]) = phase_main_path(tmp, bench)
     with tempfile.TemporaryDirectory() as tmp:
         phase_six_measures(tmp, bench)
     (ms, plain_ms, bound, library_ms, bound_by), err = phase_timing(bench)
@@ -1718,6 +2134,10 @@ def main(argv: list) -> int:
                       "distance_tpu/ops/packing.py:189", max_err_pack),
         "pack_rel": ("distance_tpu_torch/csrc/packing.cu",
                      "distance_tpu/ops/packing.py:141", max_err_pack),
+        "pack_narrow": ("distance_tpu_torch/csrc/packing.cu",
+                        "distance_tpu/ops/packing.py:98", max_err_pack),
+        "pack_wide": ("distance_tpu_torch/csrc/packing.cu",
+                      "distance_tpu/ops/packing.py:49", max_err_pack),
         "diff_rebuild": ("distance_tpu_torch/csrc/diffup.cu",
                          "distance_tpu/ops/diffup.py:74", max_err_pack),
     }

@@ -1,5 +1,26 @@
-// Rank-1 residual packing for Hopper (sm_90a): the rel4 and rel packs of
-// the counters before they leave the card.
+// Counter packing for Hopper (sm_90a): the packs of the counters before
+// they leave the card.  Two families, in two parts of this file.
+//
+// K4, the narrow and wide packs.  Replaces pack_device_narrow
+// (distance_tpu/ops/packing.py:98) and pack_device (:49), which XLA fused
+// into the JAX engine's block and stream functions at widths below 2^16
+// sites.  From (G, m, n) int32 counters c, G = 1, 2, 3 or 4 for the
+// measures n/n_high, raw/jc69, k80 and tn93 (G fixes the form):
+// - narrow: (G, m, n) int8 lanes, each min(v, 255) cast to uint8 (255 =
+//   saturated; numpy's astype wraps a negative v, and so does the cast
+//   here), of v = [c0] (n), [c0, w - (c0 + c1)] (raw), [w - (c0 + c1 +
+//   c2), c1, c2] (k80), [w - c1, c1 - c0, c2, c3] (tn93), w the width;
+// - wide: the unsigned bit patterns, in signed types: (1, m, n) int16 c0
+//   (n), (1, m, n) int32 c0 << 16 | c1 (raw), (2, m, n) int32 [c0 << 16 |
+//   c1, c2] (k80) and [c0 << 16 | c1, c2 << 16 | c3] (tn93).
+// Arithmetic wraps as numpy's int32 and uint32 do (it is done unsigned).
+// Bound: bytes, the counters read once (4 G m n B) and the lanes written
+// once (G m n B narrow; 2 m n or 4 P m n B wide), a handful of integer
+// operations a pair.  Design, simple first: a grid-stride loop, one
+// thread a pair (cell), which reads its G counters (neighbouring threads
+// read neighbouring words of each counter plane) and writes its lanes.
+//
+// Rank-1 residual packing, the rel4 and rel packs (K2).
 //
 // Replaces the device half of distance_tpu/ops/packing.py: pack_device_rel4
 // (packing.py:189) and pack_device_rel (:141), which XLA fused into the
@@ -140,6 +161,61 @@ __global__ void rel_lanes(Block b, long long cells, int8_t* lanes) {
   }
 }
 
+// numpy's minimum(v, 255).astype(uint8): the cast keeps the low byte.
+__device__ __forceinline__ int8_t sat8(uint32_t v) {
+  return (int8_t)(uint8_t)((int32_t)v < 255 ? v : 255u);
+}
+
+// A 32-bit word of two 16-bit fields: hi << 16 | lo, as numpy's uint32.
+__device__ __forceinline__ int32_t word(uint32_t hi, uint32_t lo) {
+  return (int32_t)((hi << 16) | lo);
+}
+
+template <int G>
+__global__ void narrow_lanes(const int32_t* __restrict__ c, long long cells,
+                             uint32_t w, int8_t* __restrict__ out) {
+  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       k < cells; k += (long long)gridDim.x * blockDim.x) {
+    uint32_t v[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) v[g] = (uint32_t)c[g * cells + k];
+    if (G == 1) {
+      out[k] = sat8(v[0]);
+    } else if (G == 2) {
+      out[k] = sat8(v[0]);
+      out[cells + k] = sat8(w - (v[0] + v[1 % G]));
+    } else if (G == 3) {
+      out[k] = sat8(w - (v[0] + v[1 % G] + v[2 % G]));
+      out[cells + k] = sat8(v[1 % G]);
+      out[2 * cells + k] = sat8(v[2 % G]);
+    } else {
+      out[k] = sat8(w - v[1 % G]);
+      out[cells + k] = sat8(v[1 % G] - v[0]);
+      out[2 * cells + k] = sat8(v[2 % G]);
+      out[3 * cells + k] = sat8(v[3 % G]);
+    }
+  }
+}
+
+template <int G>
+__global__ void wide_words(const int32_t* __restrict__ c, long long cells,
+                           void* __restrict__ out) {
+  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       k < cells; k += (long long)gridDim.x * blockDim.x) {
+    uint32_t v[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) v[g] = (uint32_t)c[g * cells + k];
+    if (G == 1) {
+      static_cast<int16_t*>(out)[k] = (int16_t)(uint16_t)v[0];
+    } else {
+      int32_t* o = static_cast<int32_t*>(out);
+      o[k] = word(v[0], v[1 % G]);
+      if (G == 3) o[cells + k] = (int32_t)v[2 % G];
+      if (G == 4) o[cells + k] = word(v[2 % G], v[3 % G]);
+    }
+  }
+}
+
 unsigned grid_for(long long work) {
   const long long blocks = (work + THREADS - 1) / THREADS;
   return (unsigned)(blocks < MAX_BLOCKS ? (blocks > 0 ? blocks : 1)
@@ -202,5 +278,44 @@ extern "C" int dt_pack_rel_launch(const void* c, const void* rb,
     rel_lanes<<<grid_for(cells), THREADS, 0, static_cast<cudaStream_t>(
                                                   stream)>>>(
         b, cells, static_cast<int8_t*>(lanes));
+  return (int)cudaGetLastError();
+}
+
+// Narrow pack of c (g, cells) int32, contiguous on the device, at `width`
+// sites: out (g, cells) int8, g = 1 to 4 the measure's counters.  Launches
+// on `stream` and returns cudaGetLastError(), or cudaErrorInvalidValue for
+// a g outside 1-4 or a negative cell count.
+extern "C" int dt_pack_narrow_launch(const void* c, long long g,
+                                     long long cells, long long width,
+                                     void* out, void* stream) {
+  if (g < 1 || g > 4 || cells < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* cp = static_cast<const int32_t*>(c);
+  int8_t* op = static_cast<int8_t*>(out);
+  const uint32_t w = (uint32_t)width;
+  const unsigned grid = grid_for(cells);
+  if (cells) {
+    if (g == 1) narrow_lanes<1><<<grid, THREADS, 0, st>>>(cp, cells, w, op);
+    if (g == 2) narrow_lanes<2><<<grid, THREADS, 0, st>>>(cp, cells, w, op);
+    if (g == 3) narrow_lanes<3><<<grid, THREADS, 0, st>>>(cp, cells, w, op);
+    if (g == 4) narrow_lanes<4><<<grid, THREADS, 0, st>>>(cp, cells, w, op);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Wide pack of c (g, cells) int32: out (1, cells) int16 for g = 1, else
+// ((g + 1) / 2, cells) int32.  Returns as dt_pack_narrow_launch does.
+extern "C" int dt_pack_wide_launch(const void* c, long long g,
+                                   long long cells, void* out, void* stream) {
+  if (g < 1 || g > 4 || cells < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* cp = static_cast<const int32_t*>(c);
+  const unsigned grid = grid_for(cells);
+  if (cells) {
+    if (g == 1) wide_words<1><<<grid, THREADS, 0, st>>>(cp, cells, out);
+    if (g == 2) wide_words<2><<<grid, THREADS, 0, st>>>(cp, cells, out);
+    if (g == 3) wide_words<3><<<grid, THREADS, 0, st>>>(cp, cells, out);
+    if (g == 4) wide_words<4><<<grid, THREADS, 0, st>>>(cp, cells, out);
+  }
   return (int)cudaGetLastError();
 }

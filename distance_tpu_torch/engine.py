@@ -11,14 +11,16 @@ against one loaded alignment.  The loaded sweeps in core:
   (``ops/diffup.py``) expands there, or dense through pinned memory when
   the diffs do not win;
 * per strip of ``ti`` rows, one counter kernel launch per ``tj``-column
-  block (``ops/counters.py``), each block packed against K1 baselines of
-  the reference row by the pack kernel (``ops/packing.py``: rel4 nibbles
-  with an exception sidecar, or int8 rel), concatenated on the device
-  with one sidecar bundle per strip;
+  block (``ops/counters.py``), each block packed by the pack kernel
+  (``ops/packing.py``): against K1 baselines of the reference row (rel4
+  nibbles with an exception sidecar, or int8 rel), or below 2^16 sites
+  into saturating 8-bit lanes (narrow) or 16-bit fields (wide), and
+  concatenated on the device with one sidecar bundle per strip;
 * copy each strip into pinned host memory, asynchronously, with at most
   ``STRIP_LOOKAHEAD`` strips in flight, and finish the counters on the
   host; a saturated strip is dispatched again at the next rung of the
-  pack ladder (rel4 -> rel -> int32);
+  pack ladder (the JAX engine's: rel4 -> rel -> narrow/wide below 2^16
+  sites, rel4 -> rel -> int32 above);
 * finalize and emit the upper triangle (square) or the full file1 x file2
   block in row-major order (rectangle) on the host.
 
@@ -29,8 +31,8 @@ and one pack per group (see there).  A run whose device footprint passes
 the device budget (``_device_budget``) goes out of core: the loaded
 sweeps stage row groups and super-rows through the device
 (``_sweep_blocked``), and the stream sweeps a host-resident loaded side
-in super-rows per group (the staged stream); out of core, the counters
-travel unpacked as int32 and the codes dense.  A sharded stream (``-s``
+in super-rows per group (the staged stream), diff-encoded (each
+super-row encoded once a run) and packed as in core.  A sharded stream (``-s``
 with ``--shard K/N``) runs every N-th group and indexes its units in a
 ``.units`` sidecar, which ``parallel/multihost.merge_parts`` interleaves
 into the unsharded file.  The knobs of KNOB_ENV follow the JAX CLI's
@@ -478,19 +480,19 @@ def _device_budget(device: torch.device,
 # cc) made by engines in this process, and the counter blocks dispatched
 # at each rung of the pack ladder (first dispatches and refetches alike).
 BASELINES = 0
-RUNG_BLOCKS = {"rel4": 0, "rel": 0, "none": 0}
+RUNG_BLOCKS = {"rel4": 0, "rel": 0, "narrow": 0, "wide": 0, "none": 0}
 
 
 class _BlockEngine:
     """Counter blocks for (strip, block) tile pairs on one torch device.
 
-    With ``rel`` (the in-core sweeps and stream) ``prepare`` picks a
-    reference row and the blocks leave the device packed: the ladder
-    rel4 -> (saturations) -> rel -> (saturations) -> none of the JAX
-    engine at unpacked widths (``pack_mode``), each residual pack against
-    K1 baselines computed once per prepared matrix.  Without it every
-    block is int32 counters (the out-of-core sweeps and the staged
-    stream).  ``prepare(diff_ref=...)`` sends codes diff-encoded.
+    Blocks leave the device packed, on the JAX engine's ladder
+    (``pack_mode``): with ``rel`` ``prepare`` picks a reference row, and
+    blocks go rel4 -> (saturations) -> rel, each residual pack against K1
+    baselines computed once per prepared matrix; then, at a ``width`` of
+    fewer than 2^16 sites (``packed``), narrow -> (saturations) -> wide,
+    else int32 counters ("none").  ``prepare(diff_ref=...)`` sends codes
+    diff-encoded.
     """
 
     def __init__(self, measure: str, device: torch.device, ti: int,
@@ -502,6 +504,7 @@ class _BlockEngine:
         self.ti = ti
         self.width = width
         self.rel = rel
+        self.packed = 0 < width < packing.PACK_LIMIT
         # Diff-encoded uploads: set by prepare(diff_ref=), swapped by a
         # stream retarget; the identity of the diff_ref array the
         # uploader was built from, so that prepares sharing one reuse it
@@ -509,7 +512,8 @@ class _BlockEngine:
         self._diff_ref_src = None
         # The reference row of the rel baselines, on the device
         self.rel_ref: Optional[torch.Tensor] = None
-        # Consecutive saturated fetches at the rel4 and rel rungs
+        # Consecutive saturated fetches at the narrow, rel4 and rel rungs
+        self._overflow_streak = 0
         self._rel_overflow_streak = 0
         self._rel4_overflow_streak = 0
         # Retargeting of the stream diff reference (see dispatch_stream)
@@ -524,7 +528,8 @@ class _BlockEngine:
         self._bases: Dict[tuple, tuple] = {}
 
     def prepare(self, matrix: np.ndarray, max_block: int,
-                diff_ref: Optional[np.ndarray] = None) -> torch.Tensor:
+                diff_ref: Optional[np.ndarray] = None,
+                h2d_memo: Optional[dict] = None) -> torch.Tensor:
         """Pad and upload a sequence matrix once.
 
         Rows are padded so that every strip and block slice of up to
@@ -538,11 +543,24 @@ class _BlockEngine:
         it.  A dense upload goes through pinned memory.  An engine with
         ``rel`` also sets the reference row of its baselines: the diff
         reference, else a row sample's per-column mode; none under
-        DISTANCE_TPU_NO_REL_PACK."""
+        DISTANCE_TPU_NO_REL_PACK.
+
+        ``h2d_memo``: a dict the out-of-core sweeps keep for one staged
+        super-row across X groups (the JAX engine's): the first prepare
+        stores the diff encoding (or its refusal), and a later one with
+        the same uploader (a stream retarget swaps it) and the same padded
+        rows skips the pad, compare and extract passes on the host."""
         n, width = matrix.shape
         n_pad, l_pad = _padded_shape(n, width, self.ti, max_block)
-        padded = np.zeros((n_pad, l_pad), dtype=np.uint8)
-        padded[:n, :width] = matrix
+        padded = None
+
+        def _padded() -> np.ndarray:
+            nonlocal padded
+            if padded is None:
+                padded = np.zeros((n_pad, l_pad), dtype=np.uint8)
+                padded[:n, :width] = matrix
+            return padded
+
         if diff_ref is not None and not (
             self.diff_up is not None
             and self._diff_ref_src is diff_ref
@@ -552,12 +570,21 @@ class _BlockEngine:
             refp[:width] = diff_ref
             self.diff_up = DiffUploader(refp, self.device)
             self._diff_ref_src = diff_ref
-        enc = (self.diff_up.encode(padded, n_real=n)
-               if self.diff_up is not None else None)
+        enc = None
+        if self.diff_up is not None:
+            if (h2d_memo is not None
+                    and h2d_memo.get("up") is self.diff_up
+                    and h2d_memo.get("n_pad") == n_pad):
+                enc = h2d_memo["enc"]
+            else:
+                enc = self.diff_up.encode(_padded(), n_real=n)
+                if h2d_memo is not None:
+                    h2d_memo.clear()
+                    h2d_memo.update(up=self.diff_up, n_pad=n_pad, enc=enc)
         if enc is not None:
             dev = self.diff_up.upload_encoded(enc, n_pad)
         else:
-            dev = to_device(padded, self.device)
+            dev = to_device(_padded(), self.device)
         if (self.rel and width > 0 and n
                 and not _os.environ.get("DISTANCE_TPU_NO_REL_PACK")):
             if self.diff_up is not None:
@@ -604,9 +631,10 @@ class _BlockEngine:
               ti: int, tj: int, mode: str = "none", nv=None, diag_off=None,
               ref: Optional[torch.Tensor] = None):
         """One (ti, tj) block of rows i0.. of ``m1`` against rows j0.. of
-        ``m2``: (G, ti, tj) int32 counters under ``mode`` "none"; else
-        (lanes, cb, rb_cc[, exc_idx, exc_val]) packed against ``ref``
-        (the engine's reference row by default).  ``nv`` = (valid rows
+        ``m2``: (G, ti, tj) int32 counters under ``mode`` "none", their
+        narrow lanes or wide words under "narrow" and "wide"; else (lanes,
+        cb, rb_cc[, exc_idx, exc_val]) packed against ``ref`` (the
+        engine's reference row by default).  ``nv`` = (valid rows
         of m1, of m2): the rel4 pack zeroes padding cells so they cannot
         flood the exception sidecar.  ``diag_off`` (sweeps over one
         source): m1's row offset minus m2's, for masking self-pairs;
@@ -620,6 +648,10 @@ class _BlockEngine:
         c = kernels.counters(m1[i0 : i0 + ti], m2[j0 : j0 + tj], self.kplan)
         if mode == "none":
             return c
+        if mode == "narrow":
+            return packing.pack_narrow(self.measure, c, self.width)
+        if mode == "wide":
+            return packing.pack_wide(self.measure, c)
         if ref is None:
             ref = self.rel_ref
         rb = self._baseline(m1, ref, "row")[:, i0 : i0 + ti]
@@ -633,11 +665,11 @@ class _BlockEngine:
             return lanes, cb, rb_cc, exc_idx, exc_val
         return packing.pack_rel(c, rb, cb, cc, i0, j0, diag_off), cb, rb_cc
 
-    def dispatch_stream(self, m1: torch.Tensor, padded: np.ndarray,
+    def dispatch_stream(self, padded: np.ndarray,
                         send_dense) -> Tuple[torch.Tensor, object]:
-        """One stream group's codes on the device, against the loaded codes
-        ``m1``: diff-encoded when the batch is low-diversity, else by
-        ``send_dense()`` (the group's pinned dense send).  Returns the
+        """One stream group's codes on the device: diff-encoded when the
+        batch is low-diversity, else by ``send_dense()`` (the group's
+        pinned dense send).  Returns the
         codes and the reference row of the group's baselines.  The diffs
         are weighed against the dense bytes of the group's own rows (the
         JAX engine pads a group to its full size first).
@@ -700,13 +732,24 @@ class _BlockEngine:
 
     @property
     def pack_mode(self) -> str:
-        """Escalation ladder: rel4 (4-bit residuals) -> (saturations) ->
-        rel (int8) -> (saturations) -> none (int32 counters)."""
+        """Escalation ladder: rel4 (4-bit residuals, half of every other
+        rung's bytes) -> (saturations) -> rel -> (saturations) ->
+        narrow/wide (packed widths) or none (>= 2^16 sites, where 16-bit
+        lanes can't hold the counters).  Without a reference row the
+        ladder is the historical narrow -> (saturations) -> wide."""
         if self._rel4_usable:
             return "rel4"
         if self._rel_usable:
             return "rel"
-        return "none"
+        if not self.packed:
+            return "none"
+        if self._overflow_streak >= NARROW_STICKY_LIMIT:
+            return "wide"
+        return "narrow"
+
+    def note_narrow(self, overflowed: bool) -> None:
+        """Record a narrow-fetch outcome (drives the sticky escalation)."""
+        self._overflow_streak = self._overflow_streak + 1 if overflowed else 0
 
     def note_rel(self, saturated: bool) -> None:
         self._rel_overflow_streak = (
@@ -717,6 +760,25 @@ class _BlockEngine:
         self._rel4_overflow_streak = (
             self._rel4_overflow_streak + 1 if saturated else 0
         )
+
+    def baselines_of(self, handle: torch.Tensor) -> list:
+        """The baselines kept for a prepared matrix: (side, reference
+        row, baseline) each, for ``keep_baselines`` of its next upload."""
+        return [(side, *self._bases[(id(handle), side)][1:])
+                for side in ("row", "col") if (id(handle), side) in self._bases]
+
+    def keep_baselines(self, handle: torch.Tensor, kept: list) -> None:
+        """Give a prepared matrix the baselines ``baselines_of`` took from
+        an earlier upload of the same rows; each serves while the
+        reference row is the one it was computed against."""
+        for side, ref, value in kept:
+            self._bases[(id(handle), side)] = (handle, ref, value)
+
+    def adopt(self, handle: torch.Tensor) -> None:
+        """Keep the baselines of codes that ``prepare`` did not upload (a
+        staged stream group swept against several super-rows) until
+        ``release``."""
+        self._prepared[id(handle)] = handle
 
     def release(self, handle: torch.Tensor) -> None:
         """Free a prepared matrix's memory now rather than when its last
@@ -734,8 +796,9 @@ def _dispatch_strip(eng: _BlockEngine, m1, m2, i0: int, col_starts, ti, tj,
                     mode: Optional[str] = None, nv=None, diag_off=None,
                     ref: Optional[torch.Tensor] = None):
     """Launch every column block of one strip at ``mode`` (the engine's
-    ladder by default) and concatenate them on the device: one (G, ti,
-    span) int32 strip, or under rel packing (lanes, bundle): lanes
+    ladder by default) and concatenate them on the device along columns:
+    one (P, ti, span) strip of int32 counters, narrow lanes or wide words,
+    or under rel packing (lanes, bundle): lanes
     concatenated along columns, and one sidecar bundle of the column
     baselines (concatenated), the strip-constant row baselines with the
     self-counter, and under rel4 the blocks' sidecars stacked to (B,
@@ -745,7 +808,7 @@ def _dispatch_strip(eng: _BlockEngine, m1, m2, i0: int, col_starts, ti, tj,
         mode = eng.mode_for(tj)
     handles = [eng.block(m1, m2, i0, j0, ti, tj, mode, nv, diag_off, ref)
                for j0 in col_starts]
-    if mode == "none":
+    if mode not in ("rel4", "rel"):
         return torch.cat(handles, dim=-1) if len(handles) > 1 else handles[0]
     lanes = torch.cat([h[0] for h in handles], dim=-1)
     cb = torch.cat([h[1] for h in handles], dim=-1)
@@ -797,32 +860,48 @@ def _fetch_strip(eng: _BlockEngine, handle: _AsyncFetch, valid_rows: int,
 
 def _finish_fetched(eng: _BlockEngine, arr, vr: int, vc: int,
                     redispatch) -> np.ndarray:
-    """Unpack a fetched strip (the JAX ``_finish_fetched`` at unpacked
-    widths): a rel-family pair reconstructs through ``_unpack_rel_parts``
-    and, on a saturation, takes the refetch ladder; int32 counters are
-    cropped."""
+    """Unpack a fetched strip (the JAX ``_finish_fetched``): a rel-family
+    pair reconstructs through ``_unpack_rel_parts`` and, on a saturation,
+    takes the refetch ladder; a single array is cropped first (padding
+    rows saturate narrow lanes by construction), then at packed widths
+    unpacked (its dtype says how it was packed at dispatch: int8 is
+    narrow, whatever the engine's rung is now), with a wide refetch when
+    a narrow lane saturated."""
     if isinstance(arr, tuple):
         counters, was4 = _unpack_rel_parts(eng, arr, vr, vc)
         (eng.note_rel4 if was4 else eng.note_rel)(counters is None)
         if counters is not None:
             return counters
         return _rel_wide_refetch(eng, redispatch, vr, vc, try_rel=was4)
-    return arr[:, :vr, :vc]
+    arr = arr[:, :vr, :vc]
+    if eng.packed and arr.dtype == np.int8:
+        counters = packing.unpack_host_narrow(eng.measure, arr, eng.width)
+        eng.note_narrow(counters is None)
+        if counters is not None:
+            return counters
+        arr = _AsyncFetch(redispatch("wide")).result()[:, :vr, :vc]
+    if eng.packed:
+        return packing.unpack_host(eng.measure, arr)
+    return arr
 
 
 def _rel_wide_refetch(eng: _BlockEngine, redispatch, vr: int, vc: int,
                       try_rel: bool = False) -> np.ndarray:
     """Dispatch a saturated rel-family strip again.  A rel4 saturation
     first tries the adjacent int8 rel rung (nibble outliers are almost
-    always within int8 range); only a rel saturation pays the int32
-    refetch."""
+    always within int8 range); only a rel saturation pays the wide (or,
+    at 2^16 sites or more, int32) refetch."""
     if try_rel and eng.rel_ref is not None:
         parts = _AsyncFetch(redispatch("rel")).result()
         counters, _ = _unpack_rel_parts(eng, parts, vr, vc)
         eng.note_rel(counters is None)  # the ladder must see rel failing
         if counters is not None:
             return counters
-    return _AsyncFetch(redispatch("none")).result()[:, :vr, :vc]
+    arr = _AsyncFetch(
+        redispatch("wide" if eng.packed else "none")).result()[:, :vr, :vc]
+    if not eng.packed:
+        return arr
+    return packing.unpack_host(eng.measure, arr)
 
 
 def _unpack_rel_parts(eng: _BlockEngine, parts, vr: int, vc: int):
@@ -1138,17 +1217,6 @@ def _padded_shape(n: int, width: int, ti: int,
     return n_pad, -(-max(width, 1) // 128) * 128
 
 
-def _device_footprint(prepared: Sequence[Tuple[int, int]], width: int,
-                      ti: int, counters_per_pair: int) -> int:
-    """Device bytes of a loaded sweep: the prepared codes, each matrix
-    given as (rows, max_block) and the last one the column side, plus the
-    int32 strips that can be in flight."""
-    shapes = [_padded_shape(n, width, ti, mb) for n, mb in prepared]
-    strip = counters_per_pair * ti * shapes[-1][0] * 4
-    return (sum(r * l for r, l in shapes)
-            + (STRIP_LOOKAHEAD + 1) * strip)
-
-
 def _strip_grid(square: bool, n1: int, n2: int,
                 ti: int) -> Tuple[List[int], List[int]]:
     """First rows of the strips of a loaded sweep and their pair counts:
@@ -1205,8 +1273,11 @@ def _sweep_load(setup: Setup) -> None:
     # file1 for strips and file2 for blocks, both at the engine's strip
     # stride ti (as the JAX engine does, engine.py:3006-3016).
     prepared = [(n1, max(ti, tj))] if square else [(n1, ti), (n2, tj)]
-    footprint = _device_footprint(
-        prepared, width, ti, len(get_plan(setup.measure).counters)
+    rows = [_padded_shape(n, width, ti, mb)[0] for n, mb in prepared]
+    # the square's X is its Y
+    footprint = _blocked_footprint(
+        0 if square else rows[0], rows[-1], width,
+        len(get_plan(setup.measure).counters), ti, tj,
     )
     budget = _device_budget(device)
     if budget is not None and footprint > budget:
@@ -1276,6 +1347,48 @@ def _sweep_load(setup: Setup) -> None:
 # Out-of-core sweeps
 # ---------------------------------------------------------------------------
 
+def _upload_bytes(rows: int, l_pad: int) -> int:
+    """Device bytes of uploading ``rows`` padded rows: the codes and,
+    while a diff upload rebuilds them, its (index, code) pairs, at most
+    2/3 of the codes (a diff upload wins 3x or is refused, and its
+    capacity at most doubles it).  Linear in ``rows``."""
+    return rows * (l_pad + -(-2 * l_pad // 3))
+
+
+def _lane_bytes(counters_per_pair: int) -> int:
+    """Bytes a pair of the largest pack beside the int32 counters: the
+    wide words (rel4, rel and narrow lanes are smaller)."""
+    return 2 if counters_per_pair == 1 else 4 * ((counters_per_pair + 1) // 2)
+
+
+# Device bytes of a rel4 pack beside its lanes: the segment scratch of the
+# pack, and a block's exception sidecar (exc_idx, exc_val) with its copy in
+# the strip's bundle.
+_SEGMENT_SCRATCH = 8 * packing.REL4_SEGMENTS
+_SIDECAR_BYTES = 16 * packing.REL4_EXC_CAP
+
+
+def _blocked_footprint(x_rows: int, y_rows: int, width: int,
+                       counters_per_pair: int, ti: int, tj: int,
+                       kept: int = 0) -> int:
+    """Device bytes of a square or rectangle sweep, in core or out of
+    core, whose X and Y sides are prepared as ``x_rows`` and ``y_rows``
+    rows (``x_rows`` 0 when X is Y, as in the in-core square): both
+    uploads, a row and a column K1 baseline of each prepared row and of
+    ``kept`` rows more (the staged super-rows' kept ones), the strips in
+    flight as int32 counters (more than any pack of them) with their
+    blocks' rel4 sidecars, one block's counters beside its pack, the
+    segment scratch and the reference row.  Affine in ``y_rows`` over
+    multiples of ``tj``."""
+    l_pad = _padded_shape(1, width, 1, 1)[1]
+    g4 = 4 * counters_per_pair
+    strip = g4 * ti * y_rows + -(-y_rows // tj) * _SIDECAR_BYTES
+    return (_upload_bytes(x_rows + y_rows, l_pad)
+            + g4 * (2 * (x_rows + y_rows) + kept + 1)
+            + (STRIP_LOOKAHEAD + 1) * strip + g4 * ti * tj + _SEGMENT_SCRATCH
+            + l_pad)
+
+
 def _blocked_layout(n_x: int, n_y: int, width: int, counters_per_pair: int,
                     ti: int, tj: int, budget: int) -> Tuple[int, int]:
     """(X-group rows, Y super-row rows) of an out-of-core sweep of ``n_x``
@@ -1286,16 +1399,25 @@ def _blocked_layout(n_x: int, n_y: int, width: int, counters_per_pair: int,
     buffer takes at most half of HOST_BUF_BUDGET, unless one strip alone
     needs more (``_cap_tile_ram`` bounds that strip), and its codes at
     most a third of the device budget.  A super-row is a multiple of
-    ``tj`` and takes the rest: its codes and the int32 strips in flight
-    against it, counted as ``_device_footprint`` counts them."""
+    ``tj``, prepared as at most ``max(ti, tj)`` rows more, and takes the
+    rest, as ``_blocked_footprint`` counts it beside the baselines every
+    super-row keeps (``_StagedSide``)."""
     l_pad = _padded_shape(1, width, 1, 1)[1]
     host_cap = HOST_BUF_BUDGET // 2 // max(1, n_y * counters_per_pair * 4)
     group = max(ti, min(host_cap // ti * ti, budget // 3 // l_pad // ti * ti,
                         -(-n_x // ti) * ti))
-    # a super-row of r rows is prepared as at most r + max(ti, tj) rows
-    per_row = l_pad + (STRIP_LOOKAHEAD + 1) * counters_per_pair * ti * 4
-    rows = (budget - group * l_pad) // per_row - max(ti, tj)
-    return group, max(tj, min(rows // tj * tj, -(-n_y // tj) * tj))
+    pad = max(ti, tj)
+    # every super-row of at least tj rows keeps a baseline of its
+    # prepared rows
+    kept = n_y + -(-n_y // tj) * pad
+
+    def footprint(rows: int) -> int:
+        return _blocked_footprint(group, rows + pad, width,
+                                  counters_per_pair, ti, tj, kept)
+
+    per_tj = footprint(tj) - footprint(0)
+    rows = max(0, budget - footprint(0)) // per_tj * tj
+    return group, max(tj, min(rows, -(-n_y // tj) * tj))
 
 
 class _StagedSide:
@@ -1303,20 +1425,32 @@ class _StagedSide:
     the Y side of the out-of-core sweeps, the loaded side of the staged
     stream.
 
-    The last staged super-row stays on the device, and ``serpentine``
-    alternates the sweep direction, so the last super-row of one group is
-    the first of the next: one upload fewer per group.  The resident
-    super-row is released before the next one is uploaded, so one slot is
-    on the device at a time.  Uploads run on the current stream, after
-    the kernels that read the released super-row: the allocator hands its
-    memory on in stream order.
+    Two levels of reuse (the JAX engine's).  On the host, each
+    super-row's diff encoding against ``diff_ref`` is kept
+    (``prepare(h2d_memo=)``), so a super-row staged again ships its
+    diffs without the pad, compare and extract passes; memos stop being
+    admitted past half of HOST_BUF_BUDGET (the X groups' and staged
+    groups' counter buffers take the other half).  On the device, the
+    last staged super-row stays, and ``serpentine`` alternates the sweep
+    direction, so the last super-row of one group is the first of the
+    next: one upload fewer per group.  The resident super-row is released
+    before the next one is uploaded, so one slot is on the device at a
+    time.  Uploads run on the current stream, after the kernels that read
+    the released super-row: the allocator hands its memory on in stream
+    order.  The K1 baselines of a released super-row stay on the device
+    (G int32 a prepared row, which the layouts count), so a super-row
+    staged again against the same reference row launches none.
     """
 
     def __init__(self, eng: _BlockEngine, source: np.ndarray,
-                 max_block: int) -> None:
+                 max_block: int, diff_ref: Optional[np.ndarray] = None) -> None:
         self.eng = eng
         self.source = source
         self.max_block = max_block
+        self.diff_ref = diff_ref
+        self._memos: Dict[Tuple[int, int], dict] = {}
+        self._memo_bytes = 0
+        self._bases: Dict[Tuple[int, int], list] = {}
         self._dev: Optional[torch.Tensor] = None
         self._key: Optional[Tuple[int, int]] = None
         self._serp = False
@@ -1329,17 +1463,33 @@ class _StagedSide:
     def get(self, q0: int, q1: int) -> torch.Tensor:
         """source[q0:q1] prepared on the device (no upload when it is the
         resident super-row)."""
-        if self._key == (q0, q1):
+        key = (q0, q1)
+        if self._key == key:
             return self._dev
         self.drop()
+        memo = self._memos.get(key)
+        if memo is None and self._memo_bytes < HOST_BUF_BUDGET // 2:
+            memo = self._memos[key] = {}
+        prev = memo.get("enc") if memo is not None else None
         with phase_timer("ooc-stage"):
-            self._dev = self.eng.prepare(self.source[q0:q1], self.max_block)
-        self._key = (q0, q1)
+            self._dev = self.eng.prepare(self.source[q0:q1], self.max_block,
+                                         diff_ref=self.diff_ref,
+                                         h2d_memo=memo)
+        if memo is not None and memo.get("enc") is not prev:
+            # a prepare may replace a kept encoding (a retarget swapped
+            # the uploader), not only fill an empty one
+            for enc, sign in ((prev, -1), (memo.get("enc"), 1)):
+                if enc is not None:
+                    self._memo_bytes += sign * (enc[0].nbytes + enc[1].nbytes)
+        self.eng.keep_baselines(self._dev, self._bases.get(key, []))
+        self._key = key
         return self._dev
 
     def drop(self) -> None:
-        """Release the resident super-row."""
+        """Release the resident super-row (not the host memos, nor its
+        baselines)."""
         if self._dev is not None:
+            self._bases[self._key] = self.eng.baselines_of(self._dev)
             self.eng.release(self._dev)
             self._dev, self._key = None, None
 
@@ -1352,18 +1502,21 @@ def _sweep_blocked(setup: Setup, sources: List[np.ndarray], width: int,
 
     The codes stay on the host.  Groups of X rows (the square's rows, or
     file1's) are uploaded once each; Y super-rows (the square's columns,
-    or file2's) are staged through ``_StagedSide``.  Each strip of the
-    group runs against each super-row, with at most STRIP_LOOKAHEAD
-    strips ahead of the one being fetched, and the counters accumulate in
-    the group's host buffer; the group's strips then emit in the in-core
-    order, so the bytes, the resume units and the shard bounds are the
-    in-core sweep's.
+    or file2's) are staged through ``_StagedSide``; both go diff-encoded
+    against one reference row of file1's.  Each strip of the group runs
+    against each super-row, packed on the ladder of the in-core sweep
+    (the square masking its self-pairs, and rel4 the padding of both
+    sides), with at most STRIP_LOOKAHEAD strips ahead of the one being
+    fetched; a saturated strip is dispatched again from the codes still
+    on the device.  The counters accumulate in the group's host buffer;
+    the group's strips then emit in the in-core order, so the bytes, the
+    resume units and the shard bounds are the in-core sweep's.
     """
     square = len(setup.loaded) == 1
     aln1, aln2 = setup.loaded[0], setup.loaded[-1]
     n1, n2 = aln1.n, aln2.n
     src1, src2 = sources[0], sources[-1]
-    eng = _BlockEngine(setup.measure, device, ti)
+    eng = _BlockEngine(setup.measure, device, ti, width, rel=True)
     plan = eng.plan
     g = len(plan.counters)
     group_rows, sr_rows = _blocked_layout(n1, n2, width, g, ti, tj, budget)
@@ -1379,11 +1532,20 @@ def _sweep_blocked(setup: Setup, sources: List[np.ndarray], width: int,
     meter = ProgressMeter("sweep (out-of-core)", weights[a + done : b])
     emitter = _AsyncEmitter()
     pool = _ScratchPool()
-    yside = _StagedSide(eng, src2, tj)
+    with phase_timer("diff-ref"):
+        dref = eng.diff_ref_for(src1)
+    yside = _StagedSide(eng, src2, tj, dref)
 
     def sweep_super_row(dev_x, bufs, g0, g1, col0, q0, q1):
         """Every strip of the group against source2[q0:q1], into bufs."""
         dev_y = yside.get(q0, q1)
+        nv = (g1 - g0, q1 - q0)
+        # a self-pair: X row g0 + r is Y row q0 + c
+        diag_off = g0 - q0 if square else None
+
+        def dispatch(i0_loc, col_starts, mode=None):
+            return _dispatch_strip(eng, dev_x, dev_y, i0_loc, col_starts, ti,
+                                   tj, mode, nv, diag_off)
 
         def strips():
             for i0_loc in range(0, g1 - g0, ti):
@@ -1397,15 +1559,16 @@ def _sweep_blocked(setup: Setup, sources: List[np.ndarray], width: int,
                     if q0 <= abs_i0:
                         lo = (abs_i0 - q0) // tj * tj
                 col_starts = list(range(lo, q1 - q0, tj))
-                yield i0_loc, lo, _AsyncFetch(_dispatch_strip(
-                    eng, dev_x, dev_y, i0_loc, col_starts, ti, tj
-                ))
+                yield i0_loc, lo, _AsyncFetch(dispatch(i0_loc, col_starts)), (
+                    lambda mode, i0_loc=i0_loc, col_starts=col_starts:
+                    dispatch(i0_loc, col_starts, mode))
 
         def fill(item):
-            i0_loc, lo, handle = item
+            i0_loc, lo, handle, redispatch = item
             si = min(ti, g1 - g0 - i0_loc)
             with phase_timer("ooc-fetch-wait"):
-                strip = _fetch_strip(eng, handle, si, q1 - q0 - lo)
+                strip = _fetch_strip(eng, handle, si, q1 - q0 - lo,
+                                     redispatch)
             dst = q0 + lo - col0
             if dst < 0:
                 # the first aligned block begins before the group's column
@@ -1415,6 +1578,8 @@ def _sweep_blocked(setup: Setup, sources: List[np.ndarray], width: int,
                 dst = 0
             bufs[:, i0_loc : i0_loc + si, dst : dst + strip.shape[2]] = strip
 
+        # every strip is fetched (and refetched) before the next super-row
+        # is staged and before the group's codes are released
         _pipeline_strips(strips(), fill)
 
     try:
@@ -1425,7 +1590,7 @@ def _sweep_blocked(setup: Setup, sources: List[np.ndarray], width: int,
                 continue
             col0 = g0 if square else 0
             with phase_timer("ooc-xgroup-prepare"):
-                dev_x = eng.prepare(src1[g0:g1], ti)
+                dev_x = eng.prepare(src1[g0:g1], ti, diff_ref=dref)
             try:
                 bufs = np.zeros((g, g1 - g0, n2 - col0), dtype=np.int32)
                 spans = [(q0, min(q0 + sr_rows, n2))
@@ -1648,11 +1813,10 @@ def _stream_group_size(n1: int, width: int, measure: str,
 
     Each group in flight (the one computed and the STREAM_PENDING before
     it) holds its emission buffers on the host (~(G + 2) int32 per pair)
-    and, within the device budget of the card's total memory, its codes
-    and its (G, n1, rows) int32 counters beside the loaded codes
-    (``width`` is the loaded side's width on the device, after the
-    variant split).  The size is a resume unit, so it does not follow
-    the memory that is free.  A nonzero STREAM_GROUP fixes it instead.
+    and, within the device budget of the card's total memory, what
+    ``_stream_footprint`` counts beside the loaded side (``width`` is the
+    loaded side's width on the device, after the variant split).  The
+    size is a resume unit, so it does not follow the memory that is free.  A nonzero STREAM_GROUP fixes it instead.
 
     Under a shard (``sharded``) the groups are also the units the merge
     interleaves, so every shard must cut the stream alike, whatever card
@@ -1660,7 +1824,8 @@ def _stream_group_size(n1: int, width: int, measure: str,
     measure and the module constants (the pinned host allowance of
     ``_strip_ram_budget(deterministic=True)``, the cap, K1's y-row limit,
     and the staged group's host cap of ``_stream_layout``), never a
-    card's or a host's memory.
+    card's or a host's memory.  Either way a group's (G, n1, rows)
+    counters stay within what one rel pack takes (``packing.MAX_CELLS``).
     """
     if STREAM_GROUP:
         return max(2, STREAM_GROUP + (STREAM_GROUP & 1))
@@ -1668,16 +1833,16 @@ def _stream_group_size(n1: int, width: int, measure: str,
     in_flight = STREAM_PENDING + 1
     ram = (_strip_ram_budget(deterministic=True) if sharded
            else _strip_ram_budget())
-    rows = min(STREAM_GROUP_CAP, ram // (in_flight * (g + 2) * n1 * 4))
+    rows = min(STREAM_GROUP_CAP, ram // (in_flight * (g + 2) * n1 * 4),
+               packing.MAX_CELLS // (g * max(1, n1)))
     if sharded:
         rows = min(rows, kernels.MAX_Y_ROWS, _staged_group_cap(n1, g))
         return max(2, rows // 2 * 2)
     budget = _device_budget(device, of_total=True)
     if budget is not None:
-        l_pad = -(-max(width, 1) // 128) * 128
-        rows = min(rows, (budget - n1 * l_pad) // (
-            in_flight * (g * n1 * 4 + l_pad)
-        ))
+        fixed = _stream_footprint(0, n1, width, g, in_flight)
+        per_row = _stream_footprint(1, n1, width, g, in_flight) - fixed
+        rows = min(rows, (budget - fixed) // per_row)
     return max(2, rows // 2 * 2)
 
 
@@ -1717,16 +1882,20 @@ def _stream_layout(n1: int, width: int, measure: str, device: torch.device,
     Only the choice between in core and staged follows the free memory.
     Fewer groups are in flight when their buffers would pass half the
     host budget.  A super-row, a multiple of ``ti``, takes the device
-    budget left beside one group's codes, with its own codes and its
-    (G, rows, group) int32 counters.
+    budget left beside one group.  ``_stream_footprint`` counts both
+    layouts, and ``_stream_group_size`` sizes with it too.  A
+    group, in core, and a super-row's part of one, staged, stay within
+    what one rel pack takes (``packing.MAX_CELLS``).
     """
     g = len(get_plan(measure).counters)
-    l_pad = _padded_shape(n1, width, 1, 1)[1]
     col_bytes = max(1, g * n1 * 4)
 
     def fits(budget: Optional[int], grows: int) -> bool:
-        return budget is None or n1 * l_pad + (STREAM_PENDING + 1) * grows * (
-            col_bytes + l_pad) <= budget
+        # one launch and one pack over the whole group
+        if g * n1 * grows > packing.MAX_CELLS:
+            return False
+        return budget is None or _stream_footprint(
+            grows, n1, width, g, STREAM_PENDING + 1) <= budget
 
     grows = _stream_group_size(n1, width, measure, device, sharded)
     if not (STREAM_GROUP or sharded) and not fits(
@@ -1737,10 +1906,35 @@ def _stream_layout(n1: int, width: int, measure: str, device: torch.device,
         return _StreamLayout(grows, STREAM_PENDING)
     pending = max(1, min(STREAM_PENDING,
                          HOST_BUF_BUDGET // 2 // (col_bytes * grows)))
-    rows = (budget - grows * l_pad) // (l_pad + g * grows * 4)
+    # one group at a time against a super-row; every loaded row keeps its
+    # baseline (``_StagedSide``)
+    fixed = _stream_footprint(grows, 0, width, g, 1, kept=n1)
+    per_row = _stream_footprint(grows, 1, width, g, 1, kept=n1) - fixed
+    rows = min(max(0, budget - fixed) // per_row,
+               packing.MAX_CELLS // (g * grows))
     return _StreamLayout(
         grows, pending, max(ti, min(rows // ti * ti, -(-n1 // ti) * ti))
     )
+
+
+def _stream_footprint(grows: int, rows: int, width: int,
+                      counters_per_pair: int, groups: int,
+                      kept: int = 0) -> int:
+    """Device bytes of a stream, in core or staged: ``rows`` loaded rows
+    on the device (all of them, or one super-row) with their K1
+    baselines and those of ``kept`` rows more (the staged super-rows'
+    kept ones); ``groups`` groups of ``grows`` records in flight, each
+    with its codes, its baselines, its (G, rows, grows) counters as int32
+    (more than any pack of them) and a rel4 sidecar; one group's counters
+    beside their largest pack (``_lane_bytes``), the segment scratch and
+    the reference row.  Affine in ``grows`` and in ``rows``."""
+    l_pad = _padded_shape(1, width, 1, 1)[1]
+    g4 = 4 * counters_per_pair
+    group = (_upload_bytes(grows, l_pad) + g4 * grows + g4 * rows * grows
+             + _SIDECAR_BYTES)
+    return (_upload_bytes(rows, l_pad) + g4 * (rows + kept + 1)
+            + groups * group + rows * grows * _lane_bytes(counters_per_pair)
+            + _SEGMENT_SCRATCH + l_pad)
 
 
 class _GroupUploads:
@@ -1815,15 +2009,16 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
     batches (a batch larger than a group fills groups of its own).  Per
     group, the codes go to the device diff-encoded (``dispatch_stream``,
     which retargets the reference row) or dense, one kernel launch
-    computes the (G, n1, rows) counters, and one pack against the
-    baselines gives rel4 (an odd group rel) lanes and a sidecar bundle,
-    which are copied back asynchronously into pinned memory with
-    ``layout.pending`` groups in flight; the host finishes the counters
-    (a saturated group is dispatched again from its codes, still on the
-    device, at the next rung), transposes them to streamed-major order,
-    adds each record's invariant-column offset and emits.  A staged
-    stream (``layout.sr_rows``) keeps the loaded side on the host and
-    sweeps it in super-rows per group instead, dense and int32
+    computes the (G, n1, rows) counters, and one pack at the engine's
+    rung gives rel4 (an odd group rel) lanes and a sidecar bundle, or
+    narrow lanes or wide words, which are copied back asynchronously into
+    pinned memory with ``layout.pending`` groups in flight; the host
+    finishes the counters (a saturated group is dispatched again from its
+    codes, still on the device, at the next rung), transposes them to
+    streamed-major order, adds each record's invariant-column offset and
+    emits.  A staged stream (``layout.sr_rows``) keeps the loaded side on
+    the host and sweeps it in super-rows per group instead, each
+    super-row's part packed and finished on its own
     (``_dispatch_stream_staged``).  A group is one resume unit.  On a bad
     streamed record every fully read user batch is emitted first, then
     the error is raised.
@@ -1868,15 +2063,20 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
     device = device_of(setup.backend)
     l_pad = _padded_shape(n1, width_dev, 1, 1)[1]
     # one launch covers every loaded row (of a super-row, when staged), so
-    # they need no strip padding; in core, groups are diff-encoded and
-    # packed, staged they stay dense and int32
-    eng = _BlockEngine(setup.measure, device, 1, width_dev,
-                       rel=not layout.sr_rows)
+    # they need no strip padding
+    eng = _BlockEngine(setup.measure, device, 1, width_dev, rel=True)
     mat_loaded = (
         np.ascontiguousarray(aln.matrix[:, split.keep])
         if split is not None else aln.matrix
     )
     prep_fut = lside = None
+
+    def diff_ref():
+        # streamed records share ancestry with the loaded set, so its
+        # per-column mode is the diff reference of both
+        return (None if _os.environ.get("DISTANCE_TPU_NO_DIFF_UPLOAD")
+                else mode_row(mat_loaded))
+
     if layout.sr_rows:
         print(
             f"[distance-tpu] staged stream: {n1 * l_pad / 1e9:.2f} GB"
@@ -1884,17 +2084,14 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
             f" {layout.sr_rows} rows per group of {grows}",
             file=sys.stderr,
         )
-        lside = _StagedSide(eng, mat_loaded, 1)
+        with phase_timer("diff-ref"):
+            lside = _StagedSide(eng, mat_loaded, 1, diff_ref())
         spans = [(q0, min(q0 + layout.sr_rows, n1))
                  for q0 in range(0, n1, layout.sr_rows)]
     else:
         def prepare():
             with phase_timer("stream-prepare-upload"):
-                # streamed records share ancestry with the loaded set, so
-                # its per-column mode is the diff reference of both
-                diff_ref = (None if _os.environ.get(
-                    "DISTANCE_TPU_NO_DIFF_UPLOAD") else mode_row(mat_loaded))
-                return eng.prepare(mat_loaded, 1, diff_ref=diff_ref)
+                return eng.prepare(mat_loaded, 1, diff_ref=diff_ref())
 
         # The loaded side's upload (with its reference row) overlaps the
         # stream parse.  Its future's result() raises a failed upload on
@@ -1916,7 +2113,9 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
         (g_ord, local_ord, ids2, bcounts, offs, bn, handle,
          redispatch) = pending.pop(0)
         with phase_timer("stream-fetch-wait"):
-            strip = _fetch_strip(eng, handle, n1, bn, redispatch)  # (G, n1, bn)
+            # (G, n1, bn); a staged group is finished already
+            strip = (handle if isinstance(handle, np.ndarray) else
+                     _fetch_strip(eng, handle, n1, bn, redispatch))
         # Emission: for each streamed record (outer), all loaded (inner)
         # with columns (loaded_id, streamed_id) — lib.rs:322-333.
         with phase_timer("stream-gather"):
@@ -2046,15 +2245,15 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
                 if split is not None
                 else None
             )
-            if lside is not None:
-                codes = uploads.send(bn)
-            else:
+            if lside is None:
                 m1 = prep_fut.result()
                 codes, ref = eng.dispatch_stream(
-                    m1, buf[:bn], lambda: uploads.send(bn))
+                    buf[:bn], lambda: uploads.send(bn))
         redispatch = None
         if lside is not None:
-            fetch = _dispatch_stream_staged(eng, lside, spans, codes, n1, bn)
+            fetch = _dispatch_stream_staged(
+                eng, lside, spans, buf[:bn], lambda: uploads.send(bn), n1,
+                bn)
         else:
             # one K1 launch, the baselines and one pack over the whole
             # (G, n1, bn) group; its codes stay on the device for a
@@ -2113,23 +2312,40 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
 
 
 def _dispatch_stream_staged(eng: _BlockEngine, lside: _StagedSide,
-                            spans: List[Tuple[int, int]],
-                            codes: torch.Tensor, n1: int,
-                            bn: int) -> _AsyncFetch:
-    """One stream group against a host-resident loaded side.
+                            spans: List[Tuple[int, int]], padded: np.ndarray,
+                            send_dense, n1: int, bn: int) -> np.ndarray:
+    """One stream group against a host-resident loaded side: its finished
+    (G, n1, bn) counters.
 
-    The group's codes are on the device once; each loaded super-row is
-    staged (in serpentine order, so the boundary super-row of the last
-    group is not uploaded again), launched against them as x, and its
-    (G, rows, bn) counters fetched into the group's (G, n1, bn) host
-    buffer before the next super-row is staged.  The handle returned
-    holds that buffer, already complete.
+    The group's codes go to the device once (``dispatch_stream``: diff
+    encoded, or ``send_dense()``), after the first super-row is staged,
+    so that the uploader exists; they and their reference serve every
+    super-row (the JAX engine's ``h2d_cache``), and their baselines are
+    kept until the group is done.  Each loaded super-row is staged (in
+    serpentine order, so the boundary super-row of the last group is not
+    uploaded again), launched against the codes as x, packed at the
+    engine's rung, and fetched and finished into the group's buffer,
+    with its own refetch, before the next super-row is staged.
     """
     buf = np.empty((len(eng.plan.counters), n1, bn), dtype=np.int32)
-    for q0, q1 in lside.serpentine(spans):
-        part = _AsyncFetch(
-            eng.block(lside.get(q0, q1), codes, 0, 0, q1 - q0, bn)
-        )
-        with phase_timer("ooc-fetch-wait"):
-            buf[:, q0:q1] = part.result()
-    return _AsyncFetch(torch.from_numpy(buf))
+    codes = ref = None
+    try:
+        for q0, q1 in lside.serpentine(spans):
+            m1 = lside.get(q0, q1)
+            if codes is None:
+                with phase_timer("stream-upload"):
+                    codes, ref = eng.dispatch_stream(padded, send_dense)
+                eng.adopt(codes)
+
+            def redispatch(mode, m1=m1, q0=q0, q1=q1):
+                return _dispatch_strip(eng, m1, codes, 0, [0], q1 - q0, bn,
+                                       mode, (q1 - q0, bn), None, ref)
+
+            part = _AsyncFetch(redispatch(eng.mode_for(bn)))
+            with phase_timer("ooc-fetch-wait"):
+                buf[:, q0:q1] = _fetch_strip(eng, part, q1 - q0, bn,
+                                             redispatch)
+    finally:
+        if codes is not None:
+            eng.release(codes)
+    return buf

@@ -1,7 +1,20 @@
-"""Rank-1 residual packing of counter blocks before they leave the device.
+"""Packing of counter blocks before they leave the device.
 
-Every counter is a sum over columns of f(x_col, y_col), so for any
-reference row ``ref`` the residual
+Two families, as in ``distance_tpu/ops/packing.py``.  Below 2^16 sites
+(``PACK_LIMIT``) a measure's counters fit 16-bit fields: the wide pack
+puts them in one or two 32-bit words a pair (16-bit for the one-counter
+measures), and the narrow pack in saturating 8-bit lanes (255 =
+saturated) of the small quantities each measure needs (raw [diff, width -
+(diff + same)], k80 [width - count, ts, tv], tn93 [width - kk, kk - same,
+p1, p2]).  ``pack_narrow_cuda``/``pack_wide_cuda`` launch the
+hand-written kernel of ``csrc/packing.cu`` (the port of
+``pack_device_narrow`` and ``pack_device``); ``pack_narrow_torch`` and
+``pack_wide_torch`` are their plain PyTorch versions, and the words keep
+the JAX package's signed wire types (int8, int16, int32).
+
+The rel family packs rank-1 residuals.  Every counter is a sum over
+columns of f(x_col, y_col), so for any reference row ``ref`` the
+residual
 
     c(i, r) - c(i, ref) - c(ref, r) + c(ref, ref)
 
@@ -12,19 +25,20 @@ saturated) with a segmented exception sidecar for the outliers, beside
 the small int32 baselines rb = c(i, ref), cb = c(ref, r), cc = c(ref,
 ref); the host adds the baselines back.
 
-``pack_rel4_cuda``/``pack_rel_cuda`` launch the hand-written kernel of
-``csrc/packing.cu`` (the port of ``distance_tpu/ops/packing.py``'s
-``pack_device_rel4`` and ``pack_device_rel``, which XLA ran inside the
-JAX engine's block and stream functions); ``pack_rel4_torch`` and
-``pack_rel_torch`` are their plain PyTorch versions, computing exactly
-what the JAX functions compute with ``xp=np``.  ``pack_rel4`` and
+``pack_rel4_cuda``/``pack_rel_cuda`` launch the same kernel source's
+other entries (the port of ``pack_device_rel4`` and ``pack_device_rel``,
+which XLA ran inside the JAX engine's block and stream functions);
+``pack_rel4_torch`` and ``pack_rel_torch`` are their plain versions.
+Every plain version computes exactly what the JAX function computes with
+``xp=np``.  ``pack_narrow``, ``pack_wide``, ``pack_rel4`` and
 ``pack_rel`` take the plain version for CPU tensors and the kernel for
 CUDA tensors, and raise rather than fall back.  ``bundle_sidecars`` fuses
 the small arrays into one int32 vector (torch glue).
 
-The host halves (constants, ``unpack_host_rel``, ``unpack_rel4_nibbles``,
-``finish_host_rel4``, ``unbundle_sidecars``) are copied verbatim from the
-JAX module; ``tests/test_torch_host_copies.py`` pins them.
+The host halves (constants, ``unpack_host``, ``unpack_host_narrow``,
+``unpack_host_rel``, ``unpack_rel4_nibbles``, ``finish_host_rel4``,
+``unbundle_sidecars``) are copied verbatim from the JAX module;
+``tests/test_torch_host_copies.py`` pins them.
 """
 
 from __future__ import annotations
@@ -35,7 +49,11 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from distance_tpu_torch.measures import MEASURE_COUNTERS
 from distance_tpu_torch.ops import _build
+
+PACK_LIMIT = 1 << 16  # alignment width must be < 2^16 to pack (wide)
+NARROW_SAT = 255
 
 REL_SAT = -128  # sentinel: residual out of [-127, 127] (wide refetch)
 REL4_SAT = -8   # nibble sentinel: residual out of [-7, 7]
@@ -48,14 +66,79 @@ REL4_SAT = -8   # nibble sentinel: residual out of [-7, 7]
 REL4_SEGMENTS = 8192
 REL4_EXC_CAP = 2 * REL4_SEGMENTS
 
+# Most cells the rel packs take in one launch: rel4's sidecar indexes the
+# flat (G, m, n) tensor with int32.
+MAX_CELLS = (1 << 31) - 1
+
 SIDECAR_MAGIC = 0x52454C42  # 'RELB'
 _HDR = 6  # [magic, G, ti, span, exc_b, cap]
 
-# Kernel launches made by pack_rel4_cuda and pack_rel_cuda in this process.
+# Kernel launches made by pack_rel4_cuda, pack_rel_cuda, pack_narrow_cuda
+# and pack_wide_cuda in this process.
 LAUNCHES_REL4 = 0
 LAUNCHES_REL = 0
+LAUNCHES_NARROW = 0
+LAUNCHES_WIDE = 0
 
 _bound = None
+
+
+def _sat(v: torch.Tensor) -> torch.Tensor:
+    """numpy's ``minimum(v, 255).astype(uint8)`` viewed as int8."""
+    return torch.clamp(v, max=NARROW_SAT).to(torch.uint8).view(torch.int8)
+
+
+def _word(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """numpy's ``(hi.astype(uint32) << 16) | lo.astype(uint32)`` viewed
+    as int32."""
+    mask = 0xFFFFFFFF
+    w = (((hi.to(torch.int64) & mask) << 16) | (lo.to(torch.int64) & mask))
+    return (w & mask).to(torch.int32)
+
+
+def pack_narrow_torch(measure: str, c: torch.Tensor,
+                      width: int) -> torch.Tensor:
+    """Plain version of the narrow pack: (G, m, n) int32 counters -> (G,
+    m, n) int8 saturating lanes of ``measure``'s form at ``width`` sites
+    (``pack_device_narrow``)."""
+    if measure in ("n", "n_high"):
+        lanes = [_sat(c[0])]
+    elif measure in ("raw", "jc69"):
+        lanes = [_sat(c[0]), _sat(width - (c[0] + c[1]))]
+    elif measure == "k80":
+        lanes = [_sat(width - (c[0] + c[1] + c[2])), _sat(c[1]), _sat(c[2])]
+    elif measure == "tn93":
+        lanes = [_sat(width - c[1]), _sat(c[1] - c[0]), _sat(c[2]),
+                 _sat(c[3])]
+    else:
+        raise ValueError(measure)
+    return torch.stack(lanes)
+
+
+def pack_wide_torch(measure: str, c: torch.Tensor) -> torch.Tensor:
+    """Plain version of the wide pack: (G, m, n) int32 counters -> (1, m,
+    n) int16 for the one-counter measures, (1, m, n) int32 for raw and
+    jc69, (2, m, n) int32 for k80 and tn93 (``pack_device``)."""
+    if measure in ("n", "n_high"):
+        return c[0].to(torch.int16)[None]
+    if measure in ("raw", "jc69"):
+        return _word(c[0], c[1])[None]
+    if measure == "k80":
+        return torch.stack([_word(c[0], c[1]), c[2]])
+    if measure == "tn93":
+        return torch.stack([_word(c[0], c[1]), _word(c[2], c[3])])
+    raise ValueError(measure)
+
+
+def _check_lanes(measure: str, c: torch.Tensor) -> int:
+    """The measure's counter count, once ``c`` is checked to hold them."""
+    if measure not in MEASURE_COUNTERS:
+        raise ValueError(measure)
+    g = len(MEASURE_COUNTERS[measure])
+    if c.dim() != 3 or c.shape[0] != g or c.dtype != torch.int32:
+        raise ValueError(f"{measure} packs ({g}, m, n) int32 counters, got"
+                         f" {tuple(c.shape)} {c.dtype}")
+    return g
 
 
 def block_mask(m: int, n: int, i0: int = 0, j0: int = 0,
@@ -169,14 +252,77 @@ def _kernel_lib() -> ctypes.CDLL:
             vp, vp, vp, vp, ll, ll, ll, ll, ll, i, ll, vp, vp,
         ]
         lib.dt_pack_rel_launch.restype = ctypes.c_int
+        lib.dt_pack_narrow_launch.argtypes = [vp, ll, ll, ll, vp, vp]
+        lib.dt_pack_narrow_launch.restype = ctypes.c_int
+        lib.dt_pack_wide_launch.argtypes = [vp, ll, ll, vp, vp]
+        lib.dt_pack_wide_launch.restype = ctypes.c_int
         _bound = lib
     return _bound
+
+
+def _lane_launch(entry: str, c: torch.Tensor, out_shape, dtype: torch.dtype,
+                 *width: int) -> torch.Tensor:
+    """Launch the narrow or wide entry of the kernel on the current stream
+    of the (G, m, n) counters' device, into a new (P, m, n) tensor."""
+    if c.device.type != "cuda":
+        raise ValueError(f"the pack kernel needs CUDA tensors, got {c.device}")
+    c = c.contiguous()
+    out = torch.empty(out_shape, dtype=dtype, device=c.device)
+    stream = torch.cuda.current_stream(c.device).cuda_stream
+    with torch.cuda.device(c.device):
+        rc = getattr(_kernel_lib(), entry)(
+            c.data_ptr(), c.shape[0], c.shape[1] * c.shape[2], *width,
+            out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} failed: CUDA error {rc}")
+    return out
+
+
+def pack_narrow_cuda(measure: str, c: torch.Tensor,
+                     width: int) -> torch.Tensor:
+    """Launch the narrow kernel: ``pack_narrow_torch`` on the card."""
+    global LAUNCHES_NARROW
+    _check_lanes(measure, c)
+    if not -(1 << 31) <= width < 1 << 31:
+        raise ValueError(f"width {width} is not an int32")
+    out = _lane_launch("dt_pack_narrow_launch", c, c.shape, torch.int8, width)
+    LAUNCHES_NARROW += 1
+    return out
+
+
+def pack_wide_cuda(measure: str, c: torch.Tensor) -> torch.Tensor:
+    """Launch the wide kernel: ``pack_wide_torch`` on the card."""
+    global LAUNCHES_WIDE
+    g = _check_lanes(measure, c)
+    out = _lane_launch("dt_pack_wide_launch", c,
+                       ((g + 1) // 2, c.shape[1], c.shape[2]),
+                       torch.int16 if g == 1 else torch.int32)
+    LAUNCHES_WIDE += 1
+    return out
+
+
+def pack_narrow(measure: str, c: torch.Tensor, width: int) -> torch.Tensor:
+    """Narrow lanes of a block: the plain version for CPU tensors, the
+    kernel for CUDA tensors."""
+    if c.device.type != "cpu":
+        return pack_narrow_cuda(measure, c, width)
+    _check_lanes(measure, c)
+    return pack_narrow_torch(measure, c, width)
+
+
+def pack_wide(measure: str, c: torch.Tensor) -> torch.Tensor:
+    """Wide words of a block: the plain version for CPU tensors, the
+    kernel for CUDA tensors."""
+    if c.device.type != "cpu":
+        return pack_wide_cuda(measure, c)
+    _check_lanes(measure, c)
+    return pack_wide_torch(measure, c)
 
 
 def _cuda_inputs(c, rb, cb, cc):
     if c.device.type != "cuda":
         raise ValueError(f"the pack kernel needs CUDA tensors, got {c.device}")
-    if c.numel() >= 1 << 31:
+    if c.numel() > MAX_CELLS:
         raise ValueError(
             f"the pack kernel takes fewer than 2^31 cells, got"
             f" {tuple(c.shape)}")
@@ -300,6 +446,51 @@ def bundle_sidecars(cb: torch.Tensor, rb_cc: torch.Tensor,
             [SIDECAR_MAGIC, g, ti, span, exc_b, cap], dtype=torch.int32,
             device=cb.device)
     return torch.cat([header, cb.reshape(-1), rb_cc.reshape(-1), *tail])
+
+
+def unpack_host(measure: str, packed: np.ndarray) -> np.ndarray:
+    """Packed host array -> (G, ...) int32 counters (same order as the
+    measure's CounterPlan)."""
+    if measure in ("n", "n_high"):
+        return packed.view(np.uint16).astype(np.int32)
+    p = packed.view(np.uint32)
+    hi0 = (p[0] >> 16).astype(np.int32)
+    lo0 = (p[0] & 0xFFFF).astype(np.int32)
+    if measure in ("raw", "jc69"):
+        return np.stack([hi0, lo0])
+    if measure == "k80":
+        return np.stack([hi0, lo0, p[1].astype(np.int32)])
+    if measure == "tn93":
+        hi1 = (p[1] >> 16).astype(np.int32)
+        lo1 = (p[1] & 0xFFFF).astype(np.int32)
+        return np.stack([hi0, lo0, hi1, lo1])
+    raise ValueError(measure)
+
+
+def unpack_host_narrow(
+    measure: str, packed: np.ndarray, width: int
+) -> Optional[np.ndarray]:
+    """Narrow lanes -> (G, ...) int32 counters, or None if any lane
+    saturated (caller must refetch wide)."""
+    a = packed.view(np.uint8)
+    if (a == NARROW_SAT).any():
+        return None
+    a = a.astype(np.int32)
+    if measure in ("n", "n_high"):
+        return a
+    if measure in ("raw", "jc69"):
+        diff = a[0]
+        same = (width - a[1]) - diff
+        return np.stack([diff, same])
+    if measure == "k80":
+        count_l = width - a[0]
+        same = count_l - a[1] - a[2]
+        return np.stack([same, a[1], a[2]])
+    if measure == "tn93":
+        kk = width - a[0]
+        same = kk - a[1]
+        return np.stack([same, kk, a[2], a[3]])
+    raise ValueError(measure)
 
 
 def unpack_host_rel(

@@ -425,7 +425,8 @@ def test_diff_upload_on_card_equals_dense(dev, monkeypatch):
 @pytest.mark.parametrize("mode", ["square", "stream"])
 def test_ladder_on_card_equals_torch(dev, tmp_path, mode):
     """Random records whose residuals saturate: the card's blocks walk
-    rel4 -> rel -> int32 and the bytes are the plain version's."""
+    rel4 -> rel -> wide (400 sites) and the bytes are the plain
+    version's."""
     rng = np.random.default_rng(35)
     mat = random_codes(rng, 300, 400)
     a, b = tmp_path / "a.fasta", tmp_path / "b.fasta"
@@ -438,5 +439,69 @@ def test_ladder_on_card_equals_torch(dev, tmp_path, mode):
         before = dict(engine.RUNG_BLOCKS)
         assert cli.main(args + ["-m", "raw", "--backend", backend, "-o",
                                 str(outs[backend])]) == 0
-        assert all(engine.RUNG_BLOCKS[k] > before[k] for k in before)
+        assert all(engine.RUNG_BLOCKS[k] > before[k]
+                   for k in ("rel4", "rel", "wide"))
+        assert engine.RUNG_BLOCKS["none"] == before["none"]
     assert outs["cuda"].read_bytes() == outs["torch"].read_bytes()
+
+
+def lane_counters(rng, g, m, n, width):
+    """int32 counters whose narrow lanes fall on either side of 255, with
+    a few cells far outside every lane (negative, past 2^16)."""
+    c = rng.integers(0, min(width, 600) + 2, size=(g, m, n)).astype(np.int32)
+    flat = c.reshape(g, -1)
+    for k, v in enumerate([254, 255, 256, 0, width, width - 255, -1, 70000]):
+        flat[:, k % flat.shape[1]] = v
+    return c
+
+
+@pytest.mark.parametrize("width", [1, 29904, 65535])
+@pytest.mark.parametrize("shape", [(1, 1), (33, 65), (2048, 2048),
+                                   (2000, 8000)])
+@pytest.mark.parametrize("measure", MEASURES)
+def test_narrow_and_wide_kernels_match_plain(dev, measure, shape, width):
+    """K4 against its plain version, byte for byte: the square's block and
+    the stream's group, ragged shapes, saturating cells."""
+    rng = np.random.default_rng(sum(shape) + width)
+    g = len(get_plan(measure).counters)
+    c = torch.from_numpy(lane_counters(rng, g, *shape, width)).to(dev)
+    before = (packing.LAUNCHES_NARROW, packing.LAUNCHES_WIDE)
+    got = packing.pack_narrow(measure, c, width)
+    torch.cuda.synchronize()
+    want = packing.pack_narrow_torch(measure, c, width)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    got = packing.pack_wide(measure, c)
+    torch.cuda.synchronize()
+    want = packing.pack_wide_torch(measure, c)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert (packing.LAUNCHES_NARROW, packing.LAUNCHES_WIDE) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_out_of_core_packed_square_equals_in_core(dev, tmp_path,
+                                                  monkeypatch):
+    """A low-diversity square out of core on the card (diff uploads and
+    rel4 on, several X groups and super-rows) writes the in-core run's
+    sha256; its blocks were packed and its codes diff-encoded."""
+    import hashlib
+
+    rng = np.random.default_rng(36)
+    anc = random_codes(rng, 1, 1000)
+    mat = np.repeat(anc, 300, axis=0)
+    hits = rng.random(mat.shape) < 0.01
+    mat[hits] = rng.choice(ALL_CODES, size=int(hits.sum()))
+    a = tmp_path / "a.fasta"
+    write_fasta(a, mat)
+    monkeypatch.setattr(engine, "TILE_I", 64)
+    monkeypatch.setattr(engine, "TILE_J", 64)
+    shas = []
+    for budget in (0, 600_000):
+        monkeypatch.setattr(engine, "DEVICE_BUDGET", budget)
+        out = tmp_path / f"{budget}.tsv"
+        before = (dict(engine.RUNG_BLOCKS), diffup.LAUNCHES)
+        assert cli.main([str(a), "-m", "tn93", "--backend", "cuda", "-o",
+                         str(out)]) == 0
+        assert engine.RUNG_BLOCKS["rel4"] > before[0]["rel4"]
+        assert diffup.LAUNCHES > before[1]
+        shas.append(hashlib.sha256(out.read_bytes()).hexdigest())
+    assert shas[0] == shas[1]

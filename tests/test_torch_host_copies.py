@@ -163,10 +163,15 @@ DIFFUP_INIT = [
     ("        self.sharded = bool(sharded)\n", "        self.device = device\n"),
 ]
 
-PACKING_HELPERS = ["unpack_host_rel", "unpack_rel4_nibbles",
-                   "finish_host_rel4", "unbundle_sidecars"]
-PACKING_CONSTANTS = ["REL_SAT", "REL4_SAT", "REL4_SEGMENTS", "REL4_EXC_CAP",
-                     "SIDECAR_MAGIC", "_HDR"]
+PACKING_HELPERS = ["unpack_host", "unpack_host_narrow", "unpack_host_rel",
+                   "unpack_rel4_nibbles", "finish_host_rel4",
+                   "unbundle_sidecars"]
+PACKING_CONSTANTS = ["PACK_LIMIT", "NARROW_SAT", "REL_SAT", "REL4_SAT",
+                     "REL4_SEGMENTS", "REL4_EXC_CAP", "SIDECAR_MAGIC", "_HDR"]
+
+# Methods of the JAX _BlockEngine that the port's carries verbatim (its
+# pack_mode is the JAX one without the numpy backend and the mesh check).
+ENGINE_METHODS = ["note_narrow", "note_rel", "note_rel4", "_rel_usable"]
 
 
 def ported(text: str) -> str:
@@ -232,6 +237,15 @@ def test_packing_host_half_is_verbatim(name):
 @pytest.mark.parametrize("name", PACKING_CONSTANTS)
 def test_packing_constant_is_verbatim(name):
     assert getattr(port_packing, name) == getattr(jax_packing, name)
+
+
+@pytest.mark.parametrize("name", ENGINE_METHODS)
+def test_engine_method_is_verbatim(name):
+    def source(cls):
+        attr = inspect.getattr_static(cls, name)
+        return inspect.getsource(getattr(attr, "fget", attr))
+
+    assert source(port_engine._BlockEngine) == source(jax_engine._BlockEngine)
 
 
 def test_assemble_rows_copies_a_strided_row_as_itself():

@@ -25,6 +25,7 @@ from distance_tpu.measures import MEASURES  # noqa: E402
 from distance_tpu_torch import cli as port_cli  # noqa: E402
 from distance_tpu_torch import engine as port_engine  # noqa: E402
 from distance_tpu_torch.ops import counters as kernels  # noqa: E402
+from distance_tpu_torch.ops import packing  # noqa: E402
 from distance_tpu_torch.ops.features import get_plan  # noqa: E402
 from tests.conftest import make_fasta, random_seqs  # noqa: E402
 from tests.test_golden import run_engine  # noqa: E402
@@ -99,10 +100,10 @@ class Seen:
             self.blocked += 1
             return real_blocked(*a, **k)
 
-        def staged(eng, lside, spans, codes, n1, bn):
+        def staged(*args):
             self.staged += 1
-            self.stage_bns.append(bn)
-            return real_staged(eng, lside, spans, codes, n1, bn)
+            self.stage_bns.append(args[-1])  # the group's records
+            return real_staged(*args)
 
         def get(side, q0, q1):
             self.gets.append((q0, q1, side._key == (q0, q1)))
@@ -312,11 +313,12 @@ def test_staged_stream_resume_records_the_staged_group(tmp_path, monkeypatch,
     assert out.read_bytes() == want
 
 
-# A card of 20992 B whose loaded side (33 x 128 padded sites, raw) fits
-# half of it in core with groups of 4 records: (10496 - 33 * 128) // (4 x
-# (2 x 33 x 4 + 128)) = 4.  Another process holding all but 6000 B sends
-# the same stream out of core.
-CARD_TOTAL = 20992
+# A card of 2,262,000 B whose loaded side (33 x 128 padded sites, raw)
+# fits half of it in core with groups of 4 records: ``_stream_footprint``
+# of 4 groups of 4 in flight, with their packs' sidecars and scratch, is
+# 1,129,878 B, and of 4 groups of 6, 1,134,030 B.  Another process holding
+# all but 6000 B sends the same stream out of core.
+CARD_TOTAL = 2_262_000
 CARD_FREE_LOW = 6000
 
 
@@ -415,9 +417,9 @@ def test_boundary_super_row_is_reused_across_groups(tmp_path, monkeypatch,
     prepares = []
     real = port_engine._BlockEngine.prepare
 
-    def prepare(eng, matrix, max_block):
+    def prepare(eng, matrix, max_block, **kw):
         prepares.append(matrix.shape[0])
-        return real(eng, matrix, max_block)
+        return real(eng, matrix, max_block, **kw)
 
     monkeypatch.setattr(port_engine._BlockEngine, "prepare", prepare)
     assert port_tsv(tmp_path, args) == want
@@ -508,11 +510,17 @@ def test_out_of_core_sizing_at_gb_scale(gb_budgets, shape, measure, width):
             assert n1 <= kernels.MAX_X_ROWS
             assert n1 * l_pad + (lay.pending + 1) * lay.group * (
                 g * n1 * 4 + l_pad) <= SIZING_BUDGET
+            assert port_engine._stream_footprint(
+                lay.group, n1, width, g, lay.pending + 1) <= SIZING_BUDGET
+            assert g * n1 * lay.group <= packing.MAX_CELLS  # one pack
             return
         assert lay.sr_rows % ti == 0 and 0 < lay.sr_rows <= kernels.MAX_X_ROWS
         assert lay.group >= port_engine.STAGED_ROWS_FLOOR
         assert (lay.group + lay.sr_rows) * l_pad + (
             g * lay.sr_rows * lay.group * 4) <= SIZING_BUDGET
+        assert port_engine._stream_footprint(
+            lay.group, lay.sr_rows, width, g, 1, kept=n1) <= SIZING_BUDGET
+        assert g * lay.sr_rows * lay.group <= packing.MAX_CELLS
         host = lay.pending * g * n1 * lay.group * 4
         assert host <= SIZING_HOST // 2 or (
             lay.pending == 1 and lay.group == port_engine.STAGED_ROWS_FLOOR)
@@ -524,9 +532,35 @@ def test_out_of_core_sizing_at_gb_scale(gb_budgets, shape, measure, width):
     rows, sr = port_engine._blocked_layout(n1, n2, width, g, ti, tj,
                                            SIZING_BUDGET)
     assert rows > 0 and rows % ti == 0 and sr > 0 and sr % tj == 0
-    assert port_engine._device_footprint(
-        [(rows, ti), (sr, tj)], width, ti, g) <= SIZING_BUDGET
+    y_rows = port_engine._padded_shape(sr, width, ti, tj)[0]
+    assert rows * l_pad + y_rows * l_pad + (
+        port_engine.STRIP_LOOKAHEAD + 1) * g * ti * y_rows * 4 <= SIZING_BUDGET
+    kept = n2 + -(-n2 // tj) * max(ti, tj)  # every super-row's baselines
+    assert port_engine._blocked_footprint(rows, y_rows, width, g, ti, tj,
+                                          kept) <= SIZING_BUDGET
     assert g * rows * n2 * 4 <= SIZING_HOST // 2 or rows == ti
+
+
+@pytest.mark.parametrize("measure, n1", [("raw", 131072), ("tn93", 65536),
+                                         ("tn93", 1_000_000)])
+def test_stream_groups_stay_within_one_pack(monkeypatch, measure, n1):
+    """A stream group's (G, n1, rows) counters are packed in one launch,
+    whose rel4 sidecar indexes cells with int32: on an 80 GB card the
+    auto group stays below 2^31 cells where the cap of 8192 records would
+    pass it (raw from 131072 loaded records, tn93 from 65536), in core and
+    under a shard alike."""
+    monkeypatch.setattr(port_engine, "_card_memory",
+                        lambda device: (84_465_090_560, 85_017_493_504))
+    monkeypatch.setattr(port_engine, "_strip_ram_budget",
+                        lambda deterministic=False: (96 << 30) // 3)
+    g = len(get_plan(measure).counters)
+    for sharded in (False, True):
+        lay = port_engine._stream_layout(n1, 29904, measure, CUDA, 8192,
+                                         sharded=sharded)
+        rows = lay.sr_rows or n1
+        assert g * rows * lay.group <= packing.MAX_CELLS
+        assert lay.group >= 2 and lay.group % 2 == 0
+    assert g * n1 * port_engine.STREAM_GROUP_CAP > packing.MAX_CELLS
 
 
 @pytest.mark.parametrize("measure, crossover", [("raw", 81920),
@@ -540,7 +574,8 @@ def test_square_in_core_crossover_on_an_80gb_card(measure, crossover):
     g = len(get_plan(measure).counters)
 
     def footprint(n):
-        return port_engine._device_footprint([(n, 8192)], 29904, 8192, g)
+        rows = port_engine._padded_shape(n, 29904, 8192, 8192)[0]
+        return port_engine._blocked_footprint(0, rows, 29904, g, 8192, 8192)
 
     assert footprint(crossover) <= budget < footprint(crossover + 1)
 

@@ -1,10 +1,11 @@
 """End to end: the port's in-core square, rectangle and stream with
-diff-encoded uploads and the rel4/rel pack ladder write the bytes of
+diff-encoded uploads and the JAX engine's pack ladder write the bytes of
 ``distance --backend numpy``, for all six measures, whether diff uploads
-and packing are on (the default), forced, off, or saturating (a diverse
-alignment walks the ladder rel4 -> rel -> int32), sharded, and under
-``--launch 2``.  Every port run is ``--backend torch`` (the plain
-versions of the kernels, on the CPU).
+and rel packing are on (the default), forced, off (the ladder without a
+reference row: narrow -> wide), or saturating (a diverse alignment walks
+rel4 -> rel -> wide below 2^16 sites, and rel4 -> rel -> int32 above),
+sharded, and under ``--launch 2``.  Every port run is ``--backend torch``
+(the plain versions of the kernels, on the CPU).
 """
 
 import os
@@ -41,7 +42,8 @@ def _no_jit_cache(monkeypatch):
 
 def diverse_fastas(seed=3, n1=150, n2=140, width=300):
     """Random bases: residuals against any reference row pass the nibble
-    and int8 ranges in blocks of more cells than the sidecar's segments."""
+    and int8 ranges in blocks of more cells than the sidecar's segments,
+    and past 255 sites the narrow lanes saturate too."""
     rng = np.random.default_rng(seed)
 
     def recs(n, tag):
@@ -100,7 +102,7 @@ def test_packed_runs_equal_numpy(tmp_path, monkeypatch, spies, measure, mode,
     """Low-diversity inputs (an ancestor and 6 mutated sites a record):
     the default run sends its codes as diffs and its blocks at rel4,
     ``force`` diff-encodes every upload, ``off`` sends them dense and
-    int32; the bytes never change.  The stream's groups of 7-record
+    packs narrow lanes (no reference row); the bytes never change.  The stream's groups of 7-record
     batches (at most 14 records a group) are odd and even: odd ones take
     rel."""
     for name, value in SETTINGS[setting].items():
@@ -113,7 +115,7 @@ def test_packed_runs_equal_numpy(tmp_path, monkeypatch, spies, measure, mode,
     assert got == want
     d = delta(before, spies())
     if setting == "off":
-        assert d["diff"] == 0 and d["rel4"] == d["rel"] == 0 and d["none"]
+        assert d["diff"] == 0 and d["rel4"] == d["rel"] == 0 and d["narrow"]
     else:
         assert d["diff"] >= 1 and d["rel4"] >= 1 and d["none"] == 0
     if setting != "off" and mode == "stream":
@@ -124,32 +126,55 @@ def test_packed_runs_equal_numpy(tmp_path, monkeypatch, spies, measure, mode,
 @pytest.mark.parametrize("measure", MEASURES)
 def test_saturating_runs_walk_the_ladder(tmp_path, spies, measure, mode):
     """A diverse alignment: every block saturates rel4 and rel and is
-    fetched at int32 (the ladder of the JAX engine at unpacked widths);
-    the bytes are numpy's."""
+    fetched wide (the JAX engine's ladder at 300 sites); the bytes are
+    numpy's."""
     f1, f2 = diverse_fastas()
     args = mode_args(tmp_path, mode, f1, f2, batch=140) + ["-m", measure]
     before = spies()
     got, want = both(tmp_path, args)
     assert got == want
     d = delta(before, spies())
-    assert d["rel4"] >= 1 and d["rel"] == d["rel4"] and d["none"] == d["rel"]
+    assert d["rel4"] >= 1 and d["rel"] == d["rel4"] and d["wide"] == d["rel"]
+    assert d["narrow"] == d["none"] == 0
+
+
+@pytest.mark.parametrize("width", [(1 << 16) - 1, 1 << 16])
+def test_ladder_without_reference_ends_at_the_pack_limit(tmp_path, spies,
+                                                        monkeypatch, width):
+    """Without a reference row (DISTANCE_TPU_NO_REL_PACK) a diverse square
+    below 2^16 sites goes narrow (saturated) -> wide, and at 2^16 sites,
+    where no 16-bit field holds a counter, int32 from the start; the bytes
+    are numpy's."""
+    monkeypatch.setenv("DISTANCE_TPU_NO_REL_PACK", "1")
+    f1, _ = diverse_fastas(n1=12, width=width)
+    args = mode_args(tmp_path, "square", f1, b"") + ["-m", "tn93"]
+    before = spies()
+    got, want = both(tmp_path, args)
+    assert got == want
+    d = delta(before, spies())
+    assert d["rel4"] == d["rel"] == 0
+    want_rungs = (1, 1, 0) if width < 1 << 16 else (0, 0, 1)
+    assert (d["narrow"], d["wide"], d["none"]) == want_rungs
 
 
 def test_sticky_ladder_skips_saturating_rungs(tmp_path, spies, monkeypatch):
     """After NARROW_STICKY_LIMIT consecutive saturations at rel4 and at
-    rel, later strips are first dispatched at int32: with one strip in
-    flight at a time (DISTANCE_TPU_LOOKAHEAD=0), a diverse square's ten
-    strips go rel4 (refetched at rel, then int32) twice, then int32."""
+    rel, later strips are first dispatched narrow, and after as many at
+    narrow, wide: with one strip in flight at a time
+    (DISTANCE_TPU_LOOKAHEAD=0), a diverse square of 600 sites and ten
+    strips goes rel4 (refetched at rel, then wide) twice, narrow
+    (refetched wide) twice, then wide."""
     monkeypatch.setenv("DISTANCE_TPU_LOOKAHEAD", "0")
     monkeypatch.setattr(port_engine, "TILE_I", 32)
     monkeypatch.setattr(port_engine, "TILE_J", 512)
-    f1, _ = diverse_fastas(n1=300)
+    f1, _ = diverse_fastas(n1=300, width=600)
     args = mode_args(tmp_path, "square", f1, b"") + ["-m", "raw"]
     before = spies()
     got, want = both(tmp_path, args)
     assert got == want
     d = delta(before, spies())
-    assert (d["rel4"], d["rel"], d["none"]) == (2, 2, 10)
+    assert (d["rel4"], d["rel"], d["narrow"], d["wide"], d["none"]) == (
+        2, 2, 2, 10, 0)
 
 
 @pytest.mark.parametrize("tile_i, tile_j, n", [(14, 7, 28), (18, 9, 27)])

@@ -1,12 +1,15 @@
-"""The port's rel4/rel packing (``distance_tpu_torch/ops/packing.py``)
-against the JAX package's ``distance_tpu/ops/packing.py`` with ``xp=np``,
-and the engine's packed strips against the JAX engine's on the CPU.
+"""The port's packing (``distance_tpu_torch/ops/packing.py``) against the
+JAX package's ``distance_tpu/ops/packing.py`` with ``xp=np``, and the
+engine's packed strips and pack ladder against the JAX engine's on the
+CPU.
 
-The plain versions of K2 must give the lanes and the exception sidecar
-byte for byte; the host finish must give back the counters; and one strip
-of the port's ``_dispatch_strip`` (lanes, bundle) must equal the JAX
-``_dispatch_strip`` at ``--backend xla``, with the same tiles and the
-same reference row.
+The plain versions of K2 (rel4, rel) and K4 (narrow, wide) must give the
+lanes, words and the exception sidecar byte for byte; the host finish and
+the copied unpackers must give back the counters; one strip of the port's
+``_dispatch_strip`` must equal the JAX ``_dispatch_strip`` at ``--backend
+xla`` at every rung, with the same tiles and the same reference row; and
+the port's ``pack_mode`` must follow the JAX engine's through the same
+sequence of saturations.
 """
 
 import numpy as np
@@ -271,10 +274,203 @@ def test_dispatch_strip_equals_jax(measure, mode, diff, monkeypatch):
     np.testing.assert_array_equal(np.asarray(jm2), pm2.numpy())
     for i0 in (0, 32):
         col_starts = list(range(i0 if mode == "square" else 0, n2, tj))
-        for rung in ("rel4", "rel"):
+        for rung in ("rel4", "rel", "narrow", "wide"):
             want = jax_engine._dispatch_strip(
                 jeng, jm1, jm2, i0, col_starts, ti, tj, rung, nv=(n1, n2))
             got = port_engine._dispatch_strip(
                 peng, pm1, pm2, i0, col_starts, ti, tj, rung, (n1, n2), diag)
+            if rung in ("narrow", "wide"):
+                got, want = (got,), (want,)
             for a, b in zip(got, want):
+                assert a.numpy().dtype == np.asarray(b).dtype
                 np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+# -- K4: narrow and wide -------------------------------------------------------
+
+WIDTHS = [1, 300, 29904, (1 << 16) - 1]
+
+
+def counters_near_saturation(rng, measure, m, n, width):
+    """(G, m, n) int32 counters of ``measure`` whose narrow lanes fall on
+    either side of 255 (254, 255, 256 and far past it, and ``width - sum``
+    at 255), with random cells between."""
+    g = G_OF[measure]
+    c = rng.integers(0, max(2, min(width, 600)), size=(g, m, n)).astype(
+        np.int32)
+    flat = c.reshape(g, -1)
+    picks = [254, 255, 256, 1000, 0, width, (1 << 16) - 1]
+    for k, v in enumerate(picks):
+        flat[:, k % flat.shape[1]] = v
+    # the first lane of raw, k80 and tn93 at exactly 255 below the width
+    cell = len(picks) % flat.shape[1]
+    flat[:, cell] = 0
+    if measure in ("raw", "jc69"):
+        flat[0, cell], flat[1, cell] = 0, width - 255
+    elif measure == "k80":
+        flat[0, cell] = width - 255
+    elif measure == "tn93":
+        flat[1, cell] = width - 255
+    return c
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("shape", [(1, 1), (33, 65), (64, 128)])
+@pytest.mark.parametrize("measure", MEASURES)
+def test_plain_narrow_and_wide_equal_jax(measure, shape, width):
+    rng = np.random.default_rng(hash((measure, shape, width)) % 2**32)
+    c = counters_near_saturation(rng, measure, *shape, width)
+    want = jax_packing.pack_device_narrow(measure, c, width, np)
+    got = packing.pack_narrow(measure, t(c), width)
+    assert got.dtype == torch.int8 and want.dtype == np.int8
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        packing.pack_narrow_torch(measure, t(c), width).numpy(), want)
+    want = jax_packing.pack_device(measure, c, np)
+    got = packing.pack_wide(measure, t(c))
+    assert got.numpy().dtype == want.dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        packing.pack_wide_torch(measure, t(c)).numpy(), want)
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+def test_narrow_and_wide_wrap_as_numpy_does(measure):
+    """Counters outside a lane's range (negative, past 2^16, near 2^31):
+    the casts wrap as numpy's astype does."""
+    rng = np.random.default_rng(7)
+    g = G_OF[measure]
+    c = rng.choice(np.array([-1, -256, -70000, 65535, 65536, 70000,
+                             (1 << 30) + 5, -(1 << 30)], np.int32),
+                   size=(g, 9, 11))
+    for width in (0, 255, 40000):
+        np.testing.assert_array_equal(
+            packing.pack_narrow_torch(measure, t(c), width).numpy(),
+            jax_packing.pack_device_narrow(measure, c, width, np))
+    np.testing.assert_array_equal(packing.pack_wide_torch(measure, t(c)).numpy(),
+                                  jax_packing.pack_device(measure, c, np))
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("measure", MEASURES)
+def test_copied_unpackers_round_trip(measure, width):
+    """Real counters (K1 of low-diversity codes) come back through the
+    copied ``unpack_host`` (wide) and ``unpack_host_narrow``; a saturated
+    narrow lane gives None."""
+    rng = np.random.default_rng(width)
+    anc = rng.choice(ALL_CODES[:4], width).astype(np.uint8)
+    mat = np.repeat(anc[None], 30, 0)
+    hits = rng.random(mat.shape) < min(0.5, 20 / width)
+    mat[hits] = rng.choice(ALL_CODES, int(hits.sum()))
+    plan = plan_to_torch(get_plan(measure), CPU)
+    c = counters_torch(t(mat[:13]), t(mat[13:]), plan)
+    wide = packing.pack_wide(measure, c).numpy()
+    np.testing.assert_array_equal(packing.unpack_host(measure, wide),
+                                  c.numpy())
+    narrow = packing.pack_narrow(measure, c, width).numpy()
+    back = packing.unpack_host_narrow(measure, narrow, width)
+    if (narrow.view(np.uint8) == packing.NARROW_SAT).any():
+        assert back is None
+    else:
+        np.testing.assert_array_equal(back, c.numpy())
+
+
+def test_narrow_lane_at_255_saturates():
+    c = np.zeros((2, 1, 3), np.int32)
+    c[0, 0] = [254, 255, 10]
+    c[1, 0] = [0, 0, 1000 - 10 - 255]  # width - (diff + same) = 255
+    lanes = packing.pack_narrow("raw", t(c), 1000).numpy()
+    assert lanes.view(np.uint8).tolist() == [[[254, 255, 10]],
+                                             [[255, 255, 255]]]
+    assert packing.unpack_host_narrow("raw", lanes[:, :, :1], 1000) is None
+    c[1, 0, 0] = 1000 - 254 - 254  # both lanes 254: not saturated
+    back = packing.unpack_host_narrow(
+        "raw", packing.pack_narrow("raw", t(c), 1000).numpy()[:, :, :1], 1000)
+    np.testing.assert_array_equal(back, c[:, :, :1])
+
+
+def test_narrow_and_wide_wrappers_refuse():
+    c = torch.zeros((2, 3, 5), dtype=torch.int32)
+    with pytest.raises(ValueError, match="tn93 packs"):
+        packing.pack_narrow("tn93", c, 100)
+    with pytest.raises(ValueError, match="int32"):
+        packing.pack_wide("raw", c.long())
+    with pytest.raises(ValueError):
+        packing.pack_wide("nope", c)
+    with pytest.raises(ValueError, match="CUDA"):
+        packing.pack_narrow_cuda("raw", c, 100)
+    with pytest.raises(ValueError, match="CUDA"):
+        packing.pack_wide_cuda("raw", c)
+    with pytest.raises(ValueError, match="int32"):
+        packing.pack_narrow_cuda("raw", c, 1 << 31)
+
+
+# -- the pack ladder beside the JAX engine's ---------------------------------
+
+def ladder_pair(width):
+    # tile_j 16: the JAX rel4 rung's halved lane axis must divide the
+    # 8-device mesh of the tests
+    return (jax_engine._BlockEngine("raw", "xla", 8, 16, width=width),
+            port_engine._BlockEngine("raw", CPU, 8, width, rel=True))
+
+
+def test_sticky_escalation_ladder_equals_jax():
+    """tests/test_packing.py's ladder, on both engines side by side: with a
+    reference row rel4 -> rel -> narrow/wide, without one narrow -> wide;
+    a clean fetch resets each streak."""
+    from distance_tpu_torch.engine import NARROW_STICKY_LIMIT
+
+    jeng, peng = ladder_pair(600)
+    assert peng.packed == jeng.packed is True
+
+    def same(want_mode):
+        assert peng.pack_mode == jeng.pack_mode == want_mode
+        assert peng.mode_for(16) == jeng.stream_pack_mode
+
+    def note(kind, saturated):
+        getattr(jeng, f"note_{kind}")(saturated)
+        getattr(peng, f"note_{kind}")(saturated)
+
+    same("narrow")
+    for _ in range(NARROW_STICKY_LIMIT - 1):
+        note("narrow", True)
+    same("narrow")
+    note("narrow", False)
+    same("narrow")
+    for _ in range(NARROW_STICKY_LIMIT):
+        note("narrow", True)
+    same("wide")
+    jeng.rel_ref = peng.rel_ref = object()
+    same("rel4")
+    for _ in range(NARROW_STICKY_LIMIT - 1):
+        note("rel4", True)
+    same("rel4")
+    note("rel4", False)
+    same("rel4")
+    for _ in range(NARROW_STICKY_LIMIT):
+        note("rel4", True)
+    same("rel")
+    for _ in range(NARROW_STICKY_LIMIT):
+        note("rel", True)
+    same("wide")
+    note("narrow", False)  # a clean narrow fetch: narrow again
+    same("narrow")
+
+
+@pytest.mark.parametrize("width", [0, 1, 600, (1 << 16) - 1, 1 << 16, 70000])
+@pytest.mark.parametrize("seed", range(4))
+def test_random_saturations_walk_both_ladders_alike(width, seed):
+    """Random sequences of fetch outcomes at every rung, at widths on
+    either side of 2^16 (and 0): the port's rung equals the JAX engine's
+    after every step."""
+    jeng, peng = ladder_pair(width)
+    assert peng.packed == jeng.packed
+    rng = np.random.default_rng(seed)
+    if seed % 2:
+        jeng.rel_ref = peng.rel_ref = object()
+    for _ in range(60):
+        kind = rng.choice(["narrow", "rel4", "rel"])
+        saturated = bool(rng.random() < 0.6)
+        getattr(jeng, f"note_{kind}")(saturated)
+        getattr(peng, f"note_{kind}")(saturated)
+        assert peng.pack_mode == jeng.pack_mode

@@ -194,9 +194,13 @@ def test_rectangle_footprint_counts_both_prepared_matrices(ti, tj):
     mats = [eng.prepare(rng.integers(0, 9, (n, 70), dtype=np.uint8), mb)
             for n, mb in ((21, ti), (53, tj))]
     strips = (port_engine.STRIP_LOOKAHEAD + 1) * 2 * ti * mats[1].shape[0] * 4
-    assert port_engine._device_footprint(
-        [(21, ti), (53, tj)], 70, ti, 2
-    ) == sum(m.numel() for m in mats) + strips
+    rows = [m.shape[0] for m in mats]
+    both = port_engine._blocked_footprint(rows[0], rows[1], 70, 2, ti, tj)
+    assert both >= sum(m.numel() for m in mats) + strips
+    # file1's rows: their upload (with a diff upload's transient) and
+    # baselines, beside file2's footprint alone
+    assert both - port_engine._blocked_footprint(0, rows[1], 70, 2, ti, tj) \
+        == port_engine._upload_bytes(rows[0], mats[0].shape[1]) + 2 * 8 * rows[0]
 
 
 def test_rectangle_shards_concatenate_to_unsharded(tmp_path, fastas):
