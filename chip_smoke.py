@@ -34,8 +34,12 @@ output, and times the kernels beside their plain versions.  Phases:
    tiles than one grid axis of 65535 blocks holds.  K2 (rel4 and rel)
    against its plain version, exactly: the square's 2048 x 2048 diagonal
    block with its self-pairs and padding masked and the stream's 2000 x
-   8000 group, six measures, and counters with chosen outliers (segments
-   holding 0, 1, 2, 3 and many); K3 against its plain version on the
+   8000 group, six measures, counters with chosen outliers (segments
+   holding 0, 1, 2, 3 and many), and for each measure's G (1-4) rel4's
+   segment edges (``edge_counters``: segments of 7, 8 and 2 cells, a
+   byte across two segments, every cell out, the last segment partial,
+   a residual of -2^31, no cells; baselines read in place as row slices);
+   K3 against its plain version on the
    square's 8192 x 29952 upload (its rows equal to the dense upload, pad
    rows the reference row), with no diffs and capacity-many; K4 (narrow
    and wide) byte-equal to its plain version for six measures on the
@@ -49,7 +53,9 @@ output, and times the kernels beside their plain versions.  Phases:
 3. the square path: the CLI on the 8192 x 29904 alignment, ``-m raw
    --backend cuda``; line count, 1200 random rows against the host
    oracle, each kernel's launch count in that run (10 blocks at rel4, 3
-   baselines, the refetches by rung), a ``torch.profiler`` split of a
+   baselines, the refetches by rung, packed from the counters the first
+   dispatch kept: K1 = first dispatches + baselines on every path,
+   ``check_launches``), a ``torch.profiler`` split of a
    second run's device time, and the same square once more dense and
    without a reference row (DISTANCE_TPU_NO_DIFF_UPLOAD=1
    DISTANCE_TPU_NO_REL_PACK=1: the ladder narrow -> wide): same sha256,
@@ -61,13 +67,15 @@ output, and times the kernels beside their plain versions.  Phases:
    outside the timed window) at the square path's block shape (2048 x
    2048 x 29952 padded sites) for all six measures: equal, timed on the
    card in turns, beside the bound (2 m n L R int8 operations at 1,979
-   TOP/s, L = 29904 real sites, R = the JAX plan's channels); K2 at raw
-   on the 2048 x 2048 block and the 2000 x 8000 group and K3 on the
-   8192 x 29952 upload, timed in turns with their plain versions (K3 also
-   with its yardstick, ``expand().clone()`` and ``index_put_``), beside
-   their bounds in bytes at 3.35 TB/s, and K4 narrow and wide at raw on
-   the 2048 x 2048 block likewise; the numbers at the square's shapes go
-   into the result line;
+   TOP/s, L = 29904 real sites, R = the JAX plan's channels); K2 and K4
+   at raw on the 2048 x 2048 block and the 2000 x 8000 group, reading
+   their counters cold from a ring of copies larger than the L2
+   (``cold_ring_ms``: the kernel's time by the profiler against its
+   bound in bytes at 3.35 TB/s, and a call's by CUDA events), and K2's
+   time a launch in phase 3's square run; K3 on the 8192 x 29952 upload
+   in turns with its plain version and its yardstick (``expand().clone()``
+   and ``index_put_``); the numbers at the square's shapes go into the
+   result line;
 6. the rectangle path: the CLI on 4096 x 8192 x 29904 (two files cut
    from one alignment), ``-m raw``; line count, 1200 random rows, launch
    count, and a ``torch.profiler`` split of a second run's device time
@@ -502,6 +510,57 @@ def outlier_counters(dev, g: int, m: int, n: int, seed: int):
                   z(g, np.int32)))
 
 
+def edge_counters(dev, g: int, m: int, n: int, seed: int, every: bool):
+    """Counters and baselines whose residuals lie in [-7, 7] but for
+    outliers on rel4's segment edges (segments of L cells): a segment with
+    one, one with two and one with every cell out, both cells of the
+    first byte that straddles two segments (odd L), two cells of the last
+    segment holding cells, and a residual of exactly -2^31 (numpy's int32
+    abs keeps it negative: no outlier); with ``every``, every cell out.
+    Returns (c, rb, cb, cc) on ``dev``, rb and cb as row slices of wider
+    tensors, which the kernels read in place."""
+    import torch
+
+    from distance_tpu_torch.ops.packing import REL4_SEGMENTS
+
+    rng = np.random.default_rng(seed)
+    c = rng.integers(-4, 5, size=(g, m, n)).astype(np.int32)
+    rb = rng.integers(-1, 2, (g, m + 7)).astype(np.int32)
+    cb = rng.integers(-1, 2, (g, n + 5)).astype(np.int32)
+    cc = rng.integers(-1, 2, g).astype(np.int32)
+    flat = c.reshape(-1)
+    size = flat.size
+    seg = -(-size // REL4_SEGMENTS)
+    out = np.array([11, -11, 100, -300, 9000], dtype=np.int32)
+    if every:
+        flat[:] = rng.choice(out, size)
+    elif size:
+        for s, k in ((1, 1), (2, 2), (3, seg)):
+            cells = rng.choice(np.arange(s * seg, min((s + 1) * seg, size)),
+                               min(k, max(0, size - s * seg)), replace=False)
+            flat[cells] = rng.choice(out, cells.size)
+        s = 5 if seg % 2 else 4
+        if s * seg < size:
+            flat[[s * seg - 1, s * seg]] = rng.choice(out, 2)
+        flat[[(size - 1) // seg * seg, size - 1]] = rng.choice(out, 2)
+        shift = int(rb[0, 3]) + int(cb[0, 2]) - int(cc[0])
+        c[0, 0, 0] = np.int64(-(1 << 31) + shift).astype(np.int32)
+    t = [torch.from_numpy(a).to(dev) for a in (c, rb, cb, cc)]
+    return t[0], t[1][:, 3:3 + m], t[2][:, 2:2 + n], t[3]
+
+
+def edge_shapes(g: int) -> list:
+    """(m, n) of G = ``g`` counter blocks whose rel4 segments are of 7
+    cells (odd: bytes straddle segments), 8 (even) and 2 (even, the last
+    segment partial), and of 2048 x 2048 (the square's block) and no
+    cells."""
+    from distance_tpu_torch.ops.packing import REL4_SEGMENTS
+
+    return [(7 * REL4_SEGMENTS // (g * 246), 246),
+            (8 * REL4_SEGMENTS // (g * 256), 256),
+            (2 * REL4_SEGMENTS // (g * 180), 180), (BLOCK, BLOCK), (0, 8)]
+
+
 def phase_pack_and_rebuild(bench: np.ndarray) -> int:
     """K2 (rel4 and rel packs), K3 (the diff rebuild) and K4 (narrow and
     wide packs) against their plain versions, exactly.  K2 and K4 on the
@@ -580,6 +639,22 @@ def phase_pack_and_rebuild(bench: np.ndarray) -> int:
     print(f"[2] K2 == plain on counters with chosen outliers (segments with"
           f" 0, 1, 2, 3 and many; the diagonal and padding masked and"
           f" not): {shapes}")
+    for k, measure in enumerate(MEASURES):
+        g = len(get_plan(measure).counters)
+        for m, n in edge_shapes(g):
+            seg = max(1, -(-g * m * n // packing.REL4_SEGMENTS))
+            for every in (False, True):
+                c, rb, cb, cc = edge_counters(dev, g, m, n,
+                                              SEED + 60 + k, every)
+                tag = (f"{measure} edges {g}x{m}x{n} (segments of {seg}"
+                       f"{', every cell out' if every else ''})")
+                both(tag, c, rb, cb, cc, 3, 1, (3 + m - 2, 1 + n - 3), 2)
+                both(f"{tag} unmasked", c, rb, cb, cc)
+        print(f"[2] K2 == plain at rel4's segment edges, {measure} (G ="
+              f" {g}): {edge_shapes(g)} (segments of 7, 8, 2 cells; a byte"
+              f" across two segments, 0, 1, 2 and every cell out, the last"
+              f" segment partial, a residual of -2^31, every cell out, no"
+              f" cells), baselines read in place as row slices")
 
     # K3 at the square's upload: the bench alignment, 8192 x 29952 (and
     # with 64 pad rows more)
@@ -663,18 +738,25 @@ def cut(sizes) -> list:
 
 def ooc_blocks(mode: str) -> set:
     """(rows, cols, i0, j0, nv, diag_off) of every packed block the
-    out-of-core run of ``mode`` dispatches, as ``_BlockEngine.block`` gets
-    them, from ``OOC_LAYOUTS``: the blocked sweeps' (TILE_I, TILE_J)
-    blocks of each strip of each X group against each super-row (the
-    square's from the block holding its diagonal on), with the valid rows
-    of both and, on the square, the self-pair offset g0 - q0; the staged
-    stream's one block of each loaded super-row against each group."""
+    out-of-core run of ``mode`` dispatches, as
+    ``_BlockEngine.pack_block`` gets them (``ooc_dispatches``)."""
+    return set(ooc_dispatches(mode))
+
+
+def ooc_dispatches(mode: str) -> list:
+    """(rows, cols, i0, j0, nv, diag_off) of each block the out-of-core
+    run of ``mode`` dispatches, once each, from ``OOC_LAYOUTS``: the
+    blocked sweeps' (TILE_I, TILE_J) blocks of each strip of each X group
+    against each super-row (the square's from the block holding its
+    diagonal on), with the valid rows of both and, on the square, the
+    self-pair offset g0 - q0; the staged stream's one block of each
+    loaded super-row against each group."""
     xs, ys = OOC_LAYOUTS[mode]
     if mode.startswith("stream"):
-        return {(q, bn, 0, 0, (q, bn), None) for q in ys for bn in xs}
+        return [(q, bn, 0, 0, (q, bn), None) for q in ys for bn in xs]
     ti, tj = OOC[mode][2]
     square = mode == "square"
-    blocks = set()
+    blocks = []
     for g0, g1 in cut(xs):
         for q0, q1 in cut(ys):
             if q1 <= (g0 if square else 0):
@@ -686,8 +768,8 @@ def ooc_blocks(mode: str) -> set:
                 if square and q0 <= g0 + i0:
                     lo = (g0 + i0 - q0) // tj * tj
                 for j0 in range(lo, q1 - q0, tj):
-                    blocks.add((ti, tj, i0, j0, (g1 - g0, q1 - q0),
-                                g0 - q0 if square else None))
+                    blocks.append((ti, tj, i0, j0, (g1 - g0, q1 - q0),
+                                   g0 - q0 if square else None))
     return blocks
 
 
@@ -804,15 +886,17 @@ def reset_counts() -> None:
 
     counters.LAUNCHES = packing.LAUNCHES_REL4 = packing.LAUNCHES_REL = 0
     packing.LAUNCHES_NARROW = packing.LAUNCHES_WIDE = 0
-    diffup.LAUNCHES = engine.BASELINES = 0
+    diffup.LAUNCHES = engine.BASELINES = engine.K1_BLOCKS = 0
     for rung in engine.RUNG_BLOCKS:
         engine.RUNG_BLOCKS[rung] = 0
 
 
 def read_counts() -> dict:
     """The counts ``reset_counts`` zeroes: kernel launches by name,
-    ``baselines`` (K1 launches against the reference row) and ``blocks``
-    (counter blocks by rung: first dispatches and refetches)."""
+    ``baselines`` (K1 launches against the reference row), ``k1_blocks``
+    (K1 launches of counter blocks, made at their first dispatch) and
+    ``blocks`` (counter blocks packed, by rung: first dispatches and
+    refetches)."""
     from distance_tpu_torch import engine
     from distance_tpu_torch.ops import counters, diffup, packing
 
@@ -823,6 +907,7 @@ def read_counts() -> dict:
             "pack_wide": packing.LAUNCHES_WIDE,
             "diff_rebuild": diffup.LAUNCHES,
             "baselines": engine.BASELINES,
+            "k1_blocks": engine.K1_BLOCKS,
             "blocks": dict(engine.RUNG_BLOCKS)}
 
 
@@ -852,36 +937,42 @@ def check_packed_path(tag: str, counts: dict, blocks: int, baselines: int,
     """A run of the in-core packed path: ``blocks`` counter blocks first
     dispatched at rel4; ``baselines`` K1 launches against the reference
     row, and with ``group_baselines`` (the stream) one more for each
-    packed block dispatched, whose group's rows are not kept; then
+    block first dispatched, whose group's rows are not kept; then
     ``check_launches``."""
     b = counts["blocks"]
     if group_baselines:
-        baselines += b["rel4"] + b["rel"]
+        baselines += blocks
     check(b["rel4"] == blocks and counts["baselines"] == baselines
           and counts["diff_rebuild"] >= rebuilds,
           f"{tag}: launches {counts}, expected {blocks} blocks at rel4,"
           f" {baselines} baselines and {rebuilds} rebuilds")
-    check_launches(tag, counts)
+    check_launches(tag, counts, blocks)
 
 
-def check_launches(tag: str, counts: dict) -> None:
-    """Every K1 launch a block (at any rung) or a baseline, one K2 launch
-    a block at rel4 or rel, and one K4 launch a block at narrow or wide;
-    prints the split."""
+def check_launches(tag: str, counts: dict, first: int) -> None:
+    """K1 = first dispatches + baselines: ``first`` counter blocks were
+    dispatched (each strip, stream group or staged part once), each with
+    one K1 launch, and every other K1 launch was a baseline; a refetch
+    packed the counters its first dispatch kept on the card and launched
+    no K1.  One K2 launch a block packed at rel4 or rel, and one K4 launch
+    a block packed narrow or wide.  Prints the split."""
     b = counts["blocks"]
-    check(counts["counters"] == sum(b.values()) + counts["baselines"]
+    packs = sum(b.values())
+    check(counts["counters"] == counts["k1_blocks"] + counts["baselines"]
+          and counts["k1_blocks"] == first and packs >= first
           and counts["pack_rel4"] == b["rel4"]
           and counts["pack_rel"] == b["rel"]
           and counts["pack_narrow"] == b["narrow"]
           and counts["pack_wide"] == b["wide"],
-          f"{tag}: launches {counts} do not add up")
-    print(f"{tag} K1 {counts['counters']} = {sum(b.values())} blocks (rel4"
+          f"{tag}: launches {counts} do not add up to {first} first"
+          f" dispatches")
+    print(f"{tag} K1 {counts['counters']} = {first} first dispatches +"
+          f" {counts['baselines']} baselines; {packs - first} refetches"
+          f" packed from kept counters; blocks packed by rung: rel4"
           f" {b['rel4']}, rel {b['rel']}, narrow {b['narrow']}, wide"
-          f" {b['wide']}, int32 {b['none']}: first dispatches and"
-          f" refetches) + {counts['baselines']} baselines; K2"
-          f" {counts['pack_rel4']} rel4 + {counts['pack_rel']} rel, K4"
-          f" {counts['pack_narrow']} narrow + {counts['pack_wide']} wide, K3"
-          f" {counts['diff_rebuild']}")
+          f" {b['wide']}, int32 {b['none']}; K2 {counts['pack_rel4']} rel4"
+          f" + {counts['pack_rel']} rel, K4 {counts['pack_narrow']} narrow +"
+          f" {counts['pack_wide']} wide, K3 {counts['diff_rebuild']}")
 
 
 def sha256(path: str) -> str:
@@ -896,7 +987,8 @@ def sha256(path: str) -> str:
 
 def phase_main_path(tmp: str, bench: np.ndarray) -> tuple:
     """The CLI at the bench shape; returns the kernel launches of the run
-    and of its dense repeat, and its TSV's sha256."""
+    and of its dense repeat, its TSV's sha256 and the profiler's split of
+    its device time."""
     from distance_tpu_torch import measures
     from distance_tpu_torch.writer import format_float
 
@@ -928,7 +1020,7 @@ def phase_main_path(tmp: str, bench: np.ndarray) -> tuple:
           " oracle")
     del data
     sha = sha256(out)
-    profiled_run("[3]", [fasta, "-o", out])
+    split = profiled_run("[3]", [fasta, "-o", out])
     # the same square with dense uploads and no reference row: the ladder
     # narrow -> wide
     with dense_no_ref():
@@ -939,13 +1031,13 @@ def phase_main_path(tmp: str, bench: np.ndarray) -> tuple:
         check(b["rel4"] == b["rel"] == b["none"] == 0 and b["narrow"] >= 1
               and counts0["baselines"] == counts0["diff_rebuild"] == 0,
               f"[3] dense, no reference row: launches {counts0}")
-        check_launches("[3] dense, no reference row", counts0)
+        check_launches("[3] dense, no reference row", counts0, 10)
         profiled_run("[3] dense, no reference row", [fasta, "-o", out])
     print(f"[3] square wall {wall:.3f} s with diff uploads and rel4,"
           f" {wall0:.3f} s dense and narrow -> wide"
           f" (DISTANCE_TPU_NO_DIFF_UPLOAD=1 DISTANCE_TPU_NO_REL_PACK=1);"
           f" sha256 equal ({gpu_line()})")
-    return counts, counts0, sha
+    return counts, counts0, sha, split
 
 
 @contextlib.contextmanager
@@ -1123,17 +1215,73 @@ def in_turns(fns: dict, order: tuple) -> dict:
     return {k: float(np.mean(v)) for k, v in ms.items()}
 
 
-def phase_pack_timing(bench: np.ndarray) -> dict:
-    """K2, K4 and K3 timed on the card in turns with their plain versions
-    (and K3 with its yardstick, the plain version's ``expand().clone()``
+# The packs are timed on a ring of copies of their counters, more bytes
+# than the card's 50 MB L2 holds, so that each launch reads its counters
+# from device memory (a 2 x 2048 x 2048 block is 33.5 MB: launched again
+# on the same tensor it would be read from L2).
+RING_BYTES = 150_000_000
+
+
+def cold_ring_ms(fn, c, kernel: str, reps: int) -> dict:
+    """``fn`` of each tensor of a ring of copies of ``c`` (RING_BYTES or
+    more in all), ``reps`` times round, timed three ways in ms: ``ms``,
+    the mean device time of the kernel whose name holds ``kernel``, from
+    the kernel durations of a torch.profiler trace (``seen`` of its
+    launches are in the trace); ``graph_ms``, a launch of the ring's
+    launches captured in a CUDA graph and replayed back to back, by CUDA
+    events; ``call_ms``, a call by CUDA events (the wrapper included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ring = [c.clone() for _ in range(max(2, -(-RING_BYTES // c.nbytes)))]
+    for t in ring:
+        fn(t)
+    out = {"call_ms": cuda_timed(lambda: [fn(t) for t in ring], reps)
+           / len(ring)}
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for t in ring:
+            fn(t)
+    graph.replay()
+    out["graph_ms"] = cuda_timed(graph.replay, reps) / len(ring)
+    del graph
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for t in ring:
+                fn(t)
+        torch.cuda.synchronize()
+    path = os.path.join(tempfile.gettempdir(), f"ring_{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    durs = [ev["dur"] for ev in events
+            if ev.get("cat") == "kernel" and kernel in ev.get("name", "")]
+    check(0 < len(durs) <= reps * len(ring),
+          f"the profiler's trace holds {len(durs)} {kernel} launches of"
+          f" {reps * len(ring)}")
+    out.update(ms=float(np.mean(durs)) / 1e3, seen=len(durs),
+               launched=reps * len(ring))
+    return out
+
+
+def phase_pack_timing(bench: np.ndarray, square_split: dict,
+                      square_counts: dict) -> dict:
+    """K2, K4 and K3 timed on the card beside their plain versions (and K3
+    in turns with its yardstick, the plain version's ``expand().clone()``
     and ``index_put_`` of the in-range diffs, selected outside the timed
     window), at the main path's shapes: K2 and K4 at raw on the square's
     2048 x 2048 block and the stream's 2000 x 8000 group, K3 on the
-    square's 8192 x 29952 upload.  Bounds in bytes at the card's memory
-    rate (PEAK_BYTES): K2 and K4 read 4 G m n B and write G m n / 2
-    (rel4), G m n (rel, narrow) or 4 m n (raw's wide words) B; K3 writes
-    rows x l_pad B and reads 5 B a diff.  Returns each kernel's numbers at
-    the square's shapes."""
+    square's 8192 x 29952 upload.  K2 and K4 read their counters cold
+    (``cold_ring_ms``): the kernel's device time by the profiler, as a
+    share of its bound, beside the time a call by CUDA events; and K2's
+    time a launch inside the square run of phase 3 (``square_split``,
+    ``square_counts``).  Bounds in bytes at the card's memory rate
+    (PEAK_BYTES): K2 and K4 read 4 G m n B and write G m n / 2 (rel4),
+    G m n (rel, narrow) or 4 m n (raw's wide words) B; K3 writes rows x
+    l_pad B and reads 5 B a diff.  Returns each kernel's numbers at the
+    square's shapes."""
     import torch
 
     from distance_tpu_torch.ops import diffup, packing
@@ -1149,8 +1297,10 @@ def phase_pack_timing(bench: np.ndarray) -> dict:
     refp[: bench.shape[1]] = diffup.sampled_mode_row(bench)
     ref = torch.from_numpy(refp).to(dev)
     plan = plan_to_torch(get_plan("raw"), dev)
-    order = ("plain", "kernel", "kernel", "plain")
     out = {}
+    in_run = {name: square_split[f"K2 {rung}"] / 1e3
+              / max(1, square_counts[f"pack_{rung}"])
+              for name, rung in (("pack_rel4", "rel4"), ("pack_rel", "rel"))}
     shapes = {"square block": (0, BLOCK, BLOCK, 2 * BLOCK),
               "stream group": (0, N_STREAM[0], N_BENCH - STREAM_GROUPS[0],
                                N_BENCH)}
@@ -1160,29 +1310,45 @@ def phase_pack_timing(bench: np.ndarray) -> dict:
         c, rb, cb, cc = bench_baselines(x, y, ref, plan)
         g, m, n = c.shape
         width = bench.shape[1]
-        for name, kern, plain, out_bytes in [
-            ("pack_rel4", lambda: packing.pack_rel4_cuda(c, rb, cb, cc),
+        for name, kernel, kern, plain, out_bytes in [
+            ("pack_rel4", "rel4_pack",
+             lambda t: packing.pack_rel4_cuda(t, rb, cb, cc),
              lambda: packing.pack_rel4_torch(c, rb, cb, cc), g * m * n / 2),
-            ("pack_rel", lambda: packing.pack_rel_cuda(c, rb, cb, cc),
+            ("pack_rel", "rel_pack",
+             lambda t: packing.pack_rel_cuda(t, rb, cb, cc),
              lambda: packing.pack_rel_torch(c, rb, cb, cc), g * m * n),
-            ("pack_narrow",
-             lambda: packing.pack_narrow_cuda("raw", c, width),
+            ("pack_narrow", "narrow_lanes",
+             lambda t: packing.pack_narrow_cuda("raw", t, width),
              lambda: packing.pack_narrow_torch("raw", c, width), g * m * n),
-            ("pack_wide", lambda: packing.pack_wide_cuda("raw", c),
+            ("pack_wide", "wide_words",
+             lambda t: packing.pack_wide_cuda("raw", t),
              lambda: packing.pack_wide_torch("raw", c), 4 * m * n),
         ]:
-            ms = in_turns({"kernel": (kern, 20), "plain": (plain, 3)}, order)
+            plain()
+            plain_ms = cuda_timed(plain, 3)
+            t = cold_ring_ms(kern, c, kernel, 8)
             bound = (4.0 * g * m * n + out_bytes) / PEAK_BYTES * 1e3
             k = "K4" if name in ("pack_narrow", "pack_wide") else "K2"
-            print(f"[5] {k} {name} raw {tag} {g} x {m} x {n}: kernel"
-                  f" {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms,"
+            run = (f"; in the square run of phase 3 {in_run[name]:.4f} ms a"
+                   f" launch ({card})" if name in in_run
+                   and tag == "square block" else "")
+            print(f"[5] {k} {name} raw {tag} {g} x {m} x {n}, counters read"
+                  f" cold: kernel {t['ms']:.4f} ms by the profiler"
+                  f" ({t['seen']} of {t['launched']} launches in its trace),"
                   f" bound {bound:.4f} ms (bytes at {PEAK_BYTES:.3e} B/s) ="
-                  f" {bound / ms['kernel']:.4f} of the bound; no single"
-                  f" PyTorch call computes it ({card})")
+                  f" {bound / t['ms']:.4f} of the bound ({card}); back to"
+                  f" back in a CUDA graph {t['graph_ms']:.4f} ms a launch ="
+                  f" {bound / t['graph_ms']:.4f} of the bound ({card}); a"
+                  f" call {t['call_ms']:.4f} ms by CUDA events ({card});"
+                  f" plain {plain_ms:.4f} ms; no single PyTorch call"
+                  f" computes it{run}")
             if tag == "square block":
-                out[name] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                out[name] = dict(ms=t["ms"], graph_ms=t["graph_ms"],
+                                 call_ms=t["call_ms"], plain_ms=plain_ms,
                                  bound_ms=bound, bound_by="bytes",
                                  library_ms=None)
+                if name in in_run:
+                    out[name]["square_run_ms"] = in_run[name]
     up = diffup.DiffUploader(refp, dev)
     idx_h, vals_h = up.encode(rows, n_real=N_BENCH)
     idx, vals = (torch.from_numpy(a).to(dev) for a in (idx_h, vals_h))
@@ -1257,8 +1423,8 @@ def time_glue(rows: np.ndarray, refp: np.ndarray, card: str) -> None:
 
     def step():
         c = eng.diff_up.upload_encoded(enc, bn) if enc is not None else codes
-        return engine._dispatch_strip(eng, m1, c, 0, [0], n1, bn, "rel4",
-                                      (n1, bn), None, ref)
+        return engine._Strip(eng, m1, c, 0, [0], n1, bn, (n1, bn), None,
+                             ref)("rel4")
 
     step()
     ms = cuda_timed(step, 5)
@@ -1292,8 +1458,8 @@ def device_split(prof) -> dict:
     device's busy intervals."""
     from torch.autograd import DeviceType
 
-    split = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0, "H2D": 0.0,
-             "D2H": 0.0, "other": 0.0}
+    split = {"K1": 0.0, "K2 rel4": 0.0, "K2 rel": 0.0, "K3": 0.0,
+             "K4": 0.0, "H2D": 0.0, "D2H": 0.0, "other": 0.0}
     spans = []
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
@@ -1301,9 +1467,8 @@ def device_split(prof) -> dict:
         t0, t1 = ev.time_range.start, ev.time_range.end
         spans.append((t0, t1))
         kind = ("K1" if "counters_kernel" in ev.name
-                else "K2" if any(k in ev.name for k in (
-                    "rel4_lanes", "rel_lanes", "segments_init",
-                    "rel4_sidecar"))
+                else "K2 rel4" if "rel4_pack" in ev.name
+                else "K2 rel" if "rel_pack" in ev.name
                 else "K3" if ("fill_rows" in ev.name
                               or "scatter_diffs" in ev.name)
                 else "K4" if ("narrow_lanes" in ev.name
@@ -1320,10 +1485,10 @@ def device_split(prof) -> dict:
     return split
 
 
-def profiled_run(tag: str, args: list) -> None:
+def profiled_run(tag: str, args: list) -> dict:
     """One more ``-m raw`` CLI run under torch.profiler: its device time
     split into the kernels (K1-K4), H2D and D2H, and the device's busy
-    share of the wall."""
+    share of the wall; returns the split (us)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1340,13 +1505,15 @@ def profiled_run(tag: str, args: list) -> None:
     check(split["K1"] > 0, f"{tag} the profiler saw no counter kernel")
     total = sum(v for k, v in split.items() if k != "busy")
     print(f"{tag} profiled run: wall {wall:.3f} s; device time (ms):"
-          f" K1 {split['K1'] / 1e3:.3f}, K2 {split['K2'] / 1e3:.3f},"
+          f" K1 {split['K1'] / 1e3:.3f}, K2 {split['K2 rel4'] / 1e3:.3f}"
+          f" rel4 + {split['K2 rel'] / 1e3:.3f} rel,"
           f" K3 {split['K3'] / 1e3:.3f}, K4 {split['K4'] / 1e3:.3f},"
           f" H2D {split['H2D'] / 1e3:.3f},"
           f" D2H {split['D2H'] / 1e3:.3f}, other {split['other'] / 1e3:.3f};"
           f" H2D share of device time {split['H2D'] / total:.4f}; device"
           f" busy {split['busy'] / 1e6:.3f} s ="
           f" {split['busy'] / 1e6 / wall:.4f} of the wall ({gpu_line()})")
+    return split
 
 
 def phase_rectangle(tmp: str) -> tuple:
@@ -1459,7 +1626,7 @@ def out_of_core(budget: int, host: int, tiles: tuple):
     saved = [getattr(engine, k) for k in names]
     real = (engine._StagedSide.get, engine._BlockEngine.prepare,
             engine._dispatch_stream_staged, engine.kernels.counters,
-            diffup.DiffUploader.encode, engine._BlockEngine.block)
+            diffup.DiffUploader.encode, engine._BlockEngine.pack_block)
     packs = ("rel4", "rel", "narrow", "wide")
     real_packs = [getattr(engine.packing, f"pack_{k}") for k in packs]
     seen = {"x_rows": [], "spans": [], "stagings": 0, "groups": [],
@@ -1501,11 +1668,11 @@ def out_of_core(budget: int, host: int, tiles: tuple):
             seen["encodes"][key] = seen["encodes"].get(key, 0) + 1
         return real[4](up, padded, n_real)
 
-    def block(eng, m1, m2, i0, j0, ti, tj, mode="none", nv=None,
-              diag_off=None, ref=None):
+    def pack_block(eng, c, mode, i0, j0, bases=None, nv=None,
+                   diag_off=None):
         if mode != "none":
-            seen["blocks"].add((ti, tj, i0, j0, nv, diag_off))
-        return real[5](eng, m1, m2, i0, j0, ti, tj, mode, nv, diag_off, ref)
+            seen["blocks"].add((*c.shape[1:], i0, j0, nv, diag_off))
+        return real[5](eng, c, mode, i0, j0, bases, nv, diag_off)
 
     def rel4(c, rb, cb, cc, i0=0, j0=0, nv=None, diag_off=None):
         seen["packs"].add(("rel4", *c.shape[1:], i0, j0, nv, diag_off))
@@ -1530,7 +1697,7 @@ def out_of_core(budget: int, host: int, tiles: tuple):
     engine._dispatch_stream_staged = staged
     engine.kernels.counters = counters
     diffup.DiffUploader.encode = encode
-    engine._BlockEngine.block = block
+    engine._BlockEngine.pack_block = pack_block
     for k, fn in zip(packs, (rel4, rel, narrow, wide)):
         setattr(engine.packing, f"pack_{k}", fn)
     try:
@@ -1540,7 +1707,7 @@ def out_of_core(budget: int, host: int, tiles: tuple):
             setattr(engine, k, v)
         (engine._StagedSide.get, engine._BlockEngine.prepare,
          engine._dispatch_stream_staged, engine.kernels.counters,
-         diffup.DiffUploader.encode, engine._BlockEngine.block) = real
+         diffup.DiffUploader.encode, engine._BlockEngine.pack_block) = real
         for k, fn in zip(packs, real_packs):
             setattr(engine.packing, f"pack_{k}", fn)
 
@@ -1623,7 +1790,7 @@ def ooc_cli(tag: str, args: list, mode: str, in_core_sha: str,
         check(b["narrow"] >= 1 and b["rel4"] == b["rel"] == b["none"] == 0
               and counts["baselines"] == counts["diff_rebuild"] == 0,
               f"{tag}: launches {counts}, expected narrow -> wide")
-    check_launches(tag, counts)
+    check_launches(tag, counts, len(ooc_dispatches(mode)))
     encodes = sum(seen["encodes"].values())
     print(f"{tag} out of core: wall {wall:.3f} s,"
           f" {counts['counters']} K1 launches taking {k1_ms:.3f} ms by CUDA"
@@ -1837,7 +2004,8 @@ def phase_multiprocess(shas: dict) -> int:
               f" launch shapes {sorted(seen['launch_shapes'])}, launches"
               f" {c_staged}; expected one staged group against two"
               " super-rows at rel4, and 4 baselines")
-        check_launches("[10] shard 1/2", c_staged)
+        check_launches("[10] shard 1/2", c_staged,
+                       len(SHARD_STAGED_LAUNCHES))
         check_packs("[10] shard 1/2", seen, "stream-shard-staged")
         units = []
         for p in parts:
@@ -1975,7 +2143,7 @@ def ladder_square(tmp: str, tag: str, mat: np.ndarray, rungs: tuple,
           and all(b[r] == b[rungs[0]] for r in rungs)
           and not any(v for r, v in b.items() if r not in rungs),
           f"{tag} launches {counts}: expected every block at {rungs}")
-    check_launches(tag, counts)
+    check_launches(tag, counts, b[rungs[0]])
     n = mat.shape[0]
     pairs = n * (n - 1) // 2
     print(f"{tag} diverse square {n} x {mat.shape[1]}: {pairs} pairs in"
@@ -2104,15 +2272,15 @@ def main(argv: list) -> int:
     max_err_pack = phase_pack_and_rebuild(bench)
     launches, shas = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        (launches["square"], launches["square-dense"],
-         shas["square"]) = phase_main_path(tmp, bench)
+        (launches["square"], launches["square-dense"], shas["square"],
+         square_split) = phase_main_path(tmp, bench)
     with tempfile.TemporaryDirectory() as tmp:
         phase_six_measures(tmp, bench)
     (ms, plain_ms, bound, library_ms, bound_by), err = phase_timing(bench)
     max_err = max(max_err, err)
     times = {"counters": dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                               bound_by=bound_by, library_ms=library_ms)}
-    times.update(phase_pack_timing(bench))
+    times.update(phase_pack_timing(bench, square_split, launches["square"]))
     with tempfile.TemporaryDirectory() as tmp:
         launches["rectangle"], shas["rectangle"] = phase_rectangle(tmp)
     with tempfile.TemporaryDirectory() as tmp:

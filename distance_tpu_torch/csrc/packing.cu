@@ -34,29 +34,50 @@
 // - rel4: |res| > 7 becomes -8, and two's-complement nibbles go two a
 //   byte along columns (the even column in the low nibble), out (G, m,
 //   n/2) int8.  The flat (G, m, n) tensor is cut into 8192 segments of
-//   ceil(G m n / 8192) cells; the first outlier of each segment goes to
-//   exc_idx[s], the last of a segment holding two or more to exc_idx[8192
-//   + s] (flat indices, -1 for none), and their true residuals to exc_val
-//   (0 where the index is -1): the JAX packing.py:208-224 exactly.
+//   L = ceil(G m n / 8192) cells; the first outlier of each segment goes
+//   to exc_idx[s], the last of a segment holding two or more to
+//   exc_idx[8192 + s] (flat indices, -1 for none), and their true
+//   residuals to exc_val (0 where the index is -1): the JAX
+//   packing.py:208-224 exactly.
 // - rel: |res| > 127 becomes -128, out (G, m, n) int8.
 //
 // Bound.  Bytes: the counters are read once (4 G m n B) and the lanes
 // written once (G m n / 2 B under rel4, G m n B under rel); the baselines
 // are G (m + n + 1) words and the sidecar 128 KB.  A few integer
 // operations a cell put it far below the card's operation rate, so it is
-// bound by memory.
+// bound by memory, if the loads are wide and enough of them are in
+// flight, and if the index arithmetic does not bind it instead.
 //
-// Design, simple first: one thread per output byte (two cells under rel4,
-// one under rel) reads its counters with one 8-byte (4-byte) load, so
-// neighbouring threads read neighbouring words; rows' and columns'
-// baselines come through the caches.  Outliers are rare (the residual
-// accrues only where both records differ from the reference), so each
-// outlier does an atomicMin and an atomicMax on its segment's (first,
-// last) pair in a (8192, 2) scratch, which a first pass sets to (INT_MAX,
-// -1); a last pass of 8192 threads writes exc_idx and exc_val.  The three
-// passes run on one stream, in order.  Fusing the pack into the counter
-// kernel's epilogue, so that the int32 counters never reach device
-// memory, is later work.
+// Design.  One launch a pack, no scratch, no atomics.  Positions are
+// 32-bit (valid() keeps a pack under 2^31 cells).  Cells go in quads of 4
+// (one 16-byte load), and the 32 lanes of a warp take 32 consecutive
+// quads, so that every load and store of a warp is contiguous: the
+// counters (512 B), the column baselines cb (one 16-byte load a quad
+// where its 4 cells share a row and the address allows) and the lanes.
+// A lane's flat index is divided into (plane, row, column) once, then
+// stepped from quad to quad, with a division only where it passes a row;
+// the row's constants (cc - rb, the column of its self-pair, whether it
+// is padding) are recomputed only when the row changes.  The baselines
+// take a row stride, so the caller's slices of a prepared matrix's
+// baselines are read in place.
+// - rel4: one warp a segment, 8 warps a block, UNROLL quads in flight a
+//   lane; each quad's 4 nibbles go out as one 16-bit store (a warp's
+//   stores are 64 contiguous bytes).  A quad is written by the warp
+//   whose segment holds its first cell, which also reads the quad's
+//   cells past its segment's end (L need not be a multiple of 4, nor
+//   even) but counts an outlier only in its own range; the cells of a segment before its first quad (at most 3) are
+//   read once more by its own warp, after its quads, for their outliers.
+//   Each lane keeps the first and last outlier it met with its residual;
+//   __reduce_min_sync/__reduce_max_sync give the segment's, a ballot and
+//   a shuffle bring their residuals to lane 0, which writes the
+//   segment's sidecar slots.
+// - rel: a grid-stride loop over warp chunks of 128 quads, four quads in
+//   flight a lane, each quad's 4 int8 lanes one 32-bit store.
+// Fusing the pack into the counter kernel's epilogue is declined: a strip
+// whose pack saturates is packed again at a lower rung from the int32
+// counters the engine keeps on the card (engine._Strip), which a fused
+// epilogue would have to count again; the saving, the counters' write and
+// read, is about 0.02 ms of a 3.7 ms block.
 
 #include <climits>
 #include <cstdint>
@@ -67,97 +88,264 @@ namespace {
 
 constexpr int SEGMENTS = 8192;
 constexpr int THREADS = 256;
+constexpr int SEG_WARPS = THREADS / 32;  // rel4 segments a block
+constexpr int UNROLL = 8;                // rel4 quads in flight a lane
 constexpr long long MAX_BLOCKS = 1LL << 20;
 
-struct Block {
+// A pack's inputs and the block's masks, in the cells' own coordinates.
+struct Rel {
   const int32_t* c;
-  const int32_t* rb;
-  const int32_t* cb;
+  const int32_t* rb;  // (g, r) at rb[g * rb_stride + r]
+  const int32_t* cb;  // (g, col) at cb[g * cb_stride + col]
   const int32_t* cc;
-  long long m, n, i0, j0, nv1, nv2, doff;
-  int diag, pad;
+  long long rb_stride, cb_stride;
+  unsigned m, n, cells;
+  unsigned rows_valid;  // rows from here on are padding
+  unsigned cols_valid;  // columns from here on are padding
+  long long dshift;     // a row's self-pair column is r + dshift
+  int diag;
 };
 
-// The (masked) residual of cell (g, r, col) with counter value v.
-__device__ __forceinline__ int32_t residual(const Block& b, long long g,
-                                            long long r, long long col,
+// The cell a cursor is on, and its row's constants.
+struct Cursor {
+  unsigned g, r, col;
+  uint32_t base;  // cc[g] - rb[g, r], wrapping as numpy's int32 does
+  const int32_t* cbg;
+  long long dcol;  // the row's self-pair column, or -1
+  bool zero;       // a padding row
+};
+
+__device__ __forceinline__ void row_of(const Rel& p, Cursor& k) {
+  k.base = (uint32_t)__ldg(p.cc + k.g) -
+           (uint32_t)__ldg(p.rb + k.g * p.rb_stride + k.r);
+  k.cbg = p.cb + k.g * p.cb_stride;
+  k.dcol = p.diag ? (long long)k.r + p.dshift : -1;
+  k.zero = k.r >= p.rows_valid;
+}
+
+__device__ __forceinline__ void seek(const Rel& p, unsigned f, Cursor& k) {
+  const unsigned gr = f / p.n;
+  k.col = f - gr * p.n;
+  k.g = gr / p.m;
+  k.r = gr - k.g * p.m;
+  row_of(p, k);
+}
+
+// To the next cell, which must exist.
+__device__ __forceinline__ void step(const Rel& p, Cursor& k) {
+  if (++k.col == p.n) {
+    k.col = 0;
+    if (++k.r == p.m) {
+      k.r = 0;
+      ++k.g;
+    }
+    row_of(p, k);
+  }
+}
+
+// The (masked) residual of the cursor's cell, whose counter is v.
+__device__ __forceinline__ int32_t residual(const Rel& p, const Cursor& k,
                                             int32_t v) {
-  const long long ri = b.i0 + r, cj = b.j0 + col;
-  if ((b.diag && ri + b.doff == cj) ||
-      (b.pad && (ri >= b.nv1 || cj >= b.nv2)))
+  if (k.zero || k.col >= p.cols_valid || (long long)k.col == k.dcol)
     return 0;
-  // int32 arithmetic that wraps as numpy's does (unsigned: no overflow UB)
-  return (int32_t)((uint32_t)v - (uint32_t)b.rb[g * b.m + r] -
-                   (uint32_t)b.cb[g * b.n + col] + (uint32_t)b.cc[g]);
+  return (int32_t)((uint32_t)v - (uint32_t)__ldg(k.cbg + k.col) + k.base);
 }
 
-__device__ __forceinline__ bool out4(int32_t res) {
-  return res > 7 || res < -7;
+// numpy's int32 abs, which wraps: |INT_MIN| stays negative, so a residual
+// of INT_MIN is no outlier.
+__device__ __forceinline__ int32_t wabs(int32_t res) {
+  return res < 0 ? (int32_t)(0u - (uint32_t)res) : res;
 }
 
-__global__ void segments_init(int32_t* scratch) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s < SEGMENTS) {
-    scratch[2 * s] = INT_MAX;
-    scratch[2 * s + 1] = -1;
+__device__ __forceinline__ bool out4(int32_t res) { return wabs(res) > 7; }
+
+__device__ __forceinline__ int32_t residual_at(const Rel& p, unsigned f) {
+  Cursor k;
+  seek(p, f, k);
+  return residual(p, k, __ldg(p.c + f));
+}
+
+// To the cell `d` cells on, which must exist.
+__device__ __forceinline__ void advance(const Rel& p, Cursor& k, unsigned d) {
+  k.col += d;
+  if (k.col >= p.n) {
+    const unsigned rows = k.col / p.n;
+    const unsigned gr = k.g * p.m + k.r + rows;
+    k.col -= rows * p.n;
+    k.g = gr / p.m;
+    k.r = gr - k.g * p.m;
+    row_of(p, k);
   }
 }
 
-__global__ void rel4_lanes(Block b, long long bytes, long long seg_len,
-                           int8_t* lanes, int32_t* scratch) {
-  const long long half = b.n / 2;
-  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       k < bytes; k += (long long)gridDim.x * blockDim.x) {
-    const long long gr = k / half;  // g * m + r
-    const long long col = 2 * (k - gr * half);
-    const long long g = gr / b.m, r = gr - g * b.m;
-    const long long flat = gr * b.n + col;
-    const int2 v = *reinterpret_cast<const int2*>(b.c + flat);
-    const int32_t res[2] = {residual(b, g, r, col, v.x),
-                            residual(b, g, r, col + 1, v.y)};
-    uint32_t byte = 0;
-    for (int h = 0; h < 2; ++h) {
-      int32_t q = res[h];
-      if (out4(q)) {
-        q = -8;
-        const long long f = flat + h;
-        const long long s = f / seg_len;
-        atomicMin(&scratch[2 * s], (int)f);
-        atomicMax(&scratch[2 * s + 1], (int)f);
+// The 4 counters of quad q (cells 4 q ..), 0 past the last cell.
+__device__ __forceinline__ int4 load4(const Rel& p, unsigned q) {
+  const unsigned f0 = 4u * q;
+  if (f0 + 4u <= p.cells) return __ldg(reinterpret_cast<const int4*>(p.c) + q);
+  int4 v = {0, 0, 0, 0};
+  v.x = __ldg(p.c + f0);
+  if (f0 + 1u < p.cells) v.y = __ldg(p.c + f0 + 1);
+  if (f0 + 2u < p.cells) v.z = __ldg(p.c + f0 + 2);
+  return v;
+}
+
+// The residuals of a quad's `cnt` cells, the cursor on its first cell and
+// left on its last; 0 past them.
+__device__ __forceinline__ void quad_res(const Rel& p, Cursor& k,
+                                         const int4& v, unsigned cnt,
+                                         int32_t (&res)[4]) {
+  const int32_t vv[4] = {v.x, v.y, v.z, v.w};
+  if (cnt == 4 && k.col + 3u < p.n) {  // the quad lies in one row
+    const int32_t* cbp = k.cbg + k.col;
+    int32_t cb[4];
+    if (reinterpret_cast<uintptr_t>(cbp) % 16 == 0) {
+      const int4 b = __ldg(reinterpret_cast<const int4*>(cbp));
+      cb[0] = b.x; cb[1] = b.y; cb[2] = b.z; cb[3] = b.w;
+    } else {
+#pragma unroll
+      for (int h = 0; h < 4; ++h) cb[h] = __ldg(cbp + h);
+    }
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const unsigned col = k.col + h;
+      res[h] = k.zero || col >= p.cols_valid || (long long)col == k.dcol
+                   ? 0
+                   : (int32_t)((uint32_t)vv[h] - (uint32_t)cb[h] + k.base);
+    }
+    k.col += 3;
+    return;
+  }
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    res[h] = 0;
+    if ((unsigned)h < cnt) {
+      if (h) step(p, k);
+      res[h] = residual(p, k, vv[h]);
+    }
+  }
+}
+
+// An outlier at cell f with residual res, for a lane's first and last.
+__device__ __forceinline__ void note(int f, int32_t res, int& first,
+                                     int32_t& first_res, int& last,
+                                     int32_t& last_res) {
+  if (f < first) {
+    first = f;
+    first_res = res;
+  }
+  if (f > last) {
+    last = f;
+    last_res = res;
+  }
+}
+
+// 4 blocks an SM (at most 64 registers a thread): 1024 blocks take two
+// waves of the card's 132 SMs, not three.
+__global__ void __launch_bounds__(THREADS, 4)
+    rel4_pack(Rel p, unsigned seg_len, uint16_t* __restrict__ lanes,
+              int32_t* __restrict__ exc) {
+  const unsigned lane = threadIdx.x & 31;
+  const unsigned s = blockIdx.x * SEG_WARPS + (threadIdx.x >> 5);
+  const unsigned lo = min(s * seg_len, p.cells);
+  const unsigned hi = min(lo + seg_len, p.cells);
+  int first = INT_MAX, last = -1;
+  int32_t first_res = 0, last_res = 0;
+  const unsigned q_lo = (lo + 3u) >> 2, q_hi = (hi + 3u) >> 2;
+  Cursor k;
+  bool placed = false;
+  for (unsigned q0 = q_lo + lane; q0 < q_hi; q0 += 32u * UNROLL) {
+    int4 v[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      if (q0 + 32u * u < q_hi) v[u] = load4(p, q0 + 32u * u);
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const unsigned q = q0 + 32u * u;
+      if (q >= q_hi) break;
+      // from the last cell of the lane's quad before, 32 quads back
+      if (placed) advance(p, k, 125u);
+      else seek(p, 4u * q, k);
+      placed = true;
+      const unsigned cnt = min(4u, p.cells - 4u * q);
+      int32_t res[4];
+      quad_res(p, k, v[u], cnt, res);
+      uint32_t half = 0;
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        int32_t nib = res[h];
+        if (out4(nib)) {
+          if (4u * q + h < hi)
+            note((int)(4u * q + h), nib, first, first_res, last, last_res);
+          nib = -8;
+        }
+        half |= ((uint32_t)nib & 0xFu) << (4 * h);
       }
-      byte |= ((uint32_t)q & 0xFu) << (4 * h);
+      if (cnt == 4) {
+        lanes[q] = (uint16_t)half;
+      } else {  // the tensor's last quad: cnt is even
+        reinterpret_cast<uint8_t*>(lanes)[2u * q] = (uint8_t)half;
+      }
     }
-    lanes[k] = (int8_t)(uint8_t)byte;
+  }
+  // the head, read once more after the quads' loads: cells before the
+  // segment's first quad
+  if (lo + lane < min(hi, (lo + 3u) & ~3u)) {
+    const int32_t res = residual_at(p, lo + lane);
+    if (out4(res))
+      note((int)(lo + lane), res, first, first_res, last, last_res);
+  }
+  const int seg_first = __reduce_min_sync(0xffffffffu, first);
+  const int seg_last = __reduce_max_sync(0xffffffffu, last);
+  // each cell is one lane's: exactly one lane holds each of them
+  const unsigned has_first = __ballot_sync(0xffffffffu, first == seg_first);
+  const unsigned has_last = __ballot_sync(0xffffffffu, last == seg_last);
+  first_res = __shfl_sync(0xffffffffu, first_res, __ffs(has_first) - 1);
+  last_res = __shfl_sync(0xffffffffu, last_res, __ffs(has_last) - 1);
+  if (lane == 0) {
+    const bool one = seg_first != INT_MAX;
+    const bool two = seg_last >= 0 && seg_last != seg_first;
+    exc[s] = one ? seg_first : -1;
+    exc[SEGMENTS + s] = two ? seg_last : -1;
+    exc[2 * SEGMENTS + s] = one ? first_res : 0;
+    exc[3 * SEGMENTS + s] = two ? last_res : 0;
   }
 }
 
-__global__ void rel4_sidecar(Block b, const int32_t* scratch,
-                             int32_t* exc_idx, int32_t* exc_val) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= SEGMENTS) return;
-  const int first = scratch[2 * s], last = scratch[2 * s + 1];
-  const int idx[2] = {first == INT_MAX ? -1 : first,
-                      last >= 0 && last != first ? last : -1};
-  for (int h = 0; h < 2; ++h) {
-    int32_t val = 0;
-    if (idx[h] >= 0) {
-      const long long f = idx[h];
-      const long long gr = f / b.n, col = f - gr * b.n;
-      const long long g = gr / b.m, r = gr - g * b.m;
-      val = residual(b, g, r, col, b.c[f]);
+__global__ void __launch_bounds__(THREADS)
+    rel_pack(Rel p, uint32_t* __restrict__ lanes) {
+  const unsigned lane = threadIdx.x & 31;
+  const unsigned quads = (p.cells + 3u) / 4u;
+  const unsigned warps = gridDim.x * SEG_WARPS;
+  for (unsigned w = blockIdx.x * SEG_WARPS + (threadIdx.x >> 5);
+       w < (quads + 127u) / 128u; w += warps) {
+    const unsigned q0 = 128u * w + lane;
+    int4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (q0 + 32u * u < quads) v[u] = load4(p, q0 + 32u * u);
+    Cursor k;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const unsigned q = q0 + 32u * u;
+      if (q >= quads) break;
+      if (u) advance(p, k, 125u);
+      else seek(p, 4u * q, k);
+      const unsigned cnt = min(4u, p.cells - 4u * q);
+      int32_t res[4];
+      quad_res(p, k, v[u], cnt, res);
+      uint32_t word = 0;
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        word |= ((uint32_t)(wabs(res[h]) > 127 ? -128 : res[h]) & 0xFFu)
+                << (8 * h);
+      if (cnt == 4) {
+        lanes[q] = word;
+      } else {  // the tensor's last quad
+        uint8_t* bytes = reinterpret_cast<uint8_t*>(lanes) + 4u * q;
+        for (unsigned h = 0; h < cnt; ++h)
+          bytes[h] = (uint8_t)(word >> (8 * h));
+      }
     }
-    exc_idx[h * SEGMENTS + s] = idx[h];
-    exc_val[h * SEGMENTS + s] = val;
-  }
-}
-
-__global__ void rel_lanes(Block b, long long cells, int8_t* lanes) {
-  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       k < cells; k += (long long)gridDim.x * blockDim.x) {
-    const long long gr = k / b.n, col = k - gr * b.n;
-    const long long g = gr / b.m, r = gr - g * b.m;
-    const int32_t res = residual(b, g, r, col, b.c[k]);
-    lanes[k] = (int8_t)(res > 127 || res < -127 ? -128 : res);
   }
 }
 
@@ -226,58 +414,74 @@ bool valid(long long g, long long m, long long n) {
   return g >= 1 && m >= 0 && n >= 0 && g * m * n < (1LL << 31);
 }
 
+// The Rel of a pack, or false for arguments the kernels do not take: 2^31
+// cells or more, negative strides, counters off the 16-byte grid.
+bool rel_of(const void* c, const void* rb, long long rb_stride,
+            const void* cb, long long cb_stride, const void* cc, long long g,
+            long long m, long long n, long long i0, long long j0,
+            long long nv1, long long nv2, int diag, long long doff, Rel& p) {
+  if (!valid(g, m, n) || rb_stride < 0 || cb_stride < 0 ||
+      reinterpret_cast<uintptr_t>(c) % 16)
+    return false;
+  const auto clamp = [](long long v, long long hi) {
+    return (unsigned)(v < 0 ? 0 : v > hi ? hi : v);
+  };
+  p = {static_cast<const int32_t*>(c), static_cast<const int32_t*>(rb),
+       static_cast<const int32_t*>(cb), static_cast<const int32_t*>(cc),
+       rb_stride, cb_stride, (unsigned)m, (unsigned)n, (unsigned)(g * m * n),
+       clamp(nv1 - i0, m), clamp(nv2 - j0, n), i0 + doff - j0, diag};
+  return true;
+}
+
 }  // namespace
 
-// rel4 pack of c (g, m, n) int32 (n even) with baselines rb (g, m), cb
-// (g, n), cc (g,), all contiguous on the device: lanes (g, m, n/2) int8,
-// exc_idx and exc_val (16384,) int32, scratch (8192, 2) int32 of the
-// caller's.  The block's rows are records i0.. and its columns j0..;
-// `diag` masks the self-pairs (i0 + r + doff == j0 + col), and cells past
-// nv1 rows or nv2 columns are padding.  Launches on `stream` and returns
+// rel4 pack of c (g, m, n) int32 (n even, contiguous, 16-byte aligned) with
+// baselines rb (g, m) and cb (g, n) whose rows are rb_stride and cb_stride
+// words apart (each row contiguous) and cc (g,), on the device: lanes (g,
+// m, n/2) int8 and the sidecar exc (2, 16384) int32, exc_idx then
+// exc_val.  The block's rows are records i0.. and its columns j0..; `diag`
+// masks the self-pairs (i0 + r + doff == j0 + col), and cells past nv1
+// rows or nv2 columns are padding.  One launch on `stream`; returns
 // cudaGetLastError(), or cudaErrorInvalidValue for arguments the kernel
-// does not take (an odd n, 2^31 cells or more).
+// does not take (an odd n, 2^31 cells or more, c off the 16-byte grid).
 extern "C" int dt_pack_rel4_launch(const void* c, const void* rb,
-                                   const void* cb, const void* cc,
+                                   long long rb_stride, const void* cb,
+                                   long long cb_stride, const void* cc,
                                    long long g, long long m, long long n,
                                    long long i0, long long j0, long long nv1,
                                    long long nv2, int diag, long long doff,
-                                   void* lanes, void* scratch, void* exc_idx,
-                                   void* exc_val, void* stream) {
-  if (!valid(g, m, n) || n % 2) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Block b = {static_cast<const int32_t*>(c), static_cast<const int32_t*>(rb),
-             static_cast<const int32_t*>(cb), static_cast<const int32_t*>(cc),
-             m, n, i0, j0, nv1, nv2, doff, diag, 1};
-  const long long cells = g * m * n;
-  const long long seg_len = cells ? (cells + SEGMENTS - 1) / SEGMENTS : 1;
-  int32_t* sc = static_cast<int32_t*>(scratch);
-  segments_init<<<SEGMENTS / THREADS, THREADS, 0, st>>>(sc);
-  if (cells)
-    rel4_lanes<<<grid_for(cells / 2), THREADS, 0, st>>>(
-        b, cells / 2, seg_len, static_cast<int8_t*>(lanes), sc);
-  rel4_sidecar<<<SEGMENTS / THREADS, THREADS, 0, st>>>(
-      b, sc, static_cast<int32_t*>(exc_idx), static_cast<int32_t*>(exc_val));
+                                   void* lanes, void* exc, void* stream) {
+  Rel p;
+  if (n % 2 || reinterpret_cast<uintptr_t>(lanes) % 2 ||
+      !rel_of(c, rb, rb_stride, cb, cb_stride, cc, g, m, n, i0, j0, nv1, nv2,
+              diag, doff, p))
+    return (int)cudaErrorInvalidValue;
+  const unsigned seg_len = p.cells ? (p.cells + SEGMENTS - 1) / SEGMENTS : 1;
+  rel4_pack<<<SEGMENTS / SEG_WARPS, THREADS, 0,
+              static_cast<cudaStream_t>(stream)>>>(
+      p, seg_len, static_cast<uint16_t*>(lanes), static_cast<int32_t*>(exc));
   return (int)cudaGetLastError();
 }
 
 // rel pack of c (g, m, n) int32 with baselines as above: lanes (g, m, n)
-// int8; `diag` masks the self-pairs (no padding mask, as in the JAX rel).
-// Launches on `stream` and returns cudaGetLastError(), or
-// cudaErrorInvalidValue for 2^31 cells or more.
+// int8, 4-byte aligned; `diag` masks the self-pairs (no padding mask, as
+// in the JAX rel).  Launches on `stream` and returns cudaGetLastError(), or
+// cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int dt_pack_rel_launch(const void* c, const void* rb,
-                                  const void* cb, const void* cc, long long g,
-                                  long long m, long long n, long long i0,
-                                  long long j0, int diag, long long doff,
-                                  void* lanes, void* stream) {
-  if (!valid(g, m, n)) return (int)cudaErrorInvalidValue;
-  Block b = {static_cast<const int32_t*>(c), static_cast<const int32_t*>(rb),
-             static_cast<const int32_t*>(cb), static_cast<const int32_t*>(cc),
-             m, n, i0, j0, 0, 0, doff, diag, 0};
-  const long long cells = g * m * n;
-  if (cells)
-    rel_lanes<<<grid_for(cells), THREADS, 0, static_cast<cudaStream_t>(
-                                                  stream)>>>(
-        b, cells, static_cast<int8_t*>(lanes));
+                                  long long rb_stride, const void* cb,
+                                  long long cb_stride, const void* cc,
+                                  long long g, long long m, long long n,
+                                  long long i0, long long j0, int diag,
+                                  long long doff, void* lanes, void* stream) {
+  Rel p;
+  if (reinterpret_cast<uintptr_t>(lanes) % 4 ||
+      !rel_of(c, rb, rb_stride, cb, cb_stride, cc, g, m, n, i0, j0, i0 + m,
+              j0 + n, diag, doff, p))
+    return (int)cudaErrorInvalidValue;
+  if (p.cells)  // a warp a chunk of 128 quads
+    rel_pack<<<grid_for((p.cells + 511LL) / 512 * 32), THREADS, 0,
+               static_cast<cudaStream_t>(stream)>>>(
+        p, static_cast<uint32_t*>(lanes));
   return (int)cudaGetLastError();
 }
 

@@ -18,9 +18,10 @@ against one loaded alignment.  The loaded sweeps in core:
   concatenated on the device with one sidecar bundle per strip;
 * copy each strip into pinned host memory, asynchronously, with at most
   ``STRIP_LOOKAHEAD`` strips in flight, and finish the counters on the
-  host; a saturated strip is dispatched again at the next rung of the
-  pack ladder (the JAX engine's: rel4 -> rel -> narrow/wide below 2^16
-  sites, rel4 -> rel -> int32 above);
+  host; a saturated strip is packed again at the next rung of the pack
+  ladder (the JAX engine's: rel4 -> rel -> narrow/wide below 2^16 sites,
+  rel4 -> rel -> int32 above) from the int32 counters it keeps on the
+  device until it is finished (``_Strip``), with no second K1 launch;
 * finalize and emit the upper triangle (square) or the full file1 x file2
   block in row-major order (rectangle) on the host.
 
@@ -477,9 +478,12 @@ def _device_budget(device: torch.device,
 
 
 # K1 contractions against the reference row (the rel baselines rb, cb and
-# cc) made by engines in this process, and the counter blocks dispatched
-# at each rung of the pack ladder (first dispatches and refetches alike).
+# cc) made by engines in this process, the K1 launches of counter blocks
+# (a block's first dispatch: a refetch packs the counters kept on the
+# device), and the counter blocks packed at each rung of the pack ladder
+# (first dispatches and refetches alike).
 BASELINES = 0
+K1_BLOCKS = 0
 RUNG_BLOCKS = {"rel4": 0, "rel": 0, "narrow": 0, "wide": 0, "none": 0}
 
 
@@ -628,42 +632,56 @@ class _BlockEngine:
         return value
 
     def block(self, m1: torch.Tensor, m2: torch.Tensor, i0: int, j0: int,
-              ti: int, tj: int, mode: str = "none", nv=None, diag_off=None,
-              ref: Optional[torch.Tensor] = None):
-        """One (ti, tj) block of rows i0.. of ``m1`` against rows j0.. of
-        ``m2``: (G, ti, tj) int32 counters under ``mode`` "none", their
-        narrow lanes or wide words under "narrow" and "wide"; else (lanes,
-        cb, rb_cc[, exc_idx, exc_val]) packed against ``ref`` (the
-        engine's reference row by default).  ``nv`` = (valid rows
-        of m1, of m2): the rel4 pack zeroes padding cells so they cannot
-        flood the exception sidecar.  ``diag_off`` (sweeps over one
-        source): m1's row offset minus m2's, for masking self-pairs;
-        None when the two sides hold no self-pairs."""
+              ti: int, tj: int) -> torch.Tensor:
+        """K1 of one (ti, tj) block, rows i0.. of ``m1`` against rows j0..
+        of ``m2``: (G, ti, tj) int32 counters."""
+        global K1_BLOCKS
         if i0 + ti > m1.shape[0] or j0 + tj > m2.shape[0]:
             raise ValueError(
                 f"block ({i0}+{ti}, {j0}+{tj}) outside the prepared rows"
                 f" ({m1.shape[0]}, {m2.shape[0]})"
             )
+        K1_BLOCKS += 1
+        return kernels.counters(m1[i0 : i0 + ti], m2[j0 : j0 + tj],
+                                self.kplan)
+
+    def baselines(self, m1: torch.Tensor, m2: torch.Tensor,
+                  ref: Optional[torch.Tensor] = None):
+        """(rb, cb, cc) of ``m1``'s rows and ``m2``'s against ``ref`` (the
+        engine's reference row by default): (G, rows of m1), (G, rows of
+        m2), (G,) int32, kept as ``_baseline`` keeps them."""
+        if ref is None:
+            ref = self.rel_ref
+        return (self._baseline(m1, ref, "row"), self._baseline(m2, ref, "col"),
+                self._baseline(ref, ref, "self"))
+
+    def pack_block(self, c: torch.Tensor, mode: str, i0: int, j0: int,
+                   bases=None, nv=None, diag_off=None):
+        """A block's (G, ti, tj) counters at rung ``mode``: themselves
+        under "none", their narrow lanes or wide words under "narrow" and
+        "wide"; else (lanes, cb[, exc_idx, exc_val]) packed against
+        ``bases`` = (rb, cb, cc) of the block's whole sides (its rows are
+        rows i0.. of them, its columns j0..).  ``nv`` = (valid rows, valid
+        columns) of the sides: the rel4 pack zeroes padding cells so they
+        cannot flood the exception sidecar.  ``diag_off`` (sweeps over one
+        source): the row side's offset minus the column side's, for
+        masking self-pairs; None when the sides hold no self-pairs."""
         RUNG_BLOCKS[mode] += 1
-        c = kernels.counters(m1[i0 : i0 + ti], m2[j0 : j0 + tj], self.kplan)
         if mode == "none":
             return c
         if mode == "narrow":
             return packing.pack_narrow(self.measure, c, self.width)
         if mode == "wide":
             return packing.pack_wide(self.measure, c)
-        if ref is None:
-            ref = self.rel_ref
-        rb = self._baseline(m1, ref, "row")[:, i0 : i0 + ti]
-        cb = self._baseline(m2, ref, "col")[:, j0 : j0 + tj]
-        cc = self._baseline(ref, ref, "self")
-        rb_cc = torch.cat([rb, cc[:, None]], dim=1)
+        _, ti, tj = c.shape
+        rb_all, cb_all, cc = bases
+        rb = rb_all[:, i0 : i0 + ti]
+        cb = cb_all[:, j0 : j0 + tj]
         if mode == "rel4":
-            nv1, nv2 = nv if nv is not None else (m1.shape[0], m2.shape[0])
             lanes, exc_idx, exc_val = packing.pack_rel4(
-                c, rb, cb, cc, i0, j0, (nv1, nv2), diag_off)
-            return lanes, cb, rb_cc, exc_idx, exc_val
-        return packing.pack_rel(c, rb, cb, cc, i0, j0, diag_off), cb, rb_cc
+                c, rb, cb, cc, i0, j0, nv, diag_off)
+            return lanes, cb, exc_idx, exc_val
+        return packing.pack_rel(c, rb, cb, cc, i0, j0, diag_off), cb
 
     def dispatch_stream(self, padded: np.ndarray,
                         send_dense) -> Tuple[torch.Tensor, object]:
@@ -792,33 +810,68 @@ class _BlockEngine:
             storage.resize_(0)
 
 
-def _dispatch_strip(eng: _BlockEngine, m1, m2, i0: int, col_starts, ti, tj,
-                    mode: Optional[str] = None, nv=None, diag_off=None,
-                    ref: Optional[torch.Tensor] = None):
-    """Launch every column block of one strip at ``mode`` (the engine's
-    ladder by default) and concatenate them on the device along columns:
-    one (P, ti, span) strip of int32 counters, narrow lanes or wide words,
-    or under rel packing (lanes, bundle): lanes
-    concatenated along columns, and one sidecar bundle of the column
-    baselines (concatenated), the strip-constant row baselines with the
-    self-counter, and under rel4 the blocks' sidecars stacked to (B,
-    CAP) with block-local indices (the host maps them by tj).  A strip
-    costs two device-to-host copies."""
-    if mode is None:
-        mode = eng.mode_for(tj)
-    handles = [eng.block(m1, m2, i0, j0, ti, tj, mode, nv, diag_off, ref)
-               for j0 in col_starts]
-    if mode not in ("rel4", "rel"):
-        return torch.cat(handles, dim=-1) if len(handles) > 1 else handles[0]
-    lanes = torch.cat([h[0] for h in handles], dim=-1)
-    cb = torch.cat([h[1] for h in handles], dim=-1)
-    if mode == "rel4":
-        bundle = packing.bundle_sidecars(
-            cb, handles[0][2], torch.stack([h[3] for h in handles]),
-            torch.stack([h[4] for h in handles]))
-    else:
-        bundle = packing.bundle_sidecars(cb, handles[0][2])
-    return lanes, bundle
+class _Strip:
+    """The dispatches of one strip: every column block of rows i0.. of
+    ``m1`` against ``m2`` (or of a stream group, or of a staged part of
+    one).  The first call counts each block with K1 and keeps the (G, ti,
+    tj) int32 counters on the device; a later call (a refetch at a lower
+    rung, after a saturation) packs the kept counters again and launches
+    no K1.  ``release`` drops them once the strip is finished.
+
+    A call packs every block at ``mode`` (the engine's ladder by default)
+    and concatenates them on the device along columns: one (P, ti, span)
+    strip of int32 counters, narrow lanes or wide words, or under rel
+    packing (lanes, bundle): lanes concatenated along columns, and one
+    sidecar bundle of the column baselines (concatenated), the
+    strip-constant row baselines with the self-counter, and under rel4
+    the blocks' sidecars stacked to (B, CAP) with block-local indices (the
+    host maps them by tj).  A strip costs two device-to-host copies.
+    ``nv`` and ``diag_off`` are ``_BlockEngine.pack_block``'s; ``ref`` is
+    the reference row of the baselines (the engine's by default)."""
+
+    def __init__(self, eng: _BlockEngine, m1, m2, i0: int, col_starts,
+                 ti: int, tj: int, nv=None, diag_off=None,
+                 ref: Optional[torch.Tensor] = None) -> None:
+        self.eng, self.m1, self.m2 = eng, m1, m2
+        self.i0, self.col_starts, self.ti, self.tj = i0, col_starts, ti, tj
+        self.nv = nv if nv is not None else (m1.shape[0], m2.shape[0])
+        self.diag_off, self.ref = diag_off, ref
+        self._kept: Optional[List[torch.Tensor]] = None
+        self._bases = None
+
+    def __call__(self, mode: Optional[str] = None):
+        eng = self.eng
+        if mode is None:
+            mode = eng.mode_for(self.tj)
+        if self._kept is None:
+            self._kept = [eng.block(self.m1, self.m2, self.i0, j0, self.ti,
+                                    self.tj)
+                          for j0 in self.col_starts]
+        if mode in ("rel4", "rel") and self._bases is None:
+            # a stream group's codes are not prepared, so the engine does
+            # not keep their baseline: the strip does
+            self._bases = eng.baselines(self.m1, self.m2, self.ref)
+        bases = self._bases
+        handles = [eng.pack_block(c, mode, self.i0, j0, bases, self.nv,
+                                  self.diag_off)
+                   for c, j0 in zip(self._kept, self.col_starts)]
+        if mode not in ("rel4", "rel"):
+            return (torch.cat(handles, dim=-1) if len(handles) > 1
+                    else handles[0])
+        lanes = torch.cat([h[0] for h in handles], dim=-1)
+        cb = torch.cat([h[1] for h in handles], dim=-1)
+        rb_all, _, cc = bases
+        rb_cc = torch.cat([rb_all[:, self.i0 : self.i0 + self.ti],
+                           cc[:, None]], dim=1)
+        if mode == "rel4":
+            return lanes, packing.bundle_sidecars(
+                cb, rb_cc, torch.stack([h[2] for h in handles]),
+                torch.stack([h[3] for h in handles]))
+        return lanes, packing.bundle_sidecars(cb, rb_cc)
+
+    def release(self) -> None:
+        """Drop the kept counters and baselines."""
+        self._kept = self._bases = None
 
 
 class _AsyncFetch:
@@ -850,12 +903,16 @@ class _AsyncFetch:
 
 
 def _fetch_strip(eng: _BlockEngine, handle: _AsyncFetch, valid_rows: int,
-                 valid_cols: int, redispatch=None) -> np.ndarray:
+                 valid_cols: int, redispatch: _Strip) -> np.ndarray:
     """Wait for a strip (or a stream group) and unpack the region that is
     emitted -> (G, rows, cols) int32 counters; ``redispatch(mode)``
-    dispatches it again at a lower rung after a saturation."""
-    return _finish_fetched(eng, handle.result(), valid_rows, valid_cols,
-                           redispatch)
+    dispatches it again at a lower rung after a saturation, from its kept
+    counters, which are released here."""
+    try:
+        return _finish_fetched(eng, handle.result(), valid_rows, valid_cols,
+                               redispatch)
+    finally:
+        redispatch.release()
 
 
 def _finish_fetched(eng: _BlockEngine, arr, vr: int, vc: int,
@@ -1302,10 +1359,6 @@ def _sweep_load(setup: Setup) -> None:
     # the records
     diag_off = 0 if square else None
 
-    def dispatch(i0, col_starts, mode=None):
-        return _dispatch_strip(eng, m1, m2, i0, col_starts, ti, tj, mode,
-                               (n1, n2), diag_off)
-
     strip_starts, weights = _strip_grid(square, n1, n2, ti)
     a, b = _split_strips(weights, setup.shard)
     done = _resume_skip(setup)
@@ -1319,17 +1372,16 @@ def _sweep_load(setup: Setup) -> None:
         for ordinal, i0 in enumerate(strip_starts[a:b]):
             if ordinal < done:
                 continue
-            col_starts = list(range(i0 if square else 0, n2, tj))
-            yield ordinal, i0, col_starts, _AsyncFetch(
-                dispatch(i0, col_starts))
+            strip = _Strip(eng, m1, m2, i0,
+                           list(range(i0 if square else 0, n2, tj)), ti, tj,
+                           (n1, n2), diag_off)
+            yield ordinal, i0, strip, _AsyncFetch(strip())
 
     def emit(item):
-        ordinal, i0, col_starts, handle = item
+        ordinal, i0, strip, handle = item
         si = min(ti, n1 - i0)
         col0 = i0 if square else 0
-        strip = _fetch_strip(
-            eng, handle, si, n2 - col0,
-            redispatch=lambda mode: dispatch(i0, col_starts, mode))
+        strip = _fetch_strip(eng, handle, si, n2 - col0, strip)
         _emit_strip(
             setup, plan, strip, si, i0, col0, same_offset, emitter, pool,
             after=lambda: (_progress_mark(setup, ordinal + 1), meter.tick()),
@@ -1355,16 +1407,17 @@ def _upload_bytes(rows: int, l_pad: int) -> int:
     return rows * (l_pad + -(-2 * l_pad // 3))
 
 
-def _lane_bytes(counters_per_pair: int) -> int:
-    """Bytes a pair of the largest pack beside the int32 counters: the
-    wide words (rel4, rel and narrow lanes are smaller)."""
+def _pack_bytes(counters_per_pair: int, width: int) -> int:
+    """Bytes a pair of the largest pack of a strip or group: below 2^16
+    sites the wide words (rel4, rel and narrow lanes are smaller), else
+    the int32 counters' concatenation along columns."""
+    if width >= packing.PACK_LIMIT:
+        return 4 * counters_per_pair
     return 2 if counters_per_pair == 1 else 4 * ((counters_per_pair + 1) // 2)
 
 
-# Device bytes of a rel4 pack beside its lanes: the segment scratch of the
-# pack, and a block's exception sidecar (exc_idx, exc_val) with its copy in
-# the strip's bundle.
-_SEGMENT_SCRATCH = 8 * packing.REL4_SEGMENTS
+# Device bytes of a block's rel4 exception sidecar (exc_idx, exc_val) with
+# its copy in the strip's bundle.
 _SIDECAR_BYTES = 16 * packing.REL4_EXC_CAP
 
 
@@ -1376,17 +1429,19 @@ def _blocked_footprint(x_rows: int, y_rows: int, width: int,
     rows (``x_rows`` 0 when X is Y, as in the in-core square): both
     uploads, a row and a column K1 baseline of each prepared row and of
     ``kept`` rows more (the staged super-rows' kept ones), the strips in
-    flight as int32 counters (more than any pack of them) with their
-    blocks' rel4 sidecars, one block's counters beside its pack, the
-    segment scratch and the reference row.  Affine in ``y_rows`` over
-    multiples of ``tj``."""
+    flight, each holding its int32 counters (kept for a refetch) and its
+    blocks' rel4 sidecars, the packs of one strip at a time (a dispatch
+    or a refetch: its blocks' packs and their concatenation along
+    columns, each at most ``_pack_bytes`` a pair; a pack is freed once
+    its copy to the host is queued), and the reference row.  Affine in
+    ``y_rows`` over multiples of ``tj``."""
     l_pad = _padded_shape(1, width, 1, 1)[1]
     g4 = 4 * counters_per_pair
+    pack = _pack_bytes(counters_per_pair, width)
     strip = g4 * ti * y_rows + -(-y_rows // tj) * _SIDECAR_BYTES
     return (_upload_bytes(x_rows + y_rows, l_pad)
             + g4 * (2 * (x_rows + y_rows) + kept + 1)
-            + (STRIP_LOOKAHEAD + 1) * strip + g4 * ti * tj + _SEGMENT_SCRATCH
-            + l_pad)
+            + (STRIP_LOOKAHEAD + 1) * strip + 2 * pack * ti * y_rows + l_pad)
 
 
 def _blocked_layout(n_x: int, n_y: int, width: int, counters_per_pair: int,
@@ -1507,8 +1562,8 @@ def _sweep_blocked(setup: Setup, sources: List[np.ndarray], width: int,
     against each super-row, packed on the ladder of the in-core sweep
     (the square masking its self-pairs, and rel4 the padding of both
     sides), with at most STRIP_LOOKAHEAD strips ahead of the one being
-    fetched; a saturated strip is dispatched again from the codes still
-    on the device.  The counters accumulate in the group's host buffer;
+    fetched; a saturated strip is packed again from its kept counters.
+    The counters accumulate in the group's host buffer;
     the group's strips then emit in the in-core order, so the bytes, the
     resume units and the shard bounds are the in-core sweep's.
     """
@@ -1543,10 +1598,6 @@ def _sweep_blocked(setup: Setup, sources: List[np.ndarray], width: int,
         # a self-pair: X row g0 + r is Y row q0 + c
         diag_off = g0 - q0 if square else None
 
-        def dispatch(i0_loc, col_starts, mode=None):
-            return _dispatch_strip(eng, dev_x, dev_y, i0_loc, col_starts, ti,
-                                   tj, mode, nv, diag_off)
-
         def strips():
             for i0_loc in range(0, g1 - g0, ti):
                 abs_i0 = g0 + i0_loc
@@ -1558,17 +1609,16 @@ def _sweep_blocked(setup: Setup, sources: List[np.ndarray], width: int,
                         continue
                     if q0 <= abs_i0:
                         lo = (abs_i0 - q0) // tj * tj
-                col_starts = list(range(lo, q1 - q0, tj))
-                yield i0_loc, lo, _AsyncFetch(dispatch(i0_loc, col_starts)), (
-                    lambda mode, i0_loc=i0_loc, col_starts=col_starts:
-                    dispatch(i0_loc, col_starts, mode))
+                strip = _Strip(eng, dev_x, dev_y, i0_loc,
+                               list(range(lo, q1 - q0, tj)), ti, tj, nv,
+                               diag_off)
+                yield i0_loc, lo, _AsyncFetch(strip()), strip
 
         def fill(item):
-            i0_loc, lo, handle, redispatch = item
+            i0_loc, lo, handle, strip = item
             si = min(ti, g1 - g0 - i0_loc)
             with phase_timer("ooc-fetch-wait"):
-                strip = _fetch_strip(eng, handle, si, q1 - q0 - lo,
-                                     redispatch)
+                strip = _fetch_strip(eng, handle, si, q1 - q0 - lo, strip)
             dst = q0 + lo - col0
             if dst < 0:
                 # the first aligned block begins before the group's column
@@ -1924,17 +1974,18 @@ def _stream_footprint(grows: int, rows: int, width: int,
     on the device (all of them, or one super-row) with their K1
     baselines and those of ``kept`` rows more (the staged super-rows'
     kept ones); ``groups`` groups of ``grows`` records in flight, each
-    with its codes, its baselines, its (G, rows, grows) counters as int32
-    (more than any pack of them) and a rel4 sidecar; one group's counters
-    beside their largest pack (``_lane_bytes``), the segment scratch and
-    the reference row.  Affine in ``grows`` and in ``rows``."""
+    with its codes, its baselines, its (G, rows, grows) int32 counters
+    (kept for a refetch) and a rel4 sidecar; the pack of one group at a
+    time (``_pack_bytes`` a pair: a group is one block, whose pack needs
+    no concatenation); and the reference row.  Affine in ``grows`` and in
+    ``rows``."""
     l_pad = _padded_shape(1, width, 1, 1)[1]
     g4 = 4 * counters_per_pair
+    pack = _pack_bytes(counters_per_pair, width)
     group = (_upload_bytes(grows, l_pad) + g4 * grows + g4 * rows * grows
              + _SIDECAR_BYTES)
     return (_upload_bytes(rows, l_pad) + g4 * (rows + kept + 1)
-            + groups * group + rows * grows * _lane_bytes(counters_per_pair)
-            + _SEGMENT_SCRATCH + l_pad)
+            + groups * group + pack * rows * grows + l_pad)
 
 
 class _GroupUploads:
@@ -2013,8 +2064,8 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
     rung gives rel4 (an odd group rel) lanes and a sidecar bundle, or
     narrow lanes or wide words, which are copied back asynchronously into
     pinned memory with ``layout.pending`` groups in flight; the host
-    finishes the counters (a saturated group is dispatched again from its
-    codes, still on the device, at the next rung), transposes them to
+    finishes the counters (a saturated group is packed again at the next
+    rung from its counters, kept on the device), transposes them to
     streamed-major order, adds each record's invariant-column offset and
     emits.  A staged stream (``layout.sr_rows``) keeps the loaded side on
     the host and sweeps it in super-rows per group instead, each
@@ -2256,13 +2307,11 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
                 bn)
         else:
             # one K1 launch, the baselines and one pack over the whole
-            # (G, n1, bn) group; its codes stay on the device for a
+            # (G, n1, bn) group; its counters stay on the device for a
             # refetch at a lower rung
-            def redispatch(mode, m1=m1, codes=codes, ref=ref):
-                return _dispatch_strip(eng, m1, codes, 0, [0], n1, bn, mode,
-                                       (n1, bn), None, ref)
-
-            fetch = _AsyncFetch(redispatch(eng.mode_for(bn)))
+            redispatch = _Strip(eng, m1, codes, 0, [0], n1, bn, (n1, bn),
+                                None, ref)
+            fetch = _AsyncFetch(redispatch())
         pending.append((this_global, this_local, ids2, bcounts, offs, bn,
                         fetch, redispatch))
         while len(pending) > layout.pending:
@@ -2337,14 +2386,11 @@ def _dispatch_stream_staged(eng: _BlockEngine, lside: _StagedSide,
                     codes, ref = eng.dispatch_stream(padded, send_dense)
                 eng.adopt(codes)
 
-            def redispatch(mode, m1=m1, q0=q0, q1=q1):
-                return _dispatch_strip(eng, m1, codes, 0, [0], q1 - q0, bn,
-                                       mode, (q1 - q0, bn), None, ref)
-
-            part = _AsyncFetch(redispatch(eng.mode_for(bn)))
+            strip = _Strip(eng, m1, codes, 0, [0], q1 - q0, bn,
+                           (q1 - q0, bn), None, ref)
+            part = _AsyncFetch(strip())
             with phase_timer("ooc-fetch-wait"):
-                buf[:, q0:q1] = _fetch_strip(eng, part, q1 - q0, bn,
-                                             redispatch)
+                buf[:, q0:q1] = _fetch_strip(eng, part, q1 - q0, bn, strip)
     finally:
         if codes is not None:
             eng.release(codes)

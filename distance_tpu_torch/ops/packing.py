@@ -27,7 +27,8 @@ ref); the host adds the baselines back.
 
 ``pack_rel4_cuda``/``pack_rel_cuda`` launch the same kernel source's
 other entries (the port of ``pack_device_rel4`` and ``pack_device_rel``,
-which XLA ran inside the JAX engine's block and stream functions);
+which XLA ran inside the JAX engine's block and stream functions), one
+launch a pack, reading the baselines in place at their row stride;
 ``pack_rel4_torch`` and ``pack_rel_torch`` are their plain versions.
 Every plain version computes exactly what the JAX function computes with
 ``xp=np``.  ``pack_narrow``, ``pack_wide``, ``pack_rel4`` and
@@ -244,12 +245,12 @@ def _kernel_lib() -> ctypes.CDLL:
         lib = _build.load("packing")
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.dt_pack_rel4_launch.argtypes = [
-            vp, vp, vp, vp, ll, ll, ll, ll, ll, ll, ll, i, ll,
-            vp, vp, vp, vp, vp,
+            vp, vp, ll, vp, ll, vp, ll, ll, ll, ll, ll, ll, ll, i, ll,
+            vp, vp, vp,
         ]
         lib.dt_pack_rel4_launch.restype = ctypes.c_int
         lib.dt_pack_rel_launch.argtypes = [
-            vp, vp, vp, vp, ll, ll, ll, ll, ll, i, ll, vp, vp,
+            vp, vp, ll, vp, ll, vp, ll, ll, ll, ll, ll, i, ll, vp, vp,
         ]
         lib.dt_pack_rel_launch.restype = ctypes.c_int
         lib.dt_pack_narrow_launch.argtypes = [vp, ll, ll, ll, vp, vp]
@@ -319,15 +320,39 @@ def pack_wide(measure: str, c: torch.Tensor) -> torch.Tensor:
     return pack_wide_torch(measure, c)
 
 
-def _cuda_inputs(c, rb, cb, cc):
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """A baseline whose rows the kernel reads in place (each contiguous,
+    at any row stride), copied only when they are not."""
+    return t if t.stride(1) == 1 or t.shape[1] <= 1 else t.contiguous()
+
+
+def _launch_rel(entry: str, c, rb, cb, cc, shape, *args):
+    """Launch a rel-family entry of the kernel on the current stream of
+    the counters' device into a new int8 tensor of ``shape``; ``args``
+    follow the shape arguments, and the output tensor (and for rel4 the
+    sidecar ``exc``) follow them."""
     if c.device.type != "cuda":
         raise ValueError(f"the pack kernel needs CUDA tensors, got {c.device}")
     if c.numel() > MAX_CELLS:
         raise ValueError(
             f"the pack kernel takes fewer than 2^31 cells, got"
             f" {tuple(c.shape)}")
-    return (c.contiguous(), rb.contiguous(), cb.contiguous(),
-            cc.contiguous())
+    c, rb, cb, cc = c.contiguous(), _rows(rb), _rows(cb), cc.contiguous()
+    if c.data_ptr() % 16:
+        raise ValueError("the pack kernel reads counters in 16-byte vectors:"
+                         " c must be 16-byte aligned")
+    lanes = torch.empty(shape, dtype=torch.int8, device=c.device)
+    exc = (torch.empty((2, REL4_EXC_CAP), dtype=torch.int32, device=c.device)
+           if entry == "dt_pack_rel4_launch" else None)
+    stream = torch.cuda.current_stream(c.device).cuda_stream
+    with torch.cuda.device(c.device):
+        rc = getattr(_kernel_lib(), entry)(
+            c.data_ptr(), rb.data_ptr(), rb.stride(0), cb.data_ptr(),
+            cb.stride(0), cc.data_ptr(), *c.shape, *args, lanes.data_ptr(),
+            *([exc.data_ptr()] if exc is not None else []), stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} failed: CUDA error {rc}")
+    return lanes, exc
 
 
 def pack_rel4_cuda(c: torch.Tensor, rb: torch.Tensor, cb: torch.Tensor,
@@ -336,34 +361,20 @@ def pack_rel4_cuda(c: torch.Tensor, rb: torch.Tensor, cb: torch.Tensor,
                    diag_off: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the rel4 kernel on the current stream of the counters'
-    device: ``pack_rel4_torch`` of the cells ``block_mask`` names."""
+    device: ``pack_rel4_torch`` of the cells ``block_mask`` names.  One
+    launch; the sidecar is one (2, REL4_EXC_CAP) allocation, exc_idx and
+    exc_val its rows."""
     global LAUNCHES_REL4
     _check(c, rb, cb, cc)
-    c, rb, cb, cc = _cuda_inputs(c, rb, cb, cc)
     g, m, n = c.shape
     if n % 2:
         raise ValueError(f"rel4 packs columns two a byte: {n} is odd")
-    if c.data_ptr() % 8:
-        raise ValueError("rel4 reads counters in 8-byte pairs: c must be"
-                         " 8-byte aligned")
     nv1, nv2 = nv if nv is not None else (i0 + m, j0 + n)
-    lanes = torch.empty((g, m, n // 2), dtype=torch.int8, device=c.device)
-    exc_idx = torch.empty(REL4_EXC_CAP, dtype=torch.int32, device=c.device)
-    exc_val = torch.empty(REL4_EXC_CAP, dtype=torch.int32, device=c.device)
-    scratch = torch.empty((REL4_SEGMENTS, 2), dtype=torch.int32,
-                          device=c.device)
-    stream = torch.cuda.current_stream(c.device).cuda_stream
-    with torch.cuda.device(c.device):
-        rc = _kernel_lib().dt_pack_rel4_launch(
-            c.data_ptr(), rb.data_ptr(), cb.data_ptr(), cc.data_ptr(),
-            g, m, n, i0, j0, nv1, nv2, int(diag_off is not None),
-            diag_off or 0, lanes.data_ptr(), scratch.data_ptr(),
-            exc_idx.data_ptr(), exc_val.data_ptr(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"rel4 pack kernel launch failed: CUDA error {rc}")
+    lanes, exc = _launch_rel(
+        "dt_pack_rel4_launch", c, rb, cb, cc, (g, m, n // 2), i0, j0, nv1,
+        nv2, int(diag_off is not None), diag_off or 0)
     LAUNCHES_REL4 += 1
-    return lanes, exc_idx, exc_val
+    return lanes, exc[0], exc[1]
 
 
 def pack_rel_cuda(c: torch.Tensor, rb: torch.Tensor, cb: torch.Tensor,
@@ -373,18 +384,8 @@ def pack_rel_cuda(c: torch.Tensor, rb: torch.Tensor, cb: torch.Tensor,
     device: ``pack_rel_torch`` with the self-pair diagonal masked."""
     global LAUNCHES_REL
     _check(c, rb, cb, cc)
-    c, rb, cb, cc = _cuda_inputs(c, rb, cb, cc)
-    g, m, n = c.shape
-    lanes = torch.empty((g, m, n), dtype=torch.int8, device=c.device)
-    stream = torch.cuda.current_stream(c.device).cuda_stream
-    with torch.cuda.device(c.device):
-        rc = _kernel_lib().dt_pack_rel_launch(
-            c.data_ptr(), rb.data_ptr(), cb.data_ptr(), cc.data_ptr(),
-            g, m, n, i0, j0, int(diag_off is not None), diag_off or 0,
-            lanes.data_ptr(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"rel pack kernel launch failed: CUDA error {rc}")
+    lanes, _ = _launch_rel("dt_pack_rel_launch", c, rb, cb, cc, c.shape, i0,
+                           j0, int(diag_off is not None), diag_off or 0)
     LAUNCHES_REL += 1
     return lanes
 

@@ -354,6 +354,81 @@ def test_pack_kernels_match_plain(dev, shape):
         assert torch.equal(got, packing.pack_rel_torch(c, rb, cb, cc, mask))
 
 
+# (G, m, n) of rel4's segment edges: the flat tensor's 8192 segments are
+# of L = ceil(G m n / 8192) cells, odd (7 at 2 x 100 x 246, 3 at 3 x 50 x
+# 110), so that a byte straddles two segments, and even (8 at 4 x 64 x
+# 256, 2 at 1 x 91 x 180); the last segment holding cells is partial.
+REL4_EDGES = [(2, 100, 246), (4, 64, 256), (3, 50, 110), (1, 91, 180)]
+
+
+def rel4_edge_counters(rng, g, m, n, every=False):
+    """Counters and baselines whose residuals lie in [-7, 7] but for
+    outliers on rel4's segment edges: a segment with one, one with two and
+    one with every cell out, both cells of the first byte that straddles
+    two segments (odd L), two cells of the last, partial, segment, and a
+    residual of exactly -2^31 (numpy's int32 abs keeps it negative: no
+    outlier, nibble 0); with ``every``, every cell out.  Returns numpy
+    (c, rb, cb, cc)."""
+    c = rng.integers(-4, 5, size=(g, m, n)).astype(np.int32)
+    rb = rng.integers(-1, 2, (g, m)).astype(np.int32)
+    cb = rng.integers(-1, 2, (g, n)).astype(np.int32)
+    cc = rng.integers(-1, 2, g).astype(np.int32)
+    flat = c.reshape(-1)
+    size = flat.size
+    seg = -(-size // packing.REL4_SEGMENTS)
+    out = np.array([11, -11, 100, -300, 9000], dtype=np.int32)
+    if every:
+        flat[:] = rng.choice(out, size)
+        return c, rb, cb, cc
+    for s, k in ((1, 1), (2, 2), (3, seg)):
+        cells = rng.choice(np.arange(s * seg, (s + 1) * seg), k,
+                           replace=False)
+        flat[cells] = rng.choice(out, k)
+    s = 5 if seg % 2 else 4
+    flat[[s * seg - 1, s * seg]] = rng.choice(out, 2)
+    last = (size - 1) // seg * seg
+    flat[[last, size - 1]] = rng.choice(out, 2)
+    shift = int(rb[0, 0]) + int(cb[0, 0]) - int(cc[0])
+    c[0, 0, 0] = np.int64(-(1 << 31) + shift).astype(np.int32)
+    return c, rb, cb, cc
+
+
+@pytest.mark.parametrize("every", [False, True])
+@pytest.mark.parametrize("shape", REL4_EDGES + [(2, 2048, 2048),
+                                                (2, 2000, 8000)])
+def test_rel_kernels_at_segment_edges(dev, shape, every):
+    """K2 (rel4 and rel) against its plain version, exactly, at rel4's
+    segment edges (``rel4_edge_counters``) and at the main path's block
+    and group shapes, masked and not, with the baselines read in place as
+    row slices of wider tensors and contiguous; one launch a pack."""
+    rng = np.random.default_rng(sum(shape) + every)
+    g, m, n = shape
+    c, rb, cb, cc = (torch.from_numpy(a).to(dev)
+                     for a in rel4_edge_counters(rng, g, m, n, every))
+    wide_rb = torch.zeros((g, m + 9), dtype=torch.int32, device=dev)
+    wide_cb = torch.zeros((g, n + 5), dtype=torch.int32, device=dev)
+    wide_rb[:, 4:4 + m] = rb
+    wide_cb[:, 3:3 + n] = cb
+    for rbs, cbs in ((rb, cb), (wide_rb[:, 4:4 + m], wide_cb[:, 3:3 + n])):
+        for i0, j0, nv, diag in ((0, 0, None, None),
+                                 (3, 1, (3 + m - 2, 1 + n - 3), 2)):
+            before = (packing.LAUNCHES_REL4, packing.LAUNCHES_REL)
+            got = packing.pack_rel4_cuda(c, rbs, cbs, cc, i0, j0, nv, diag)
+            torch.cuda.synchronize()
+            mask = packing.block_mask(m, n, i0, j0, nv or (i0 + m, j0 + n),
+                                      diag, dev)
+            want = packing.pack_rel4_torch(c, rb, cb, cc, mask)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (i0, j0, nv, diag)
+            got = packing.pack_rel_cuda(c, rbs, cbs, cc, i0, j0, diag)
+            torch.cuda.synchronize()
+            mask = packing.block_mask(m, n, i0, j0, None, diag, dev)
+            assert torch.equal(got, packing.pack_rel_torch(c, rb, cb, cc,
+                                                           mask))
+            assert (packing.LAUNCHES_REL4, packing.LAUNCHES_REL) == (
+                before[0] + 1, before[1] + 1)
+
+
 def test_pack_kernels_take_odd_columns_under_rel_only(dev):
     rng = np.random.default_rng(33)
     c = torch.from_numpy(outlier_counters(rng, 2, 31, 33)).to(dev)

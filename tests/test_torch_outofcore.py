@@ -313,12 +313,12 @@ def test_staged_stream_resume_records_the_staged_group(tmp_path, monkeypatch,
     assert out.read_bytes() == want
 
 
-# A card of 2,262,000 B whose loaded side (33 x 128 padded sites, raw)
+# A card of 2,131,000 B whose loaded side (33 x 128 padded sites, raw)
 # fits half of it in core with groups of 4 records: ``_stream_footprint``
-# of 4 groups of 4 in flight, with their packs' sidecars and scratch, is
-# 1,129,878 B, and of 4 groups of 6, 1,134,030 B.  Another process holding
-# all but 6000 B sends the same stream out of core.
-CARD_TOTAL = 2_262_000
+# of 4 groups of 4 in flight, with their packs' sidecars, is 1,064,342 B,
+# and of 4 groups of 6, 1,068,494 B.  Another process holding all but
+# 6000 B sends the same stream out of core.
+CARD_TOTAL = 2_131_000
 CARD_FREE_LOW = 6000
 
 
@@ -563,13 +563,14 @@ def test_stream_groups_stay_within_one_pack(monkeypatch, measure, n1):
     assert g * n1 * port_engine.STREAM_GROUP_CAP > packing.MAX_CELLS
 
 
-@pytest.mark.parametrize("measure, crossover", [("raw", 81920),
-                                                ("tn93", 40960)])
+@pytest.mark.parametrize("measure, crossover", [("raw", 65536),
+                                                ("tn93", 32768)])
 def test_square_in_core_crossover_on_an_80gb_card(measure, crossover):
     """At 29904 sites and 8192-row tiles, the in-core square fits half of
     an H100 80GB HBM3's free memory up to this many records (whole
-    strips); one record more goes out of core.  A host with less RAM
-    halves the auto strip, which moves the crossover up."""
+    strips: each strip in flight keeps its int32 counters for a refetch,
+    beside one strip's packs); one record more goes out of core.  A host
+    with less RAM halves the auto strip, which moves the crossover up."""
     budget = 84_465_090_560 // 2  # free at the start of a process
     g = len(get_plan(measure).counters)
 

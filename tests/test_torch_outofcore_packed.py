@@ -26,7 +26,11 @@ from distance_tpu_torch.encoding import ALL_CODES  # noqa: E402
 from distance_tpu_torch.ops import diffup  # noqa: E402
 from tests.test_stream_split import low_diversity_fastas  # noqa: E402
 from tests.test_torch_outofcore import Seen, lower_budgets  # noqa: E402
-from tests.test_torch_packed_e2e import diverse_fastas  # noqa: E402
+from tests.test_torch_packed_e2e import (  # noqa: E402,F401
+    check_no_recount,
+    diverse_fastas,
+    spies,
+)
 
 SETTINGS = {
     "on": {},
@@ -170,6 +174,92 @@ def test_out_of_core_saturating_walks_every_packed_rung(tmp_path, monkeypatch,
     d = delta(before)
     assert min(d["rel4"], d["rel"], d["narrow"], d["wide"]) >= 1, d
     assert d["none"] == 0
+
+
+@pytest.mark.parametrize("rung", ["rel4", "narrow"])
+@pytest.mark.parametrize("mode", ["square", "rectangle", "stream"])
+def test_out_of_core_refetches_repack_the_kept_counters(
+        tmp_path, monkeypatch, spies, mode, rung):
+    """Out of core (the blocked square and rectangle, the staged stream),
+    a strip or staged part saturated at rel4, or without a reference row
+    at narrow, is packed again from its kept counters: the counter kernel
+    runs for first dispatches and baselines alone.  The bytes are the
+    in-core run's and numpy's."""
+    if rung == "narrow":
+        monkeypatch.setenv("DISTANCE_TPU_NO_REL_PACK", "1")
+    monkeypatch.setattr(port_engine, "STREAM_GROUP", 256)
+    f1, f2 = diverse_fastas(n1=130 if mode == "stream" else 300, n2=260,
+                            width=600)
+    args = args_of(tmp_path, mode, f1, f2, batch=256) + ["-m", "tn93"]
+    want = numpy_tsv(tmp_path, args)
+    assert port_tsv(tmp_path, args, "in_core.tsv") == want
+    monkeypatch.setattr(port_engine, "DEVICE_BUDGET",
+                        150_000 if mode == "stream" else 250_000)
+    monkeypatch.setattr(port_engine, "TILE_I", 64)
+    monkeypatch.setattr(port_engine, "TILE_J", 256)
+    seen = Seen(monkeypatch)
+    before = spies()
+    assert port_tsv(tmp_path, args, "ooc.tsv") == want
+    assert (seen.staged if mode == "stream" else seen.x_groups) >= 2
+    assert len(seen.super_rows) >= 2
+    d = {k: v - before[k] for k, v in spies().items()}
+    check_no_recount(d)
+    assert d[rung] >= 1 and d["none"] == 0
+
+
+@pytest.mark.parametrize("width", [600, 1 << 16])
+@pytest.mark.parametrize("g", [1, 2, 3, 4])
+def test_footprints_count_kept_counters_beside_packs(g, width):
+    """Each strip (stream group) in flight holds its int32 counters, kept
+    for a refetch, and one strip's packs sit beside them (its blocks' and
+    their concatenation along columns; a group's one block's), each as
+    large as the wide words below 2^16 sites and the int32 counters past
+    them."""
+    ti, tj = 64, 256
+    l_pad = -(-width // 128) * 128
+    g4 = 4 * g
+    pack = (4 * g if width >= 1 << 16
+            else 2 if g == 1 else 4 * ((g + 1) // 2))
+    fp = port_engine._blocked_footprint
+    per_tj = fp(128, 4 * tj, width, g, ti, tj) - fp(128, 3 * tj, width, g,
+                                                     ti, tj)
+    strip = g4 * ti * tj + port_engine._SIDECAR_BYTES
+    assert per_tj == (port_engine._upload_bytes(tj, l_pad) + 2 * g4 * tj
+                      + (port_engine.STRIP_LOOKAHEAD + 1) * strip
+                      + 2 * pack * ti * tj)
+    sf = port_engine._stream_footprint
+    rows, groups = 300, 4
+    per_record = sf(9, rows, width, g, groups) - sf(8, rows, width, g, groups)
+    assert per_record == (groups * (port_engine._upload_bytes(1, l_pad) + g4
+                                    + g4 * rows) + pack * rows)
+
+
+def test_tiny_budget_below_the_footprint_goes_out_of_core(tmp_path,
+                                                          monkeypatch):
+    """The in-core square's footprint is the line: a device budget of it
+    keeps the sweep in core, one byte less sends it out of core, and the
+    bytes are numpy's either way (a saturating alignment, so strips keep
+    their counters and refetch)."""
+    f1, f2 = diverse_fastas(n1=70, width=600)
+    args = args_of(tmp_path, "square", f1, f2, batch=1) + ["-m", "k80"]
+    want = numpy_tsv(tmp_path, args)
+    monkeypatch.setattr(port_engine, "TILE_I", 16)
+    monkeypatch.setattr(port_engine, "TILE_J", 32)
+    seen_fp = []
+    real = port_engine._blocked_footprint
+
+    def footprint(*a, **k):
+        seen_fp.append(real(*a, **k))
+        return seen_fp[-1]
+
+    monkeypatch.setattr(port_engine, "_blocked_footprint", footprint)
+    assert port_tsv(tmp_path, args, "free.tsv") == want
+    line = seen_fp[0]
+    for budget, blocked in ((line, 0), (line - 1, 1)):
+        monkeypatch.setattr(port_engine, "DEVICE_BUDGET", budget)
+        seen = Seen(monkeypatch)
+        assert port_tsv(tmp_path, args, f"{budget}.tsv") == want
+        assert seen.blocked == blocked
 
 
 @pytest.mark.parametrize("mode", ["square", "rectangle", "stream"])

@@ -56,21 +56,46 @@ def diverse_fastas(seed=3, n1=150, n2=140, width=300):
 
 @pytest.fixture
 def spies(monkeypatch):
-    """Counts of diff uploads and of blocks by rung in one run."""
-    seen = {"diff": 0}
+    """Counts of diff uploads, of blocks by rung, of counter-kernel calls
+    (``k1``), of blocks first dispatched (``first``: every strip, stream
+    group and staged part is dispatched once, then perhaps again) and of
+    baselines in one run."""
+    seen = {"diff": 0, "k1": 0, "first": 0}
     real = diffup.DiffUploader.upload_encoded
+    real_counters = port_engine.kernels.counters
+    real_strip = port_engine._Strip.__init__
 
     def upload_encoded(self, enc, rows_pad):
         seen["diff"] += 1
         return real(self, enc, rows_pad)
 
+    def counters(*args, **kwargs):
+        seen["k1"] += 1
+        return real_counters(*args, **kwargs)
+
+    def strip(self, eng, m1, m2, i0, col_starts, *args, **kwargs):
+        seen["first"] += len(col_starts)
+        real_strip(self, eng, m1, m2, i0, col_starts, *args, **kwargs)
+
     monkeypatch.setattr(diffup.DiffUploader, "upload_encoded",
                         upload_encoded)
+    monkeypatch.setattr(port_engine.kernels, "counters", counters)
+    monkeypatch.setattr(port_engine._Strip, "__init__", strip)
 
     def snapshot():
-        return dict(port_engine.RUNG_BLOCKS, diff=seen["diff"])
+        return dict(port_engine.RUNG_BLOCKS, diff=seen["diff"],
+                    k1=seen["k1"], first=seen["first"],
+                    baselines=port_engine.BASELINES)
 
     return snapshot
+
+
+def check_no_recount(d):
+    """Every counter-kernel call of a run was a block's first dispatch or
+    a baseline, though blocks were packed again after a saturation."""
+    packs = sum(d[rung] for rung in port_engine.RUNG_BLOCKS)
+    assert d["k1"] == d["first"] + d["baselines"], d
+    assert packs > d["first"] >= 1, d
 
 
 def delta(before, after):
@@ -230,3 +255,33 @@ def test_launch_2_packed_and_saturating(tmp_path, mode):
         capture_output=True, text=True, env=env, cwd=tmp_path, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert out.read_bytes() == want
+
+
+@pytest.mark.parametrize("rung", ["rel4", "narrow"])
+@pytest.mark.parametrize("mode", ["square", "rectangle", "stream"])
+def test_refetches_repack_the_kept_counters(tmp_path, spies, monkeypatch,
+                                            mode, rung):
+    """A strip (stream group) saturated at rel4, or without a reference
+    row at narrow, is packed again at the next rungs from the int32
+    counters its first dispatch kept on the device: the counter kernel
+    runs for first dispatches and baselines alone.  The bytes are
+    numpy's."""
+    if rung == "narrow":
+        monkeypatch.setenv("DISTANCE_TPU_NO_REL_PACK", "1")
+    # past 255 differences a pair the narrow lanes saturate
+    f1, f2 = diverse_fastas(width=600)
+    args = mode_args(tmp_path, mode, f1, f2, batch=140) + ["-m", "raw"]
+    before = spies()
+    got, want = both(tmp_path, args)
+    assert got == want
+    d = delta(before, spies())
+    check_no_recount(d)
+    if rung == "rel4":
+        assert d["rel4"] == d["rel"] == d["wide"] == d["first"]
+        # the row and column baselines and the reference row's own; a
+        # stream group's column baseline once, refetched or not
+        assert d["baselines"] == (2 + d["first"] if mode == "stream" else 3)
+    else:
+        assert d["narrow"] == d["wide"] == d["first"]
+        assert d["baselines"] == d["rel4"] == d["rel"] == 0
+

@@ -5,9 +5,10 @@ CPU.
 
 The plain versions of K2 (rel4, rel) and K4 (narrow, wide) must give the
 lanes, words and the exception sidecar byte for byte; the host finish and
-the copied unpackers must give back the counters; one strip of the port's
-``_dispatch_strip`` must equal the JAX ``_dispatch_strip`` at ``--backend
-xla`` at every rung, with the same tiles and the same reference row; and
+the copied unpackers must give back the counters; one strip of the port
+(``_Strip``, packed again from its kept counters after its first rung)
+must equal the JAX ``_dispatch_strip`` at ``--backend xla`` at every
+rung, with the same tiles and the same reference row; and
 the port's ``pack_mode`` must follow the JAX engine's through the same
 sequence of saturations.
 """
@@ -26,6 +27,7 @@ from distance_tpu_torch.ops import packing  # noqa: E402
 from distance_tpu_torch.ops.counters import counters_torch  # noqa: E402
 from distance_tpu_torch.ops.features import get_plan  # noqa: E402
 from distance_tpu_torch.ops.plan import plan_to_torch  # noqa: E402
+from tests.test_torch_cuda import REL4_EDGES, rel4_edge_counters  # noqa: E402
 
 CPU = torch.device("cpu")
 G_OF = {m: len(get_plan(m).counters) for m in MEASURES}
@@ -109,6 +111,38 @@ def test_plain_rel_equals_jax(measure, shape, mask):
     want = jax_packing.pack_device_rel(c, rb, cb, cc, np, mk)
     got = packing.pack_rel(t(c), t(rb), t(cb), t(cc), i0, j0, diag)
     assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("mask", [(0, 0, None, None), (3, 1, (-2, -3), 2)])
+@pytest.mark.parametrize("every", [False, True])
+@pytest.mark.parametrize("shape", REL4_EDGES)
+def test_plain_rel4_equals_jax_at_segment_edges(shape, every, mask):
+    """At segment lengths above 1, odd and even: a byte straddling two
+    segments, segments with 0, 1, 2 and every cell out, the last segment
+    partial, a residual of -2^31, and every cell out; masked and not.
+    The plain rel4 (and rel) give the JAX lanes and sidecar byte for
+    byte."""
+    g, m, n = shape
+    seg = -(-g * m * n // packing.REL4_SEGMENTS)
+    assert seg in (2, 3, 7, 8)
+    rng = np.random.default_rng(sum(shape) + every)
+    c, rb, cb, cc = rel4_edge_counters(rng, g, m, n, every)
+    i0, j0, nv, diag = mask
+    if nv is not None:
+        nv = (i0 + m + nv[0], j0 + n + nv[1])
+    mk = jax_mask(m, n, i0, j0, nv, diag)
+    want = jax_packing.pack_device_rel4(c, rb, cb, cc, np, mk)
+    got = packing.pack_rel4(t(c), t(rb), t(cb), t(cc), i0, j0,
+                            nv or (i0 + m, j0 + n), diag)
+    for a, b in zip(got, want):
+        assert a.numpy().dtype == b.dtype
+        np.testing.assert_array_equal(a.numpy(), b)
+    firsts = int((want[1][:packing.REL4_SEGMENTS] >= 0).sum())
+    assert firsts >= 4
+    want = jax_packing.pack_device_rel(c, rb, cb, cc, np,
+                                       jax_mask(m, n, i0, j0, None, diag))
+    got = packing.pack_rel(t(c), t(rb), t(cb), t(cc), i0, j0, diag)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -245,8 +279,9 @@ def test_dispatch_strip_equals_jax(measure, mode, diff, monkeypatch):
     """One strip of several blocks (the last ragged) of a small alignment:
     the port's (lanes, bundle) equals the JAX engine's at --backend xla on
     the CPU, byte for byte, with the same tiles and reference row, at
-    rel4 and at rel; with diff uploads (pad rows hold the reference row)
-    and dense ones."""
+    rel4 and, packed again from the kept counters, at rel, narrow and
+    wide; with diff uploads (pad rows hold the reference row) and dense
+    ones."""
     if diff == "off":
         monkeypatch.setenv("DISTANCE_TPU_NO_DIFF_UPLOAD", "1")
     rng = np.random.default_rng(17)
@@ -274,11 +309,14 @@ def test_dispatch_strip_equals_jax(measure, mode, diff, monkeypatch):
     np.testing.assert_array_equal(np.asarray(jm2), pm2.numpy())
     for i0 in (0, 32):
         col_starts = list(range(i0 if mode == "square" else 0, n2, tj))
+        # one strip, dispatched at rel4 and packed again at each later rung
+        # from its kept counters
+        strip = port_engine._Strip(peng, pm1, pm2, i0, col_starts, ti, tj,
+                                   (n1, n2), diag)
         for rung in ("rel4", "rel", "narrow", "wide"):
             want = jax_engine._dispatch_strip(
                 jeng, jm1, jm2, i0, col_starts, ti, tj, rung, nv=(n1, n2))
-            got = port_engine._dispatch_strip(
-                peng, pm1, pm2, i0, col_starts, ti, tj, rung, (n1, n2), diag)
+            got = strip(rung)
             if rung in ("narrow", "wide"):
                 got, want = (got,), (want,)
             for a, b in zip(got, want):

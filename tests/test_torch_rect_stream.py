@@ -284,10 +284,9 @@ def test_auto_groups_hold_whole_batches_up_to_the_cap(tmp_path, monkeypatch):
     calls = []
     real = port_engine._BlockEngine.block
 
-    def spy(self, m1, m2, i0, j0, bi, bj, mode="none", *packing):
-        if mode == "rel4":  # first dispatches (a refetch is rel or int32)
-            calls.append(bj)
-        return real(self, m1, m2, i0, j0, bi, bj, mode, *packing)
+    def spy(self, m1, m2, i0, j0, bi, bj):
+        calls.append(bj)  # K1 runs at first dispatches alone
+        return real(self, m1, m2, i0, j0, bi, bj)
 
     monkeypatch.setattr(port_engine._BlockEngine, "block", spy)
     a, b = write(tmp_path, f1, f2)
