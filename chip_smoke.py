@@ -41,7 +41,12 @@ output, and times the kernels beside their plain versions.  Phases:
    a residual of -2^31, no cells; baselines read in place as row slices);
    K3 against its plain version on the
    square's 8192 x 29952 upload (its rows equal to the dense upload, pad
-   rows the reference row), with no diffs and capacity-many; K4 (narrow
+   rows the reference row), with no diffs and capacity-many, and at the
+   card tests' edges (``tests/test_torch_cuda.py::K3_EDGES``,
+   ``K3_CARD_EDGES``: widths 128, 29952 and 65664, 0, 1 and 4,194,305
+   rows, no diffs, a capacity all tail, a row all diffs, the first and
+   last bytes of rows, tiles and words, an empty tile beside a full one,
+   negative indices, a matrix just under 2^31 bytes); K4 (narrow
    and wide) byte-equal to its plain version for six measures on the
    square's block and the stream's group and on counters around the
    saturation points (254, 255, 256 in a lane, width - sum at 255) at
@@ -72,10 +77,13 @@ output, and times the kernels beside their plain versions.  Phases:
    their counters cold from a ring of copies larger than the L2
    (``cold_ring_ms``: the kernel's time by the profiler against its
    bound in bytes at 3.35 TB/s, and a call's by CUDA events), and K2's
-   time a launch in phase 3's square run; K3 on the 8192 x 29952 upload
-   in turns with its plain version and its yardstick (``expand().clone()``
-   and ``index_put_``); the numbers at the square's shapes go into the
-   result line;
+   time a launch in phase 3's square run; K3 (``time_k3``) the same three
+   ways, its inputs read cold, at the square's 8192 x 29952 upload, a
+   stream group of 8000 records and an out-of-core super-row of 1024
+   (``k3_uploads``), beside its bound (bytes written and read at 3.35
+   TB/s), its plain version and its yardstick (``expand().clone()`` and
+   ``index_put_``), and its time a launch in phase 3's square run; the
+   numbers at the square's shapes go into the result line;
 6. the rectangle path: the CLI on 4096 x 8192 x 29904 (two files cut
    from one alignment), ``-m raw``; line count, 1200 random rows, launch
    count, and a ``torch.profiler`` split of a second run's device time
@@ -123,6 +131,8 @@ output, and times the kernels beside their plain versions.  Phases:
    wide; and a square of 256 random records at 65600 sites, rel4, rel
    and int32; launches per rung, line count and 1200 random rows each.
 
+Every profiled run's split shows device time for each kernel it
+launched.  K3's launches on each path must be ``K3_LAUNCHES``.
 Any failed check raises, and the script exits non-zero without a result.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the six kernels (``counters``, ``pack_rel4``, ``pack_rel``,
@@ -141,7 +151,13 @@ events out of core).
 
     python3 chip_smoke.py --measure-ooc
 
-measures that last part alone.
+measures that last part alone, and
+
+    python3 chip_smoke.py --measure-k3
+
+times K3 alone as phase 5 does, summing every kernel its calls launch.
+Copied into another checkout and run there, it times that checkout's
+K3, so that two versions compare in one call.
 """
 
 from __future__ import annotations
@@ -691,6 +707,21 @@ def phase_pack_and_rebuild(bench: np.ndarray) -> int:
           f" {N_BENCH * l_pad} codes, capacity {enc[0].size}; its real rows equal"
           f" the dense upload, pad rows the reference row), no diffs, and"
           f" capacity-many diffs")
+    cases = card_tests()
+    edges = cases.K3_EDGES + cases.K3_CARD_EDGES
+    for name in edges:
+        r, i, v, nrows = cases.k3_edge_case(name,
+                                            np.random.default_rng(SEED + 31))
+        args = (torch.from_numpy(r).to(dev), torch.from_numpy(i).to(dev),
+                torch.from_numpy(v).to(dev), nrows)
+        got = diffup.diff_rebuild_cuda(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, diffup.diff_rebuild_torch(*args)),
+              f"K3 {name} ({nrows} x {r.size}, capacity {i.size}): kernel"
+              f" != plain")
+        del got, args
+    print(f"[2] K3 == plain at its edges (the card tests' cases):"
+          f" {', '.join(edges)}")
 
     # K4 on the main path's blocks and on counters around the saturation
     # points of the narrow lanes, at widths 1, the bench's and 2^16 - 1
@@ -728,6 +759,20 @@ def phase_pack_and_rebuild(bench: np.ndarray) -> int:
           f" {bench.shape[1]} sites (six measures together)")
     ooc_packs_vs_plain(dev, rows, ref, both, lanes_equal, widths)
     return 0
+
+
+def card_tests():
+    """``tests/test_torch_cuda.py`` of this checkout, loaded from its path
+    (a package named ``tests`` installed elsewhere may shadow the
+    checkout's)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_torch_cuda.py")
+    spec = importlib.util.spec_from_file_location("card_tests", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def cut(sizes) -> list:
@@ -1222,26 +1267,33 @@ def in_turns(fns: dict, order: tuple) -> dict:
 RING_BYTES = 150_000_000
 
 
-def cold_ring_ms(fn, c, kernel: str, reps: int) -> dict:
-    """``fn`` of each tensor of a ring of copies of ``c`` (RING_BYTES or
-    more in all), ``reps`` times round, timed three ways in ms: ``ms``,
-    the mean device time of the kernel whose name holds ``kernel``, from
-    the kernel durations of a torch.profiler trace (``seen`` of its
-    launches are in the trace); ``graph_ms``, a launch of the ring's
-    launches captured in a CUDA graph and replayed back to back, by CUDA
-    events; ``call_ms``, a call by CUDA events (the wrapper included)."""
+def cold_ring_ms(fn, c, kernel, reps: int, call_bytes: int = 0) -> dict:
+    """``fn`` of each entry of a ring of copies of ``c`` (a tensor, or a
+    tuple of tensors that ``fn`` takes), ``reps`` times round, timed three
+    ways in ms: ``ms``, the device time of a call's kernels (those whose
+    names hold ``kernel``, a name or a tuple of names; None: every kernel
+    the calls launch), each kernel's mean duration in a torch.profiler
+    trace, summed over the kernels (``seen`` of each kernel's launches are
+    in the trace, ``names`` its kernels); ``graph_ms``, a call of the
+    ring's calls captured in a CUDA graph and replayed back to back, by
+    CUDA events; ``call_ms``, a call by CUDA events (the wrapper included).
+    The ring holds RING_BYTES or more: of ``c``, or ``call_bytes`` a call
+    (the bytes a call reads and writes) where given."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    ring = [c.clone() for _ in range(max(2, -(-RING_BYTES // c.nbytes)))]
+    parts = c if isinstance(c, tuple) else (c,)
+    per_call = call_bytes or sum(t.nbytes for t in parts)
+    ring = [tuple(t.clone() for t in parts)
+            for _ in range(max(2, -(-RING_BYTES // per_call)))]
     for t in ring:
-        fn(t)
-    out = {"call_ms": cuda_timed(lambda: [fn(t) for t in ring], reps)
+        fn(*t)
+    out = {"call_ms": cuda_timed(lambda: [fn(*t) for t in ring], reps)
            / len(ring)}
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for t in ring:
-            fn(t)
+            fn(*t)
     graph.replay()
     out["graph_ms"] = cuda_timed(graph.replay, reps) / len(ring)
     del graph
@@ -1249,39 +1301,43 @@ def cold_ring_ms(fn, c, kernel: str, reps: int) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             for t in ring:
-                fn(t)
+                fn(*t)
         torch.cuda.synchronize()
     path = os.path.join(tempfile.gettempdir(), f"ring_{os.getpid()}.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     os.remove(path)
-    durs = [ev["dur"] for ev in events
-            if ev.get("cat") == "kernel" and kernel in ev.get("name", "")]
-    check(0 < len(durs) <= reps * len(ring),
-          f"the profiler's trace holds {len(durs)} {kernel} launches of"
-          f" {reps * len(ring)}")
-    out.update(ms=float(np.mean(durs)) / 1e3, seen=len(durs),
-               launched=reps * len(ring))
+    wanted = (kernel,) if isinstance(kernel, str) else kernel
+    durs = {}
+    for ev in events:
+        name = ev.get("name", "")
+        if ev.get("cat") == "kernel" and (
+                wanted is None or any(k in name for k in wanted)):
+            durs.setdefault(name, []).append(ev["dur"])
+    launched = reps * len(ring)
+    check(bool(durs) and all(0 < len(d) <= launched for d in durs.values()),
+          f"the profiler's trace holds {[len(d) for d in durs.values()]}"
+          f" launches of {kernel} of {launched} calls")
+    out.update(ms=sum(float(np.mean(d)) for d in durs.values()) / 1e3,
+               seen=min(len(d) for d in durs.values()), launched=launched,
+               names=sorted(durs))
     return out
 
 
 def phase_pack_timing(bench: np.ndarray, square_split: dict,
                       square_counts: dict) -> dict:
-    """K2, K4 and K3 timed on the card beside their plain versions (and K3
-    in turns with its yardstick, the plain version's ``expand().clone()``
-    and ``index_put_`` of the in-range diffs, selected outside the timed
-    window), at the main path's shapes: K2 and K4 at raw on the square's
-    2048 x 2048 block and the stream's 2000 x 8000 group, K3 on the
-    square's 8192 x 29952 upload.  K2 and K4 read their counters cold
-    (``cold_ring_ms``): the kernel's device time by the profiler, as a
-    share of its bound, beside the time a call by CUDA events; and K2's
-    time a launch inside the square run of phase 3 (``square_split``,
-    ``square_counts``).  Bounds in bytes at the card's memory rate
-    (PEAK_BYTES): K2 and K4 read 4 G m n B and write G m n / 2 (rel4),
-    G m n (rel, narrow) or 4 m n (raw's wide words) B; K3 writes rows x
-    l_pad B and reads 5 B a diff.  Returns each kernel's numbers at the
-    square's shapes."""
+    """K2, K4 and K3 timed on the card beside their plain versions, at the
+    main path's shapes: K2 and K4 at raw on the square's 2048 x 2048 block
+    and the stream's 2000 x 8000 group, K3 at ``k3_uploads`` (``time_k3``).
+    K2 and K4 read their counters cold (``cold_ring_ms``): the kernel's
+    device time by the profiler, as a share of its bound, beside the time
+    a call by CUDA events; and K2's and K3's time a launch inside the
+    square run of phase 3 (``square_split``, ``square_counts``).  Bounds
+    in bytes at the card's memory rate (PEAK_BYTES): K2 and K4 read
+    4 G m n B and write G m n / 2 (rel4), G m n (rel, narrow) or 4 m n
+    (raw's wide words) B; K3 writes rows x l_pad B and reads 5 B a diff.
+    Returns each kernel's numbers at the square's shapes."""
     import torch
 
     from distance_tpu_torch.ops import diffup, packing
@@ -1349,36 +1405,121 @@ def phase_pack_timing(bench: np.ndarray, square_split: dict,
                                  library_ms=None)
                 if name in in_run:
                     out[name]["square_run_ms"] = in_run[name]
-    up = diffup.DiffUploader(refp, dev)
-    idx_h, vals_h = up.encode(rows, n_real=N_BENCH)
-    idx, vals = (torch.from_numpy(a).to(dev) for a in (idx_h, vals_h))
-    total = N_BENCH * l_pad
-    keep = idx < total
-    idx_in, vals_in = idx[keep].long(), vals[keep]
-    n_diff = int(keep.sum())
-
-    def library():
-        o = ref.expand(N_BENCH, l_pad).clone()
-        o.view(-1).index_put_((idx_in,), vals_in)
-        return o
-
-    ms = in_turns({"kernel": (lambda: diffup.diff_rebuild_cuda(
-                       ref, idx, vals, N_BENCH), 20),
-                   "plain": (lambda: diffup.diff_rebuild_torch(
-                       ref, idx, vals, N_BENCH), 5),
-                   "library": (library, 5)},
-                  ("plain", "kernel", "library", "library", "kernel",
-                   "plain"))
-    bound = (total + 5.0 * n_diff) / PEAK_BYTES * 1e3
-    print(f"[5] K3 diff_rebuild square {N_BENCH} x {l_pad}, {n_diff} diffs"
-          f" (capacity {idx_h.size}): kernel {ms['kernel']:.4f} ms, plain"
-          f" {ms['plain']:.4f} ms, library {ms['library']:.4f} ms, bound"
-          f" {bound:.4f} ms (bytes at {PEAK_BYTES:.3e} B/s) ="
-          f" {bound / ms['kernel']:.4f} of the bound ({card})")
-    out["diff_rebuild"] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
-                               bound_ms=bound, bound_by="bytes",
-                               library_ms=ms["library"])
+    k3 = time_k3(k3_uploads(bench), K3_KERNEL, card)["square"]
+    k3["square_run_ms"] = (square_split["K3"] / 1e3
+                           / max(1, square_counts["diff_rebuild"]))
+    print(f"[5] K3 in the square run of phase 3: {k3['square_run_ms']:.4f}"
+          f" ms a launch by the profiler ({card})")
+    out["diff_rebuild"] = k3
     time_glue(rows, refp, card)
+    return out
+
+
+# K3's kernel, by the name the profiler gives it.
+K3_KERNEL = "diff_rebuild_tiles"
+# The rows of K3's out-of-core super-row timed in phase 5.
+K3_SUPER_ROW = 1024
+
+
+def k3_uploads(bench: np.ndarray) -> dict:
+    """The diff uploads K3 is timed at, on the card, {tag: (ref, idx,
+    vals, rows)}, each encoded as the engine encodes it: the square's
+    8192 x 29952 (the bench alignment against its reference row), the
+    first 8000-record group of phase 7's stream alignment against the
+    loaded side's reference row, and an out-of-core super-row of
+    K3_SUPER_ROW bench records."""
+    import torch
+
+    from distance_tpu_torch.ops import diffup
+
+    dev = torch.device("cuda", 0)
+    l_pad = -(-L_BENCH // 128) * 128
+
+    def upload(mat: np.ndarray, ref_row: np.ndarray) -> tuple:
+        padded = np.zeros((mat.shape[0], l_pad), dtype=np.uint8)
+        padded[:, :L_BENCH] = mat
+        refp = np.zeros(l_pad, dtype=np.uint8)
+        refp[:L_BENCH] = ref_row
+        enc = diffup.DiffUploader(refp, dev).encode(padded,
+                                                    n_real=mat.shape[0])
+        check(enc is not None, f"{mat.shape} did not diff-encode")
+        return (torch.from_numpy(refp).to(dev),
+                *(torch.from_numpy(a).to(dev) for a in enc), mat.shape[0])
+
+    ref_row = diffup.sampled_mode_row(bench)
+    stream = make_alignment(sum(N_STREAM), L_BENCH, SEED + 5)
+    n1 = N_STREAM[0]
+    return {
+        "square": upload(bench, ref_row),
+        "stream group": upload(stream[n1: n1 + STREAM_GROUPS[0]],
+                               diffup.sampled_mode_row(stream[:n1])),
+        "super-row": upload(bench[:K3_SUPER_ROW], ref_row),
+    }
+
+
+def time_k3(uploads: dict, kernel, card: str) -> dict:
+    """K3 on each upload of ``k3_uploads``: equal to its plain version,
+    then timed as K2 and K4 are (``cold_ring_ms``: the kernel's device time
+    by the profiler, summed over the kernels of a call, named by
+    ``kernel``, None for every kernel the calls launch; a CUDA graph's
+    back-to-back calls; a call by CUDA events), beside its bound (rows x
+    l_pad B written and 5 B a diff read, at PEAK_BYTES), its plain version
+    and its yardstick (``expand().clone()`` and ``index_put_`` of the
+    in-range diffs, selected outside the timed window), both by CUDA
+    events in turns.  The inputs of a call are read cold: the ring holds
+    RING_BYTES of calls' inputs and outputs.  Returns the numbers by tag."""
+    import torch
+
+    from distance_tpu_torch.ops import diffup
+
+    out = {}
+    for tag, (ref, idx, vals, rows) in uploads.items():
+        l_pad = ref.shape[0]
+        total = rows * l_pad
+        got = diffup.diff_rebuild_cuda(ref, idx, vals, rows)
+        torch.cuda.synchronize()
+        check(torch.equal(got, diffup.diff_rebuild_torch(ref, idx, vals,
+                                                         rows)),
+              f"K3 {tag}: kernel != plain")
+        del got
+        keep = (idx >= 0) & (idx < total)
+        idx_in, vals_in = idx[keep].long(), vals[keep]
+        n_diff = int(keep.sum())
+
+        def library():
+            o = ref.expand(rows, l_pad).clone()
+            o.view(-1).index_put_((idx_in,), vals_in)
+            return o
+
+        def plain():
+            return diffup.diff_rebuild_torch(ref, idx, vals, rows)
+
+        library()
+        plain()
+        ms = in_turns({"plain": (plain, 3), "library": (library, 5)},
+                      ("plain", "library", "library", "plain"))
+        t = cold_ring_ms(
+            lambda i, v: diffup.diff_rebuild_cuda(ref, i, v, rows),
+            (idx, vals), kernel, 10,
+            call_bytes=total + idx.nbytes + vals.nbytes)
+        bound = (total + 5.0 * n_diff) / PEAK_BYTES * 1e3
+        fits = (" (the output fits the 50 MB L2: calls back to back"
+                " rewrite lines it holds)" if total < 50e6 else "")
+        print(f"[5] K3 diff_rebuild {tag} {rows} x {l_pad}, {n_diff} diffs"
+              f" (capacity {idx.numel()}){fits}: kernel {t['ms']:.4f} ms by"
+              f" the profiler ({t['seen']} of {t['launched']} calls in its"
+              f" trace; kernels {t['names']}), bound {bound:.4f} ms (bytes"
+              f" at {PEAK_BYTES:.3e} B/s) = {bound / t['ms']:.4f} of the"
+              f" bound ({card}); back to back in a CUDA graph"
+              f" {t['graph_ms']:.4f} ms a call = {bound / t['graph_ms']:.4f}"
+              f" of the bound ({card}); a call {t['call_ms']:.4f} ms by CUDA"
+              f" events = {bound / t['call_ms']:.4f} of the bound ({card});"
+              f" plain {ms['plain']:.4f} ms; library (expand().clone() +"
+              f" index_put_) {ms['library']:.4f} ms ({card})")
+        out[tag] = dict(ms=t["ms"], graph_ms=t["graph_ms"],
+                        call_ms=t["call_ms"], plain_ms=ms["plain"],
+                        bound_ms=bound, bound_by="bytes",
+                        library_ms=ms["library"])
     return out
 
 
@@ -1469,8 +1610,7 @@ def device_split(prof) -> dict:
         kind = ("K1" if "counters_kernel" in ev.name
                 else "K2 rel4" if "rel4_pack" in ev.name
                 else "K2 rel" if "rel_pack" in ev.name
-                else "K3" if ("fill_rows" in ev.name
-                              or "scatter_diffs" in ev.name)
+                else "K3" if K3_KERNEL in ev.name
                 else "K4" if ("narrow_lanes" in ev.name
                               or "wide_words" in ev.name)
                 else "H2D" if "HtoD" in ev.name
@@ -1485,15 +1625,24 @@ def device_split(prof) -> dict:
     return split
 
 
+# The kinds of ``device_split`` by the launch counts of ``read_counts``.
+SPLIT_COUNTS = {"K1": ("counters",), "K2 rel4": ("pack_rel4",),
+                "K2 rel": ("pack_rel",), "K3": ("diff_rebuild",),
+                "K4": ("pack_narrow", "pack_wide")}
+
+
 def profiled_run(tag: str, args: list) -> dict:
     """One more ``-m raw`` CLI run under torch.profiler: its device time
     split into the kernels (K1-K4), H2D and D2H, and the device's busy
-    share of the wall; returns the split (us)."""
+    share of the wall; every kernel the run launched shows device time of
+    its own in the split, so that none falls into "other" unnamed.
+    Returns the split (us)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from distance_tpu_torch import cli
 
+    reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1501,8 +1650,14 @@ def profiled_run(tag: str, args: list) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     check(rc == 0, f"{tag} profiled run exited {rc}")
+    counts = read_counts()
     split = device_split(prof)
     check(split["K1"] > 0, f"{tag} the profiler saw no counter kernel")
+    for kind, names in SPLIT_COUNTS.items():
+        launched = sum(counts[n] for n in names)
+        check((split[kind] > 0) == (launched > 0),
+              f"{tag}: {launched} {kind} launches ({names}) but"
+              f" {split[kind]} us of {kind} in the profiler's split")
     total = sum(v for k, v in split.items() if k != "busy")
     print(f"{tag} profiled run: wall {wall:.3f} s; device time (ms):"
           f" K1 {split['K1'] / 1e3:.3f}, K2 {split['K2 rel4'] / 1e3:.3f}"
@@ -2241,10 +2396,19 @@ def measure_out_of_core() -> None:
                       f" events) ({gpu_line()})")
 
 
+# K3's launches on each path, as the diff uploads of these runs make them
+# (one a diff-encoded upload: the in-core X side, stream group or staged
+# super-row encoding; none where the uploads go dense).
+K3_LAUNCHES = {"square": 1, "square-dense": 0, "rectangle": 2, "stream": 4,
+               "square-ooc": 8, "square-ooc-dense": 0, "rectangle-ooc": 10,
+               "stream-staged": 19, "stream-long-loaded": 0,
+               "stream_shards": 6, "ladder": 0}
+
+
 def main(argv: list) -> int:
-    if argv not in ([], ["--measure"], ["--measure-ooc"]):
-        print("usage: chip_smoke.py [--measure | --measure-ooc]",
-              file=sys.stderr)
+    if argv not in ([], ["--measure"], ["--measure-ooc"], ["--measure-k3"]):
+        print("usage: chip_smoke.py [--measure | --measure-ooc |"
+              " --measure-k3]", file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "distance_tpu_torch")):
@@ -2258,8 +2422,12 @@ def main(argv: list) -> int:
         return 1
     t_start = time.perf_counter()
     card = phase_environment()
-    if argv:
+    if argv == ["--measure-k3"]:
+        time_k3(k3_uploads(make_alignment(N_BENCH, L_BENCH, SEED)), None,
+                card)
+    elif argv:
         measure_mode() if argv == ["--measure"] else measure_out_of_core()
+    if argv:
         print(f"chip_smoke --measure: done in"
               f" {time.perf_counter() - t_start:.1f} s")
         print(card)
@@ -2292,6 +2460,10 @@ def main(argv: list) -> int:
     launches["stream_shards"] = phase_multiprocess(shas)
     with tempfile.TemporaryDirectory() as tmp:
         launches["ladder"] = phase_ladder(tmp)
+    k3 = {path: c["diff_rebuild"] for path, c in launches.items()}
+    check(k3 == K3_LAUNCHES, f"K3 launches by path {k3}, expected"
+                             f" {K3_LAUNCHES}")
+    print(f"K3 launches by path as expected: {k3}")
     print(f"chip_smoke: all phases passed in"
           f" {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -145,8 +145,10 @@ def _kernel_lib() -> ctypes.CDLL:
 
 def diff_rebuild_cuda(ref: torch.Tensor, idx: torch.Tensor,
                       vals: torch.Tensor, rows: int) -> torch.Tensor:
-    """Launch the rebuild kernel on the current stream of the reference's
-    device; raises on anything it does not take."""
+    """Launch the rebuild kernel (one launch a call, none for an empty
+    matrix) on the current stream of the reference's device; raises on
+    anything it does not take.  As the JAX scatter assumes, ``idx`` must be
+    sorted and unique (the encoder's are): the kernel walks it in order."""
     global LAUNCHES
     if ref.device.type != "cuda":
         raise ValueError(f"the rebuild kernel needs CUDA tensors, got"
@@ -169,6 +171,8 @@ def diff_rebuild_cuda(ref: torch.Tensor, idx: torch.Tensor,
     if ref.data_ptr() % 16:
         ref = ref.clone()
     out = torch.empty((rows, l_pad), dtype=torch.uint8, device=ref.device)
+    if out.numel() == 0:
+        return out
     stream = torch.cuda.current_stream(ref.device).cuda_stream
     with torch.cuda.device(ref.device):
         rc = _kernel_lib().dt_diff_rebuild_launch(

@@ -479,6 +479,101 @@ def test_diff_rebuild_matches_plain(dev, n_diffs):
     assert bool((got[rows - 3:] == ref).all())
 
 
+# The edges of K3 (``csrc/diffup.cu``): it cuts the flat output into
+# parts of whole 128-byte lines, one a CTA, and a part into tiles of
+# K3_TILE bytes from its start, so the diffs on the first and last byte of
+# every 16-byte word of a row meet every part and tile edge in that row.
+# ``tests/test_torch_diffup.py`` holds the plain version to the JAX
+# ``_build_fn`` at the small ones.
+K3_TILE = 16384
+K3_EDGES = ("l_pad 128", "l_pad 29952", "l_pad 65664", "rows 0", "rows 1",
+            "cap 0", "all tail", "full row", "first and last bytes",
+            "empty tile beside full")
+K3_CARD_EDGES = ("negative indices", "4194305 rows", "under 2^31")
+
+
+def k3_encoding(rng, rows: int, l_pad: int, flat) -> tuple:
+    """Sorted, unique int32 indices ``flat`` with random codes, padded to
+    the encoder's capacity with its strictly increasing tail at and past
+    rows * l_pad."""
+    flat = np.unique(np.asarray(flat, dtype=np.int64))
+    n = flat.size
+    assert not n or 0 <= flat[0] <= flat[-1] < rows * l_pad
+    cap = diffup._round_cap(n)
+    idx = np.empty(cap, dtype=np.int32)
+    idx[:n] = flat
+    idx[n:] = np.arange(rows * l_pad, rows * l_pad + cap - n)
+    vals = np.zeros(cap, dtype=np.uint8)
+    vals[:n] = rng.choice(ALL_CODES, n)
+    return idx, vals
+
+
+def k3_edge_case(name: str, rng) -> tuple:
+    """(ref, idx, vals, rows) of one of K3_EDGES or K3_CARD_EDGES."""
+    rows, l_pad = {"l_pad 128": (37, 128), "l_pad 29952": (5, 29952),
+                   "l_pad 65664": (3, 65664), "rows 0": (0, 256),
+                   "rows 1": (1, 384), "cap 0": (9, 256),
+                   "all tail": (11, 256), "full row": (4, 29952),
+                   "first and last bytes": (6, 29952),
+                   "empty tile beside full": (3, 29952),
+                   "negative indices": (7, 384),
+                   "4194305 rows": (4_194_305, 128),
+                   "under 2^31": ((2**31 - 8192) // 29952, 29952)}[name]
+    ref = random_codes(rng, 1, l_pad)[0]
+    total = rows * l_pad
+
+    def some():  # one flat index in 20 (small matrices only)
+        return rng.choice(total, size=total // 20 + 1, replace=False)
+
+    if name in ("rows 0", "all tail"):
+        flat = []
+    elif name == "cap 0":
+        return (ref, np.zeros(0, np.int32), np.zeros(0, np.uint8), rows)
+    elif name == "full row":
+        flat = np.concatenate([some()[:40], 2 * l_pad + np.arange(l_pad)])
+    elif name == "first and last bytes":
+        starts = np.arange(rows) * l_pad
+        cols = np.arange(K3_TILE, l_pad, K3_TILE)
+        tiles = np.arange(K3_TILE, total, K3_TILE)
+        words = 3 * l_pad + np.arange(0, l_pad, 16)
+        flat = np.concatenate([starts, starts + l_pad - 1,
+                               (starts[:, None] + cols).ravel(),
+                               (starts[:, None] + cols - 1).ravel(),
+                               tiles, tiles - 1, words, words + 15])
+    elif name == "empty tile beside full":
+        flat = np.concatenate([l_pad + np.arange(K3_TILE),
+                               2 * l_pad + K3_TILE + np.arange(50)])
+    elif name == "4194305 rows":
+        flat = rng.choice(total, size=1 << 20, replace=False)
+    elif name == "under 2^31":
+        flat = np.concatenate([[0, l_pad - 1, total - l_pad, total - 1],
+                               rng.choice(total, size=5000, replace=False)])
+    else:
+        flat = some()
+    idx, vals = k3_encoding(rng, rows, l_pad, flat)
+    if name == "negative indices":
+        idx[:3] = (-(2**31), -5, -1)
+    return ref, idx, vals, rows
+
+
+@pytest.mark.parametrize("case", K3_EDGES + K3_CARD_EDGES)
+def test_diff_rebuild_at_edges(dev, case):
+    """K3 byte-equal to its plain version at its edges: widths of one
+    partial tile, of the bench and of more than one tile and 48 KB; 0, 1
+    and 4,194,305 rows (many rows a CTA); no diffs, a capacity all tail;
+    a row all diffs; diffs on the first and last byte of every row, tile
+    and 16-byte word; an empty tile beside a full one; negative indices
+    (dropped); and a matrix just under 2^31 bytes, int32's limit."""
+    ref, idx, vals, rows = k3_edge_case(case, np.random.default_rng(77))
+    args = (torch.from_numpy(ref).to(dev), torch.from_numpy(idx).to(dev),
+            torch.from_numpy(vals).to(dev), rows)
+    got = diffup.diff_rebuild_cuda(*args)
+    torch.cuda.synchronize()
+    want = diffup.diff_rebuild_torch(*args)
+    assert got.shape == want.shape == (rows, ref.size)
+    assert torch.equal(got, want)
+
+
 def test_diff_upload_on_card_equals_dense(dev, monkeypatch):
     """A low-diversity matrix sent diff-encoded to the card rebuilds to
     the dense matrix on its real rows."""

@@ -20,6 +20,7 @@ from distance_tpu_torch import cli as port_cli  # noqa: E402
 from distance_tpu_torch.encoding import ALL_CODES  # noqa: E402
 from distance_tpu_torch.ops import diffup  # noqa: E402
 from tests.conftest import make_fasta, random_seqs  # noqa: E402
+from tests.test_torch_cuda import K3_EDGES, k3_edge_case  # noqa: E402
 from tests.test_golden import run_engine  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -42,21 +43,32 @@ def encoding(rng, rows, l_pad, n_diffs, tail_rows=0):
     return idx, vals
 
 
-@pytest.mark.parametrize("n_diffs", [0, 1, 300, 4096, 4097])
-def test_plain_rebuild_equals_build_fn(n_diffs):
+@pytest.mark.parametrize("case", [pytest.param(n, id=str(n)) for n in
+                                  (0, 1, 300, 4096, 4097)] + list(K3_EDGES))
+def test_plain_rebuild_equals_build_fn(case):
     """0 diffs, some, capacity-many and one past a capacity: the rebuild
     equals the JAX scatter, its pad rows hold the reference row, and the
-    out-of-range tail is dropped."""
-    rng = np.random.default_rng(n_diffs)
-    rows, l_pad = 24, 256
-    ref = codes(rng, 1, l_pad)[0]
-    idx, vals = encoding(rng, rows, l_pad, n_diffs, tail_rows=4)
+    out-of-range tail is dropped.  Then K3's edges (``K3_EDGES`` of the
+    card tests, which hold the kernel to this plain version there): widths
+    128, 29952 and 65664, 0 and 1 rows, no diffs, a capacity all tail, a
+    row all diffs, the first and last bytes of rows, tiles and words, an
+    empty tile beside a full one."""
+    if isinstance(case, str):
+        ref, idx, vals, rows = k3_edge_case(case, np.random.default_rng(77))
+        l_pad, pad_rows = ref.size, 0
+    else:
+        rng = np.random.default_rng(case)
+        rows, l_pad, pad_rows = 24, 256, 4
+        ref = codes(rng, 1, l_pad)[0]
+        idx, vals = encoding(rng, rows, l_pad, case, tail_rows=pad_rows)
     want = np.asarray(jax_diffup._build_fn(rows, l_pad, idx.size)(
         ref, idx, vals))
     got = diffup.diff_rebuild(torch.from_numpy(ref), torch.from_numpy(idx),
                               torch.from_numpy(vals), rows)
+    assert got.shape == want.shape == (rows, l_pad)
     np.testing.assert_array_equal(got.numpy(), want)
-    np.testing.assert_array_equal(got.numpy()[-4:], np.tile(ref, (4, 1)))
+    np.testing.assert_array_equal(got.numpy()[rows - pad_rows:],
+                                  np.tile(ref, (pad_rows, 1)))
 
 
 @pytest.mark.parametrize("native", [True, False])
