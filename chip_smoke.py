@@ -5,7 +5,10 @@
 
 Run from the root of a checkout.  It builds the kernels from
 ``distance_tpu_torch/csrc`` (K1 the counters, K2 the rel4/rel packs, K3
-the diff rebuild, K4 the narrow/wide packs), holds each against its plain
+the diff rebuild, K4 the narrow/wide packs, K5 the features and K6 their
+contraction, the cached-feature path that the engine's measure set,
+``engine.CACHED_MEASURES``, sends the square's and the rectangle's blocks
+through), holds each against its plain
 PyTorch version, drives the port's CLI on SARS-CoV-2-scale synthetic
 alignments made from a seed (29904 sites) in its three modes, in and out
 of core, with diff-encoded uploads and the pack ladder on, checks the
@@ -14,7 +17,7 @@ output, and times the kernels beside their plain versions.  Phases:
 1. environment: the card, torch, CUDA, nvcc; build the kernels and print
    ptxas's registers, shared memory and spills; the free device memory,
    the engine's auto budget and the square's in-core crossover for raw
-   and tn93;
+   and tn93, and up to where the g cache engages in core;
 2. K1 against its plain version, exactly, for all six measures:
    the truth table (code 0 and every Paradis code over 64 sites, on both
    sides, also against each counter's predicate table), shapes on either
@@ -54,12 +57,25 @@ output, and times the kernels beside their plain versions.  Phases:
    phase 9's out-of-core runs and phase 10's staged shard
    (``OOC_LAYOUTS``, ``ooc_blocks``): K2 at the block's position with its
    out-of-core masks (valid rows of both sides, self-pair offset), K4 at
-   its shape;
+   its shape.  K5 byte-equal to its plain version for the six measures on
+   both sides (``phase_cached_vs_plain``): the truth table (code 0 and
+   every Paradis code at every offset of a 16-site piece), widths 16,
+   4095 and 29952, 0 and 1 rows (``tests/test_torch_cuda.py::K5_EDGES``)
+   and an output past 2^31 bytes; K6 equal to its plain version for the
+   six measures in both plan forms (the JAX plan's channels and K1's
+   folded ones): K1's tile edges and 1-row baselines
+   (``K6_EDGES``), an empty side, a g-cache slice at j0 > 0 against an
+   f-cache slice at i0 > 0 read at their strides, the main path's
+   launches (a 2048-row strip against 2048-row slices of the square's
+   8192-row g cache, its baselines, phase 12's out-of-core blocks and
+   baselines) and a g cache past 2^31 bytes;
 3. the square path: the CLI on the 8192 x 29904 alignment, ``-m raw
    --backend cuda``; line count, 1200 random rows against the host
-   oracle, each kernel's launch count in that run (10 blocks at rel4, 3
-   baselines, the refetches by rung, packed from the counters the first
-   dispatch kept: K1 = first dispatches + baselines on every path,
+   oracle, each kernel's launch count in that run (10 blocks at rel4; 3
+   baselines through K1, or through K6 one a strip (4) and 2 more; the
+   refetches by rung, packed from the counters the first dispatch kept:
+   K1 = K1 first dispatches + K1 baselines, K6 = K6 first dispatches + K6
+   baselines, K5 = the feature builds, on every path,
    ``check_launches``), a ``torch.profiler`` split of a
    second run's device time, and the same square once more dense and
    without a reference row (DISTANCE_TPU_NO_DIFF_UPLOAD=1
@@ -83,7 +99,14 @@ output, and times the kernels beside their plain versions.  Phases:
    (``k3_uploads``), beside its bound (bytes written and read at 3.35
    TB/s), its plain version and its yardstick (``expand().clone()`` and
    ``index_put_``), and its time a launch in phase 3's square run; the
-   numbers at the square's shapes go into the result line;
+   numbers at the square's shapes go into the result line.  K6
+   (``phase_cached_timing``) at the same 2048² x 29952 block for the six
+   measures, in both plan forms, beside K1, its bound (the same
+   operations as K1's, or its features read once at 3.35 TB/s), its plain
+   version and both yardsticks (``torch._int_mm`` a folded counter, and
+   one ``torch._int_mm`` a channel with the planes and the mix in torch),
+   and K5 at the square's 8192 x 29952 g cache and a 2048-row strip
+   beside its byte bound;
 6. the rectangle path: the CLI on 4096 x 8192 x 29904 (two files cut
    from one alignment), ``-m raw``; line count, 1200 random rows, launch
    count, and a ``torch.profiler`` split of a second run's device time
@@ -97,7 +120,10 @@ output, and times the kernels beside their plain versions.  Phases:
    identical bytes for a 128 x 256 rectangle and a 128-loaded x
    300-streamed stream with ``-b 7``;
 9. out of core: the engine's device and host budgets (and tiles) are
-   lowered in this process, the data keeps its full size.  The square of
+   lowered in this process, the data keeps its full size.  K1's out-of-core
+   path (the engine's measure set emptied in this process, as for a
+   measure outside it or a cache that does not fit; phase 12 runs the
+   cached one): the square of
    phase 3, the rectangle of phase 6 and a stream of 8192 loaded x 4096
    streamed records (``-b 1000``) run out of core, diff-uploaded and
    packed, with at least 3 X groups (the stream: 2 groups) and 3
@@ -109,7 +135,8 @@ output, and times the kernels beside their plain versions.  Phases:
    into blocks by rung and baselines, the host diff encodes per super-row
    show the memo's hits, CUDA events time the K1 launches, and a
    profiled repeat splits the device time; the square once more dense
-   and without a reference row (same sha256).  Then the six measures out of core at small shapes
+   and without a reference row (same sha256).  Then, with the engine's
+   own measure set, the six measures out of core at small shapes
    (square 256, rectangle 128 x 256, stream 128 x 300 ``-b 7``) against
    the in-core ``--backend torch`` bytes, and an in-core stream of 8
    records against 4,194,305 loaded records of 64 sites (one launch;
@@ -129,15 +156,24 @@ output, and times the kernels beside their plain versions.  Phases:
    residuals saturate rel4 and rel, so its block is dispatched at rel4,
    rel and wide; the same square without a reference row, narrow and
    wide; and a square of 256 random records at 65600 sites, rel4, rel
-   and int32; launches per rung, line count and 1200 random rows each.
+   and int32; launches per rung, line count and 1200 random rows each;
+12. the cached-feature path (``phase_cached``): the square of phase 3 and
+   the rectangle of phase 6 for raw and tn93, with the engine's measure
+   set holding the measure and then empty (K1): equal sha256, no K1
+   launch in the cached run, K5 = 1 g cache + one f build a strip + 2
+   for the reference row, K6 = first dispatches + baselines; and the
+   square out of core for tn93 (``OOC_CACHED``: each X group with its f
+   cache, each super-row with its g cache): the in-core sha256, K5's
+   builds by kind, peak device memory within the budget.
 
 Every profiled run's split shows device time for each kernel it
-launched.  K3's launches on each path must be ``K3_LAUNCHES``.
+launched.  K3's launches on each path of phases 3-11 must be
+``K3_LAUNCHES``.
 Any failed check raises, and the script exits non-zero without a result.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists the six kernels (``counters``, ``pack_rel4``, ``pack_rel``,
-``pack_narrow``, ``pack_wide``, ``diff_rebuild``) with their launches per
-path, errors, times and bounds.
+lists the eight kernels (``counters``, ``pack_rel4``, ``pack_rel``,
+``pack_narrow``, ``pack_wide``, ``diff_rebuild``, ``features``,
+``contract``) with their launches per path, errors, times and bounds.
 Without a CUDA device, or without the package beside it, it fails.
 
     python3 chip_smoke.py --measure
@@ -248,6 +284,18 @@ N_COORD = 2048
 # the (records, sites) of its square past 2^16 sites.
 N_LADDER = 1024
 LADDER_UNPACKED = (256, 65600)
+# Phase 12: the cached-feature square out of core at tn93, (device budget,
+# host budget, (TILE_I, TILE_J)): below the in-core footprint at these
+# tiles (1,497,658,640 B), X groups of 2048 rows, each with its f cache,
+# against super-rows of 1024 rows, each with its g cache
+# (engine._blocked_layout with the tn93 plan at 29904 sites: 1,265,043,216
+# B).
+OOC_CACHED = (1_400_000_000, 1_200_000_000, (1024, 1024))
+# Strips of the in-core square (8192 records, auto tiles of 2048) and of
+# the rectangle (4096 x 8192): on the cached path each computes its rows'
+# baseline with one K6 launch.
+SQUARE_STRIPS = 4
+RECT_STRIPS = 2
 # Seconds a phase 10 subprocess may take before it is killed.
 PROC_TIMEOUT_S = 300
 
@@ -335,7 +383,7 @@ def phase_environment() -> str:
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    names = ("counters", "packing", "diffup")
+    names = ("counters", "packing", "diffup", "features", "contract")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc a source
         list(pool.map(_build.load, names))
     print(f"[1] kernels {', '.join(names)} built together and loaded in"
@@ -365,14 +413,21 @@ def print_crossover() -> None:
     print(f"[1] device memory: {free} B free of {total} B; auto budget"
           f" {budget} B")
     for measure in ("raw", "tn93"):
-        g = len(get_plan(measure).counters)
-        n = 0
-        while engine._blocked_footprint(
-                0, engine._padded_shape(n + 8192, L_BENCH, 8192, 8192)[0],
-                L_BENCH, g, 8192, 8192) <= budget:
+        plan = get_plan(measure)
+        g = len(plan.counters)
+        n = cached = 0
+        while True:
+            rows = engine._padded_shape(n + 8192, L_BENCH, 8192, 8192)[0]
+            fp = engine._blocked_footprint(0, rows, L_BENCH, g, 8192, 8192)
+            if fp > budget:
+                break
             n += 8192
+            if engine._cache_fits(plan, rows, L_BENCH, 8192, 8192, fp,
+                                  budget):
+                cached = n
         print(f"[1] {measure}: the square at {L_BENCH} sites and 8192-row"
-              f" tiles stays in core up to {n} records")
+              f" tiles stays in core up to {n} records; its g cache"
+              f" engages up to {cached}")
 
 
 def phase_kernel_vs_plain(bench: np.ndarray) -> int:
@@ -484,6 +539,113 @@ def phase_kernel_vs_plain(bench: np.ndarray) -> int:
         check(err == 0, f"{measure} {m}x{n}x{width}: max |kernel - plain|"
                         f" = {err}")
         print(f"[2] {measure}: kernel == plain at {m} x {n} x {width}")
+    return worst
+
+
+def phase_cached_vs_plain(bench: np.ndarray) -> int:
+    """K5 byte-equal and K6 equal to their plain versions on the card, for
+    the six measures (K6 in both plan forms), at the edges of
+    ``tests/test_torch_cuda.py`` and the main path's launches; returns the
+    largest absolute difference seen (0)."""
+    import torch
+
+    from distance_tpu_torch.encoding import ALL_CODES
+    from distance_tpu_torch.measures import MEASURES
+    from distance_tpu_torch.ops import cached
+    from distance_tpu_torch.ops.counters import counters_torch
+    from distance_tpu_torch.ops.features import get_plan
+    from distance_tpu_torch.ops.plan import (cached_plan_to_torch,
+                                             fold_cached, plan_to_torch)
+
+    card = card_tests()
+    rng = np.random.default_rng(SEED + 11)
+    dev = torch.device("cuda", 0)
+
+    def codes(rows, width):
+        return torch.from_numpy(rng.choice(ALL_CODES, size=(rows, width))
+                                .astype(np.uint8)).to(dev)
+
+    every = np.concatenate([[0], ALL_CODES]).astype(np.uint8)
+    truth = torch.from_numpy(np.stack([np.roll(every, k)[:16]
+                                       for k in range(every.size)])).to(dev)
+    k5_cases = [truth] + [codes(m, w) for m, w in card.K5_EDGES]
+    l_pad = -(-bench.shape[1] // 128) * 128
+    square = torch.zeros((N_BENCH, l_pad), dtype=torch.uint8, device=dev)
+    square[:, : bench.shape[1]] = torch.from_numpy(bench).to(dev)
+    ref = square[N_BENCH // 2 : N_BENCH // 2 + 1]
+    worst = 0
+    for measure in MEASURES:
+        plan = cached_plan_to_torch(get_plan(measure), dev)
+        for c in k5_cases:
+            for side in ("f", "g"):
+                got = cached.features_cuda(c, plan, side)
+                torch.cuda.synchronize()
+                check(torch.equal(got, cached.features_torch(c, plan, side)),
+                      f"{measure} K5 {side} {tuple(c.shape)}: kernel !="
+                      f" plain")
+        # the main path's launches: a strip of the square against slices
+        # of its g cache at j0 > 0, its baselines against the reference
+        # row's features, and phase 12's out-of-core shapes
+        g_cache = cached.features_cuda(square, plan, "g")
+        f_cache = cached.features_cuda(square, plan, "f")
+        f_strip = cached.features_cuda(square[2048:4096], plan, "f")
+        f_ref, g_ref = (cached.features_cuda(ref, plan, s) for s in "fg")
+        path = [("square block 2048 x 2048 at j0 4096", f_strip,
+                 g_cache[:, 4096:6144]),
+                ("rb 2048 x 1", f_strip, g_ref),
+                (f"cb 1 x {N_BENCH}", f_ref, g_cache),
+                ("cc 1 x 1", f_ref, g_ref),
+                ("out-of-core block 1024 x 1024 at i0 1024, j0 1024",
+                 f_cache[:, 1024:2048], g_cache[:, 1024:2048]),
+                ("out-of-core rb 3072 x 1", f_cache[:, 3072:6144], g_ref),
+                ("out-of-core cb 1 x 3072", f_ref, g_cache[:, 5120:])]
+        for form, make in (("jax", cached_plan_to_torch),
+                           ("folded", fold_cached)):
+            fplan = make(get_plan(measure), dev)
+            kp = plan_to_torch(get_plan(measure), dev)
+            cases = []
+            for m, n, width in card.K6_EDGES:
+                x, y = codes(m, width), codes(n, width)
+                cases.append((f"{m} x {n} x {width}",
+                              cached.features_torch(x, fplan, "f"),
+                              cached.features_torch(y, fplan, "g"),
+                              counters_torch(x, y, kp)))
+            if form == "jax":
+                cases += [(name, a, b, None) for name, a, b in path]
+            for name, fx, gy, want_k1 in cases:
+                got = cached.contract_cuda(fx, gy, fplan)
+                torch.cuda.synchronize()
+                want = cached.contract_torch(fx, gy, fplan)
+                check(got.shape == want.shape,
+                      f"{measure} K6 {form} {name}: shape")
+                if got.numel():
+                    err = int((got.long() - want.long()).abs().max())
+                    worst = max(worst, err)
+                    check(err == 0, f"{measure} K6 {form} {name}: max"
+                                    f" |kernel - plain| = {err}")
+                check(want_k1 is None or torch.equal(want, want_k1),
+                      f"{measure} K6 {form} {name}: plain != K1's plain")
+        del g_cache, f_cache, f_strip
+        print(f"[2] {measure}: K5 == plain on {len(k5_cases)} shapes, both"
+              f" sides; K6 == plain on {len(card.K6_EDGES)} edges in both"
+              f" plan forms (== K1's plain) and {len(path)} main-path"
+              f" launches")
+    # past 2^31 bytes: raw's g cache of 4096 x 29952, and K6 reading its
+    # last rows
+    plan = cached_plan_to_torch(get_plan("raw"), dev)
+    c = square[:4096]
+    g = cached.features_cuda(c, plan, "g")
+    torch.cuda.synchronize()
+    check(g.numel() > 1 << 31 and torch.equal(
+        g, cached.features_torch(c, plan, "g")),
+        "K5 past 2^31 bytes: kernel != plain")
+    fx = cached.features_cuda(c[:129], plan, "f")
+    got = cached.contract_cuda(fx, g[:, 3800:], plan)
+    torch.cuda.synchronize()
+    check(torch.equal(got, cached.contract_torch(fx, g[:, 3800:], plan)),
+          "K6 past 2^31 bytes: kernel != plain")
+    print(f"[2] raw: K5 == plain for a {g.numel()}-byte g cache, and K6 =="
+          f" plain reading its rows 3800.. at offsets past 2^31")
     return worst
 
 
@@ -920,30 +1082,35 @@ def truth_tables(dev) -> None:
 
 # The kernels of the port, by the names of the result line.
 KERNELS = ("counters", "pack_rel4", "pack_rel", "pack_narrow", "pack_wide",
-           "diff_rebuild")
+           "diff_rebuild", "features", "contract")
 
 
 def reset_counts() -> None:
-    """Every kernel's launch count, the engine's baseline contractions and
-    its blocks by rung of the pack ladder set to 0."""
+    """Every kernel's launch count, the engine's baseline contractions, its
+    blocks by rung of the pack ladder and its feature builds set to 0."""
     from distance_tpu_torch import engine
-    from distance_tpu_torch.ops import counters, diffup, packing
+    from distance_tpu_torch.ops import cached, counters, diffup, packing
 
     counters.LAUNCHES = packing.LAUNCHES_REL4 = packing.LAUNCHES_REL = 0
     packing.LAUNCHES_NARROW = packing.LAUNCHES_WIDE = 0
     diffup.LAUNCHES = engine.BASELINES = engine.K1_BLOCKS = 0
+    cached.LAUNCHES_FEATURES = cached.LAUNCHES_CONTRACT = 0
+    engine.K6_BLOCKS = engine.K6_BASELINES = 0
     for rung in engine.RUNG_BLOCKS:
         engine.RUNG_BLOCKS[rung] = 0
+    for kind in engine.FEATURE_BUILDS:
+        engine.FEATURE_BUILDS[kind] = 0
 
 
 def read_counts() -> dict:
     """The counts ``reset_counts`` zeroes: kernel launches by name,
-    ``baselines`` (K1 launches against the reference row), ``k1_blocks``
-    (K1 launches of counter blocks, made at their first dispatch) and
+    ``baselines`` (contractions against the reference row, by K1 or K6),
+    ``k6_baselines`` (those by K6), ``k1_blocks`` and ``k6_blocks``
+    (counter blocks first dispatched through K1 and through K6),
     ``blocks`` (counter blocks packed, by rung: first dispatches and
-    refetches)."""
+    refetches) and ``builds`` (K5 feature builds by kind)."""
     from distance_tpu_torch import engine
-    from distance_tpu_torch.ops import counters, diffup, packing
+    from distance_tpu_torch.ops import cached, counters, diffup, packing
 
     return {"counters": counters.LAUNCHES,
             "pack_rel4": packing.LAUNCHES_REL4,
@@ -951,9 +1118,35 @@ def read_counts() -> dict:
             "pack_narrow": packing.LAUNCHES_NARROW,
             "pack_wide": packing.LAUNCHES_WIDE,
             "diff_rebuild": diffup.LAUNCHES,
+            "features": cached.LAUNCHES_FEATURES,
+            "contract": cached.LAUNCHES_CONTRACT,
             "baselines": engine.BASELINES,
+            "k6_baselines": engine.K6_BASELINES,
             "k1_blocks": engine.K1_BLOCKS,
-            "blocks": dict(engine.RUNG_BLOCKS)}
+            "k6_blocks": engine.K6_BLOCKS,
+            "blocks": dict(engine.RUNG_BLOCKS),
+            "builds": dict(engine.FEATURE_BUILDS)}
+
+
+def cached_path(measure: str = "raw") -> bool:
+    """Whether the engine sends ``measure``'s square and rectangle blocks
+    through the cached-feature path (its measure set and cache budget)."""
+    from distance_tpu_torch import engine
+
+    return engine._cached_plan_for(measure) is not None
+
+
+@contextlib.contextmanager
+def measure_set(measures):
+    """The engine's set of cached measures replaced in this process."""
+    from distance_tpu_torch import engine
+
+    saved = engine.CACHED_MEASURES
+    engine.CACHED_MEASURES = frozenset(measures)
+    try:
+        yield
+    finally:
+        engine.CACHED_MEASURES = saved
 
 
 def run_cli(tag: str, args: list, measure: str = "raw") -> tuple:
@@ -970,7 +1163,8 @@ def run_cli(tag: str, args: list, measure: str = "raw") -> tuple:
     wall = time.perf_counter() - t0
     counts = read_counts()
     check(rc == 0, f"{tag} exited {rc}")
-    check(counts["counters"] > 0, f"{tag} launched no counter kernel")
+    check(counts["counters"] + counts["contract"] > 0,
+          f"{tag} launched no counter kernel")
     print(f"{tag} host phase totals (s): " + ", ".join(
         f"{k} {v:.3f}" for k, v in sorted(timing.totals().items())))
     print(f"{tag} launches: {counts}")
@@ -994,25 +1188,45 @@ def check_packed_path(tag: str, counts: dict, blocks: int, baselines: int,
     check_launches(tag, counts, blocks)
 
 
+def check_cached(tag: str, counts: dict, strips: int,
+                 ref: bool = True) -> None:
+    """A run whose blocks and baselines all went through K6: no K1 launch;
+    K5 built one g cache, each strip's f features once and, with a
+    reference row, its f and g features."""
+    want = {"g": 1, "f": 0, "strip": strips, "ref": 2 if ref else 0}
+    check(counts["counters"] == 0 and counts["builds"] == want,
+          f"{tag}: launches {counts}, expected no K1 and feature builds"
+          f" {want}")
+
+
 def check_launches(tag: str, counts: dict, first: int) -> None:
-    """K1 = first dispatches + baselines: ``first`` counter blocks were
-    dispatched (each strip, stream group or staged part once), each with
-    one K1 launch, and every other K1 launch was a baseline; a refetch
-    packed the counters its first dispatch kept on the card and launched
-    no K1.  One K2 launch a block packed at rel4 or rel, and one K4 launch
-    a block packed narrow or wide.  Prints the split."""
+    """K1 = K1 first dispatches + K1 baselines, K6 = K6 first dispatches +
+    K6 baselines: ``first`` counter blocks were dispatched (each strip,
+    stream group or staged part once), each with one K1 or one K6 launch,
+    and every other K1 or K6 launch was a baseline; a refetch packed the
+    counters its first dispatch kept on the card and launched neither.
+    K5 = the feature builds.  One K2 launch a block packed at rel4 or rel,
+    and one K4 launch a block packed narrow or wide.  Prints the split."""
     b = counts["blocks"]
     packs = sum(b.values())
-    check(counts["counters"] == counts["k1_blocks"] + counts["baselines"]
-          and counts["k1_blocks"] == first and packs >= first
+    k1_baselines = counts["baselines"] - counts["k6_baselines"]
+    check(counts["counters"] == counts["k1_blocks"] + k1_baselines
+          and counts["contract"] == counts["k6_blocks"]
+          + counts["k6_baselines"]
+          and counts["features"] == sum(counts["builds"].values())
+          and counts["k1_blocks"] + counts["k6_blocks"] == first
+          and packs >= first
           and counts["pack_rel4"] == b["rel4"]
           and counts["pack_rel"] == b["rel"]
           and counts["pack_narrow"] == b["narrow"]
           and counts["pack_wide"] == b["wide"],
           f"{tag}: launches {counts} do not add up to {first} first"
           f" dispatches")
-    print(f"{tag} K1 {counts['counters']} = {first} first dispatches +"
-          f" {counts['baselines']} baselines; {packs - first} refetches"
+    print(f"{tag} K1 {counts['counters']} = {counts['k1_blocks']} first"
+          f" dispatches + {k1_baselines} baselines; K6 {counts['contract']}"
+          f" = {counts['k6_blocks']} + {counts['k6_baselines']}; K5"
+          f" {counts['features']} = feature builds {counts['builds']};"
+          f" {packs - first} refetches"
           f" packed from kept counters; blocks packed by rung: rel4"
           f" {b['rel4']}, rel {b['rel']}, narrow {b['narrow']}, wide"
           f" {b['wide']}, int32 {b['none']}; K2 {counts['pack_rel4']} rel4"
@@ -1045,11 +1259,15 @@ def phase_main_path(tmp: str, bench: np.ndarray) -> tuple:
     print(f"[3] wrote {n} x {bench.shape[1]} FASTA in"
           f" {time.perf_counter() - t0:.3f} s")
     wall, counts = run_cli("[3]", [fasta, "-o", out])
-    check_packed_path("[3]", counts, 10, 3)
+    cached = cached_path()
+    check_packed_path("[3]", counts, 10, SQUARE_STRIPS + 2 if cached else 3)
+    if cached:
+        check_cached("[3]", counts, SQUARE_STRIPS)
     pairs = n * (n - 1) // 2
     print(f"[3] main path: {pairs} pairs in {wall:.3f} s ="
-          f" {pairs / wall:.6e} pairs/s end to end, {counts['counters']} K1"
-          f" launches ({gpu_line()})")
+          f" {pairs / wall:.6e} pairs/s end to end, {counts['counters']} K1,"
+          f" {counts['contract']} K6 and {counts['features']} K5 launches"
+          f" ({gpu_line()})")
 
     data, nl = read_tsv(out, 1 + pairs)
     rng = np.random.default_rng(SEED + 2)
@@ -1076,6 +1294,9 @@ def phase_main_path(tmp: str, bench: np.ndarray) -> tuple:
         check(b["rel4"] == b["rel"] == b["none"] == 0 and b["narrow"] >= 1
               and counts0["baselines"] == counts0["diff_rebuild"] == 0,
               f"[3] dense, no reference row: launches {counts0}")
+        if cached:
+            check_cached("[3] dense, no reference row", counts0,
+                         SQUARE_STRIPS, ref=False)
         check_launches("[3] dense, no reference row", counts0, 10)
         profiled_run("[3] dense, no reference row", [fasta, "-o", out])
     print(f"[3] square wall {wall:.3f} s with diff uploads and rel4,"
@@ -1236,6 +1457,135 @@ def phase_timing(bench: np.ndarray):
               f" {pair_sites / mean['kernel'] / 1e9:.3f} T pair-sites/s;"
               f" plain {ms['plain']} ms; library {ms['library']} ms ({card})")
     return times["raw"], worst
+
+def contract_bound_ms(m: int, n: int, sites: int, channels: int,
+                      counters: int, padded: int) -> tuple:
+    """K6's least time for one block: K1's 2 m n L R int8 operations at the
+    peak int8 rate, or its features read once ((m + n) R padded bytes) and
+    its int32 counters written once at the memory rate, whichever is
+    longer; and which of the two it is."""
+    ops = 2.0 * m * n * sites * channels / PEAK_INT8_OPS
+    moved = ((m + n) * channels * padded + 4.0 * counters * m * n) / PEAK_BYTES
+    return (max(ops, moved) * 1e3,
+            "operations" if ops >= moved else "bytes")
+
+
+def channel_yardstick(fx, gy, plan):
+    """The second yardstick: one ``torch._int_mm`` a channel of the JAX
+    plan's features, then the planes and a shared plan's mix in torch.
+    Returns the call to time; its result is the counters."""
+    import torch
+
+    def run():
+        o = [torch._int_mm(fx[k], gy[k].t()) for k in range(plan.channels)]
+        planes = [sum(o[plan.bounds[p] : plan.bounds[p + 1]]) // d
+                  for p, d in enumerate(plan.den)]
+        if plan.mix_num is None:
+            return torch.stack(planes)
+        return torch.stack([sum(w * planes[k] for k, w in enumerate(row)
+                                if w) // d
+                            for row, d in zip(plan.mix_num, plan.mix_den)])
+
+    return run
+
+
+def phase_cached_timing(bench: np.ndarray):
+    """K6 and K5 at the main path's shapes, on the card, for the six
+    measures: K6 at the 2048 x 2048 x 29952 block in the JAX plan's form
+    (the engine's) and in K1's folded form, equal to its plain version, to
+    K1 and to both yardsticks, and timed with CUDA events in turns beside
+    K1, its bound, its plain version and the yardsticks; K5 at the
+    square's 8192 x 29952 g cache and a 2048-row f strip beside its bound
+    (the codes read once and the features written once at the memory
+    rate) and its plain version.  Returns raw's numbers for the result
+    line and the largest |kernel - plain|."""
+    import torch
+
+    from distance_tpu_torch.measures import MEASURES
+    from distance_tpu_torch.ops import cached
+    from distance_tpu_torch.ops.counters import counters_cuda
+    from distance_tpu_torch.ops.features import get_plan
+    from distance_tpu_torch.ops.plan import (cached_plan_to_torch,
+                                             fold_cached, plan_to_torch)
+
+    dev = torch.device("cuda", 0)
+    card = gpu_line()
+    l_pad = -(-bench.shape[1] // 128) * 128
+    padded = np.zeros((N_BENCH, l_pad), dtype=np.uint8)
+    padded[:, : bench.shape[1]] = bench
+    codes = torch.from_numpy(padded).to(dev)
+    x, y = codes[:BLOCK], codes[BLOCK : 2 * BLOCK]
+    out, worst = {}, 0
+    for measure in MEASURES:
+        jplan = get_plan(measure)
+        plan = cached_plan_to_torch(jplan, dev)
+        folded = fold_cached(jplan, dev)
+        kp = plan_to_torch(jplan, dev)
+        fx, gy = (cached.features_cuda(c, plan, s) for c, s in
+                  ((x, "f"), (y, "g")))
+        ffx, fgy = (cached.features_cuda(c, folded, s) for c, s in
+                    ((x, "f"), (y, "g")))
+        got = cached.contract_cuda(fx, gy, plan)
+        torch.cuda.synchronize()
+        err = int((got.long() - cached.contract_torch(fx, gy, plan).long())
+                  .abs().max())
+        worst = max(worst, err)
+        lib_run, lib_counters = library_counters(x, y, kp)
+        chan_run = channel_yardstick(fx, gy, plan)
+        check(err == 0 and torch.equal(got, counters_cuda(x, y, kp))
+              and torch.equal(got, cached.contract_cuda(ffx, fgy, folded))
+              and torch.equal(got, lib_counters(lib_run()))
+              and torch.equal(got, chan_run()),
+              f"{measure}: K6 != plain, K1, its folded form or a yardstick"
+              f" (max |kernel - plain| = {err})")
+        ms = in_turns({
+            "plain": (lambda: cached.contract_torch(fx, gy, plan), 1),
+            "kernel": (lambda: cached.contract_cuda(fx, gy, plan), 10),
+            "folded": (lambda: cached.contract_cuda(ffx, fgy, folded), 10),
+            "K1": (lambda: counters_cuda(x, y, kp), 10),
+            "library": (lib_run, 10),
+            "channels": (chan_run, 10),
+        }, ("plain", "kernel", "folded", "K1", "library", "channels",
+            "channels", "library", "K1", "folded", "kernel", "plain"))
+        del lib_run, lib_counters, chan_run, ffx, fgy
+        r, g = jplan.total_channels, len(jplan.counters)
+        bound, by = contract_bound_ms(BLOCK, BLOCK, bench.shape[1], r, g,
+                                      l_pad)
+        print(f"[5] K6 {measure} {BLOCK} x {BLOCK} x {l_pad} (R = {r}, folded"
+              f" {folded.channels}): == plain == K1 == both yardsticks;"
+              f" bound {bound:.4f} ms ({by}); kernel {ms['kernel']:.4f} ms ="
+              f" {bound / ms['kernel']:.4f} of the bound; folded form"
+              f" {ms['folded']:.4f} ms; K1 {ms['K1']:.4f} ms; plain"
+              f" {ms['plain']:.4f} ms; torch._int_mm a folded counter"
+              f" {ms['library']:.4f} ms, a channel + mix {ms['channels']:.4f}"
+              f" ms ({card})")
+        # K5: the square's g cache and a strip's f features
+        k5 = {}
+        for tag, c, side in (("g cache", codes, "g"), ("f strip", x, "f")):
+            k5[tag] = in_turns({
+                "plain": (lambda: cached.features_torch(c, plan, side), 1),
+                "kernel": (lambda: cached.features_cuda(c, plan, side), 10),
+            }, ("plain", "kernel", "kernel", "plain"))
+            k5_bound = (1 + r) * c.shape[0] * l_pad / PEAK_BYTES * 1e3
+            k5[tag]["bound"] = k5_bound
+            print(f"[5] K5 {measure} {tag} {c.shape[0]} x {l_pad}: kernel"
+                  f" {k5[tag]['kernel']:.4f} ms, bound {k5_bound:.4f} ms"
+                  f" (bytes) = {k5_bound / k5[tag]['kernel']:.4f} of the"
+                  f" bound; plain {k5[tag]['plain']:.4f} ms ({card})")
+        if measure == "raw":
+            out["contract"] = dict(
+                ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound,
+                bound_by=by, library_ms=ms["library"],
+                folded_ms=ms["folded"], channels_ms=ms["channels"],
+                k1_ms=ms["K1"])
+            out["features"] = dict(
+                ms=k5["g cache"]["kernel"], plain_ms=k5["g cache"]["plain"],
+                bound_ms=k5["g cache"]["bound"], bound_by="bytes",
+                library_ms=None, strip_ms=k5["f strip"]["kernel"],
+                strip_bound_ms=k5["f strip"]["bound"])
+        del fx, gy
+    return out, worst
+
 
 def cuda_timed(fn, reps: int) -> float:
     """Mean ms of ``fn`` over ``reps`` calls, by CUDA events."""
@@ -1600,7 +1950,8 @@ def device_split(prof) -> dict:
     from torch.autograd import DeviceType
 
     split = {"K1": 0.0, "K2 rel4": 0.0, "K2 rel": 0.0, "K3": 0.0,
-             "K4": 0.0, "H2D": 0.0, "D2H": 0.0, "other": 0.0}
+             "K4": 0.0, "K5": 0.0, "K6": 0.0, "H2D": 0.0, "D2H": 0.0,
+             "other": 0.0}
     spans = []
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
@@ -1613,6 +1964,9 @@ def device_split(prof) -> dict:
                 else "K3" if K3_KERNEL in ev.name
                 else "K4" if ("narrow_lanes" in ev.name
                               or "wide_words" in ev.name)
+                else "K5" if "features_kernel" in ev.name
+                else "K6" if ("contract_kernel" in ev.name
+                              or "mix_kernel" in ev.name)
                 else "H2D" if "HtoD" in ev.name
                 else "D2H" if "DtoH" in ev.name else "other")
         split[kind] += t1 - t0
@@ -1628,12 +1982,13 @@ def device_split(prof) -> dict:
 # The kinds of ``device_split`` by the launch counts of ``read_counts``.
 SPLIT_COUNTS = {"K1": ("counters",), "K2 rel4": ("pack_rel4",),
                 "K2 rel": ("pack_rel",), "K3": ("diff_rebuild",),
-                "K4": ("pack_narrow", "pack_wide")}
+                "K4": ("pack_narrow", "pack_wide"), "K5": ("features",),
+                "K6": ("contract",)}
 
 
 def profiled_run(tag: str, args: list) -> dict:
     """One more ``-m raw`` CLI run under torch.profiler: its device time
-    split into the kernels (K1-K4), H2D and D2H, and the device's busy
+    split into the kernels (K1-K6), H2D and D2H, and the device's busy
     share of the wall; every kernel the run launched shows device time of
     its own in the split, so that none falls into "other" unnamed.
     Returns the split (us)."""
@@ -1652,7 +2007,8 @@ def profiled_run(tag: str, args: list) -> dict:
     check(rc == 0, f"{tag} profiled run exited {rc}")
     counts = read_counts()
     split = device_split(prof)
-    check(split["K1"] > 0, f"{tag} the profiler saw no counter kernel")
+    check(split["K1"] + split["K6"] > 0,
+          f"{tag} the profiler saw no counter kernel")
     for kind, names in SPLIT_COUNTS.items():
         launched = sum(counts[n] for n in names)
         check((split[kind] > 0) == (launched > 0),
@@ -1663,6 +2019,7 @@ def profiled_run(tag: str, args: list) -> dict:
           f" K1 {split['K1'] / 1e3:.3f}, K2 {split['K2 rel4'] / 1e3:.3f}"
           f" rel4 + {split['K2 rel'] / 1e3:.3f} rel,"
           f" K3 {split['K3'] / 1e3:.3f}, K4 {split['K4'] / 1e3:.3f},"
+          f" K5 {split['K5'] / 1e3:.3f}, K6 {split['K6'] / 1e3:.3f},"
           f" H2D {split['H2D'] / 1e3:.3f},"
           f" D2H {split['D2H'] / 1e3:.3f}, other {split['other'] / 1e3:.3f};"
           f" H2D share of device time {split['H2D'] / total:.4f}; device"
@@ -1681,11 +2038,15 @@ def phase_rectangle(tmp: str) -> tuple:
     mat, ids1, ids2, f1, f2 = write_inputs(tmp, "[6]", n1, n2, SEED + 3, "b")
     args = [f1, f2, "-o", os.path.join(tmp, "rect.tsv")]
     wall, counts = run_cli("[6]", args)
-    check_packed_path("[6]", counts, 8, 3)
+    cached = cached_path()
+    check_packed_path("[6]", counts, 8, RECT_STRIPS + 2 if cached else 3)
+    if cached:
+        check_cached("[6]", counts, RECT_STRIPS)
     pairs = n1 * n2
     print(f"[6] rectangle: {pairs} pairs in {wall:.3f} s ="
-          f" {pairs / wall:.6e} pairs/s end to end, {counts['counters']} K1"
-          f" launches ({gpu_line()})")
+          f" {pairs / wall:.6e} pairs/s end to end, {counts['counters']} K1,"
+          f" {counts['contract']} K6 and {counts['features']} K5 launches"
+          f" ({gpu_line()})")
     data, nl = read_tsv(args[-1], 1 + pairs)
     rng = np.random.default_rng(SEED + 4)
     for i, j in zip(rng.integers(0, n1, SAMPLES).tolist(),
@@ -1905,13 +2266,14 @@ def ooc_cli(tag: str, args: list, mode: str, in_core_sha: str,
     and so without baselines), its TSV's sha256 against the in-core
     run's, its peak device memory against the budget, its launches by
     rung, the host diff encodes of each super-row against its stagings,
-    and the K1 time by CUDA events.  Returns the launch counts of the
-    checked run."""
+    and the K1 time by CUDA events.  K1's out-of-core path: the engine's
+    measure set is emptied for both runs (phase 12 runs the cached one).
+    Returns the launch counts of the checked run."""
     spec = OOC[mode]
     import torch
 
     out = args[-1]
-    with out_of_core(*spec) as seen:
+    with out_of_core(*spec) as seen, measure_set(()):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -1955,7 +2317,7 @@ def ooc_cli(tag: str, args: list, mode: str, in_core_sha: str,
           f" diff-encoded on the host (the rest kept encodings), peak device"
           f" memory {peak} B <= budget {spec[0]} B; TSV sha256 equals the"
           f" in-core run's ({gpu_line()})")
-    with out_of_core(*spec):
+    with out_of_core(*spec), measure_set(()):
         profiled_run(tag, args)
     return counts
 
@@ -2318,6 +2680,80 @@ def ladder_square(tmp: str, tag: str, mat: np.ndarray, rungs: tuple,
     return counts
 
 
+def phase_cached(shas: dict) -> dict:
+    """The cached-feature path against K1's on the main path's inputs: the
+    square of phase 3 and the rectangle of phase 6 for raw and tn93, with
+    the engine's measure set holding the measure (K5 and K6) and then
+    empty (K1), and the square out of core for tn93 with its caches
+    (``OOC_CACHED``).  Returns the launch counts by path."""
+    import torch
+
+    print("[12] the cached-feature path against K1's, in this process")
+    t_phase = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        fasta = os.path.join(tmp, "bench.fasta")
+        write_fasta(fasta, make_alignment(N_BENCH, L_BENCH, SEED))
+        *_, f1, f2 = write_inputs(tmp, "[12]", *N_RECT, SEED + 3, "b")
+        runs = {"square": ([fasta], 10, SQUARE_STRIPS),
+                "rectangle": ([f1, f2], 8, RECT_STRIPS)}
+        in_core = {}
+        for measure in ("raw", "tn93"):
+            for mode, (inputs, blocks, strips) in runs.items():
+                out = os.path.join(tmp, f"{mode}.tsv")
+                tag = f"[12] {mode} {measure}"
+                with measure_set({measure}):
+                    wall, counts = run_cli(f"{tag} cached",
+                                           inputs + ["-o", out], measure)
+                check_packed_path(f"{tag} cached", counts, blocks, strips + 2)
+                check_cached(f"{tag} cached", counts, strips)
+                sha = in_core[mode, measure] = sha256(out)
+                with measure_set(()):
+                    wall1, counts1 = run_cli(f"{tag} K1",
+                                             inputs + ["-o", out], measure)
+                check(counts1["contract"] == counts1["features"] == 0,
+                      f"{tag} K1: launches {counts1}")
+                check_packed_path(f"{tag} K1", counts1, blocks, 3)
+                check(sha256(out) == sha, f"{tag}: K6 and K1 TSVs differ")
+                check(measure != "raw" or sha == shas[mode],
+                      f"{tag}: TSV differs from phase 3's or 6's")
+                launches[f"{mode}-{measure}-cached"] = counts
+                print(f"{tag}: sha256 equal through K5 + K6 (wall {wall:.3f}"
+                      f" s, {counts['contract']} K6, {counts['features']} K5"
+                      f" launches, no K1) and through K1 (wall {wall1:.3f} s,"
+                      f" {counts1['counters']} K1 launches) ({gpu_line()})")
+        budget = OOC_CACHED[0]
+        args = [fasta, "-o", os.path.join(tmp, "ooc.tsv")]
+        tag = "[12] square tn93 out of core"
+        with out_of_core(*OOC_CACHED) as seen, measure_set({"tn93"}):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            wall, counts = run_cli(tag, args, "tn93")
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+        groups, spans = seen["x_rows"], sorted(set(seen["spans"]))
+        b = counts["builds"]
+        check(sha256(args[-1]) == in_core["square", "tn93"],
+              f"{tag}: TSV differs from in core")
+        check(peak <= budget, f"{tag}: peak device memory {peak} B over the"
+                              f" budget {budget} B")
+        check(counts["counters"] == 0 and len(groups) >= 2 and len(spans) >= 2
+              and b == {"g": seen["stagings"], "f": len(groups), "strip": 0,
+                        "ref": 2},
+              f"{tag}: launches {counts} for groups {groups}, super-rows"
+              f" {spans} ({seen['stagings']} stagings)")
+        check_launches(tag, counts, counts["k6_blocks"])
+        launches["square-ooc-cached"] = counts
+        print(f"{tag}: wall {wall:.3f} s, groups {groups} each with its f"
+              f" cache, super-rows {[q1 - q0 for q0, q1 in spans]} staged"
+              f" {seen['stagings']} times each with its g cache, peak device"
+              f" memory {peak} B <= budget {budget} B; TSV sha256 equals the"
+              f" in-core run's ({gpu_line()})")
+    print(f"[12] phase 12 passed in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def measure_mode() -> None:
     """Walls and host phase totals of the rectangle and the stream for
     each measure and batch size, and of a longer stream; no checks."""
@@ -2437,6 +2873,7 @@ def main(argv: list) -> int:
     print(f"[2] bench alignment {bench.shape} made in"
           f" {time.perf_counter() - t0:.3f} s")
     max_err = phase_kernel_vs_plain(bench)
+    max_err_cached = phase_cached_vs_plain(bench)
     max_err_pack = phase_pack_and_rebuild(bench)
     launches, shas = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2449,6 +2886,9 @@ def main(argv: list) -> int:
     times = {"counters": dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                               bound_by=bound_by, library_ms=library_ms)}
     times.update(phase_pack_timing(bench, square_split, launches["square"]))
+    cached_times, err = phase_cached_timing(bench)
+    max_err_cached = max(max_err_cached, err)
+    times.update(cached_times)
     with tempfile.TemporaryDirectory() as tmp:
         launches["rectangle"], shas["rectangle"] = phase_rectangle(tmp)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2460,7 +2900,9 @@ def main(argv: list) -> int:
     launches["stream_shards"] = phase_multiprocess(shas)
     with tempfile.TemporaryDirectory() as tmp:
         launches["ladder"] = phase_ladder(tmp)
-    k3 = {path: c["diff_rebuild"] for path, c in launches.items()}
+    launches.update(phase_cached(shas))
+    k3 = {path: c["diff_rebuild"] for path, c in launches.items()
+          if path in K3_LAUNCHES}
     check(k3 == K3_LAUNCHES, f"K3 launches by path {k3}, expected"
                              f" {K3_LAUNCHES}")
     print(f"K3 launches by path as expected: {k3}")
@@ -2480,6 +2922,10 @@ def main(argv: list) -> int:
                       "distance_tpu/ops/packing.py:49", max_err_pack),
         "diff_rebuild": ("distance_tpu_torch/csrc/diffup.cu",
                          "distance_tpu/ops/diffup.py:74", max_err_pack),
+        "features": ("distance_tpu_torch/csrc/features.cu",
+                     "distance_tpu/ops/features.py:320", max_err_cached),
+        "contract": ("distance_tpu_torch/csrc/contract.cu",
+                     "distance_tpu/ops/pairwise_xla.py:62", max_err_cached),
     }
     kernels = []
     for name in KERNELS:

@@ -11,7 +11,11 @@ against one loaded alignment.  The loaded sweeps in core:
   (``ops/diffup.py``) expands there, or dense through pinned memory when
   the diffs do not win;
 * per strip of ``ti`` rows, one counter kernel launch per ``tj``-column
-  block (``ops/counters.py``), each block packed by the pack kernel
+  block (``ops/counters.py``), or for a measure of CACHED_MEASURES whose
+  feature cache fits, the JAX engine's cached-feature path
+  (``ops/cached.py``): the column side's g features built once, each
+  strip's f features once, and each block one contraction of them; each
+  block packed by the pack kernel
   (``ops/packing.py``): against K1 baselines of the reference row (rel4
   nibbles with an exception sidecar, or int8 rel), or below 2^16 sites
   into saturating 8-bit lanes (narrow) or 16-bit fields (wide), and
@@ -70,6 +74,7 @@ from distance_tpu_torch.fastaio import (
     stream_fasta,
 )
 from distance_tpu_torch.finalize import finalize_block
+from distance_tpu_torch.ops import cached as cached_ops
 from distance_tpu_torch.ops import counters as kernels
 from distance_tpu_torch.ops import packing
 from distance_tpu_torch.ops.diffup import (
@@ -79,7 +84,7 @@ from distance_tpu_torch.ops.diffup import (
     to_device,
 )
 from distance_tpu_torch.ops.features import CounterPlan, get_plan
-from distance_tpu_torch.ops.plan import plan_to_torch
+from distance_tpu_torch.ops.plan import cached_plan_to_torch, plan_to_torch
 from distance_tpu_torch.parallel.multihost import CARD_SHARE_ENV, UnitIndex
 from distance_tpu_torch.utils.timing import phase_timer
 from distance_tpu_torch.writer import TsvWriter
@@ -115,6 +120,18 @@ NARROW_STICKY_LIMIT = 2
 # Consecutive failed stream-reference retargets before the engine stops
 # probing new references (see _BlockEngine.dispatch_stream).
 RETARGET_FAIL_LIMIT = 3
+# Device bytes the feature cache of one prepared matrix may take (R x
+# rows x padded sites int8; an X group's f cache half of it), the JAX
+# CLI's.  0 turns the cached-feature path off.
+FEATCACHE_BUDGET = 8 << 30
+# The measures whose square and rectangle blocks take the cached-feature
+# path (K5 features once per matrix or strip, K6 a block) when their cache
+# is engaged; the others, and any matrix whose cache does not fit, take K1.
+# The JAX engine sends every device run through its cached path
+# (_resolve_backend); on the card a measure is here where phase 5 of
+# chip_smoke.py measured K6's block plus its share of K5 faster than K1's
+# block at 2048 x 2048 x 29952.
+CACHED_MEASURES = frozenset({"n", "n_high", "raw", "jc69", "k80", "tn93"})
 
 # The JAX CLI's environment variables of the knobs above.  Each is read
 # when a run starts (``_env_knobs``), so that the workers of a --launch or
@@ -127,6 +144,7 @@ KNOB_ENV = {
     "STREAM_PENDING": "DISTANCE_TPU_STREAM_PENDING",
     "NARROW_STICKY_LIMIT": "DISTANCE_TPU_NARROW_STICKY",
     "RETARGET_FAIL_LIMIT": "DISTANCE_TPU_RETARGET_LIMIT",
+    "FEATCACHE_BUDGET": "DISTANCE_TPU_FEATCACHE_BUDGET",
 }
 
 BACKENDS = ("cuda", "torch")
@@ -477,14 +495,30 @@ def _device_budget(device: torch.device,
     return memory[1 if of_total else 0] // 2 // _card_share()
 
 
-# K1 contractions against the reference row (the rel baselines rb, cb and
-# cc) made by engines in this process, the K1 launches of counter blocks
-# (a block's first dispatch: a refetch packs the counters kept on the
-# device), and the counter blocks packed at each rung of the pack ladder
-# (first dispatches and refetches alike).
+# Contractions against the reference row (the rel baselines rb, cb and cc)
+# made by engines in this process (by K1, or by K6 on the cached-feature
+# path), the K1 launches of counter blocks (a block's first dispatch: a
+# refetch packs the counters kept on the device), and the counter blocks
+# packed at each rung of the pack ladder (first dispatches and refetches
+# alike).
 BASELINES = 0
 K1_BLOCKS = 0
 RUNG_BLOCKS = {"rel4": 0, "rel": 0, "narrow": 0, "wide": 0, "none": 0}
+# On the cached-feature path: the baselines among BASELINES that K6 made,
+# K6's counter blocks (first dispatches), and the K5 feature builds by
+# kind: a prepared matrix's g cache, an X group's f cache, a strip's f
+# features, and the reference row's f and g features.
+K6_BASELINES = 0
+K6_BLOCKS = 0
+FEATURE_BUILDS = {"g": 0, "f": 0, "strip": 0, "ref": 0}
+
+
+def _cached_plan_for(measure: str) -> Optional[CounterPlan]:
+    """The measure's plan when its blocks take the cached-feature path
+    (CACHED_MEASURES, with FEATCACHE_BUDGET on), else None."""
+    if measure in CACHED_MEASURES and FEATCACHE_BUDGET > 0:
+        return get_plan(measure)
+    return None
 
 
 class _BlockEngine:
@@ -530,10 +564,19 @@ class _BlockEngine:
         # are not prepared, and their baselines are not kept
         self._prepared: Dict[int, torch.Tensor] = {}
         self._bases: Dict[tuple, tuple] = {}
+        # The cached-feature path (the JAX engine's feat_cache_on): its
+        # unfolded plan, the feature caches of prepared matrices (id ->
+        # (matrix, features)) and the reference row's (row, f, g) features
+        self.cplan = (cached_plan_to_torch(self.plan, device)
+                      if _cached_plan_for(measure) is not None else None)
+        self._gcache: Dict[int, tuple] = {}
+        self._fcache: Dict[int, tuple] = {}
+        self._ref_feats: Optional[tuple] = None
 
     def prepare(self, matrix: np.ndarray, max_block: int,
                 diff_ref: Optional[np.ndarray] = None,
-                h2d_memo: Optional[dict] = None) -> torch.Tensor:
+                h2d_memo: Optional[dict] = None, cache_g: bool = False,
+                cache_f: bool = False) -> torch.Tensor:
         """Pad and upload a sequence matrix once.
 
         Rows are padded so that every strip and block slice of up to
@@ -553,7 +596,16 @@ class _BlockEngine:
         super-row across X groups (the JAX engine's): the first prepare
         stores the diff encoding (or its refusal), and a later one with
         the same uploader (a stream retarget swaps it) and the same padded
-        rows skips the pad, compare and extract passes on the host."""
+        rows skips the pad, compare and extract passes on the host.
+
+        ``cache_g`` / ``cache_f`` (the JAX engine's): on the cached-feature
+        path, build the matrix's g features (the column side of its
+        blocks) or f features (an out-of-core X group, whose strips run
+        against every super-row) once, when they fit FEATCACHE_BUDGET
+        (the f cache half of it).  The sweep passes them only when the
+        cache fits its device budget beside everything else
+        (``_cache_bytes``), as the JAX engine's predicates do; a matrix
+        without a cache takes K1."""
         n, width = matrix.shape
         n_pad, l_pad = _padded_shape(n, width, self.ti, max_block)
         padded = None
@@ -598,7 +650,47 @@ class _BlockEngine:
                 refp[:width] = sampled_mode_row(matrix)
                 self.rel_ref = to_device(refp, self.device)
         self._prepared[id(dev)] = dev
+        if self.cplan is not None:
+            need = self.cplan.channels * n_pad * l_pad
+            if cache_g and need <= FEATCACHE_BUDGET:
+                self._gcache[id(dev)] = (dev, self._features(dev, "g", "g"))
+            if cache_f and need <= FEATCACHE_BUDGET // 2:
+                self._fcache[id(dev)] = (dev, self._features(dev, "f", "f"))
         return dev
+
+    def _features(self, codes: torch.Tensor, side: str,
+                  kind: str) -> torch.Tensor:
+        """K5 of ``codes``, counted by kind in FEATURE_BUILDS."""
+        FEATURE_BUILDS[kind] += 1
+        return cached_ops.features(codes, self.cplan, side)
+
+    def gfeat_of(self, handle: torch.Tensor) -> Optional[torch.Tensor]:
+        """The g-feature cache of a prepared matrix, or None."""
+        entry = self._gcache.get(id(handle))
+        return entry[1] if entry is not None and entry[0] is handle else None
+
+    def fx_strip(self, m1: torch.Tensor, i0: int, ti: int) -> torch.Tensor:
+        """f features of rows i0.. of ``m1``: a slice of its f cache, else
+        built from its codes (once a strip)."""
+        entry = self._fcache.get(id(m1))
+        if entry is not None and entry[0] is m1:
+            return entry[1][:, i0 : i0 + ti]
+        return self._features(m1[i0 : i0 + ti], "f", "strip")
+
+    def ref_features(self, ref: torch.Tensor) -> tuple:
+        """(f, g) features of the reference row ``ref``, built once a
+        reference row."""
+        if self._ref_feats is None or self._ref_feats[0] is not ref:
+            self._ref_feats = (ref, self._features(ref[None], "f", "ref"),
+                               self._features(ref[None], "g", "ref"))
+        return self._ref_feats[1:]
+
+    def _k6_baseline(self, fx: torch.Tensor,
+                     gy: torch.Tensor) -> torch.Tensor:
+        global BASELINES, K6_BASELINES
+        BASELINES += 1
+        K6_BASELINES += 1
+        return cached_ops.contract(fx, gy, self.cplan)
 
     def diff_ref_for(self, source: np.ndarray) -> Optional[np.ndarray]:
         """Reference row for diff-encoded uploads of ``source`` (a row
@@ -613,46 +705,99 @@ class _BlockEngine:
         """K1 of the prepared rows ``m`` against the reference row: side
         "row" c(m, ref) (G, rows), "col" c(ref, m) (G, rows), "self"
         c(ref, ref) (G,) (``m`` is ``ref``).  Kept for a prepared matrix
-        and its reference row."""
+        and its reference row.  On the cached-feature path K6 computes
+        them instead, as the JAX engine does: "row" of a matrix with an f
+        cache against the reference row's g features, "col" of a matrix
+        with a g cache against its f features, and "self" once those
+        features are built."""
         global BASELINES
         key = (id(m), side)
         hit = self._bases.get(key)
         if hit is not None and hit[0] is m and hit[1] is ref:
             return hit[2]
         r = ref[None]
-        if side == "row":
-            value = kernels.counters(m, r, self.kplan)[:, :, 0]
-        elif side == "col":
-            value = kernels.counters(r, m, self.kplan)[:, 0, :]
+        fxf = self._fcache.get(id(m)) if side == "row" else None
+        gyf = self.gfeat_of(m) if side == "col" else None
+        if fxf is not None and fxf[0] is m:
+            value = self._k6_baseline(fxf[1],
+                                      self.ref_features(ref)[1])[:, :, 0]
+        elif gyf is not None:
+            value = self._k6_baseline(self.ref_features(ref)[0], gyf)[:, 0, :]
+        elif (side == "self" and self._ref_feats is not None
+              and self._ref_feats[0] is ref):
+            value = self._k6_baseline(*self.ref_features(ref))[:, 0, 0]
         else:
-            value = kernels.counters(r, r, self.kplan)[:, 0, 0]
-        BASELINES += 1
+            if side == "row":
+                value = kernels.counters(m, r, self.kplan)[:, :, 0]
+            elif side == "col":
+                value = kernels.counters(r, m, self.kplan)[:, 0, :]
+            else:
+                value = kernels.counters(r, r, self.kplan)[:, 0, 0]
+            BASELINES += 1
         if side == "self" or id(m) in self._prepared:
             self._bases[key] = (m, ref, value)
         return value
 
     def block(self, m1: torch.Tensor, m2: torch.Tensor, i0: int, j0: int,
-              ti: int, tj: int) -> torch.Tensor:
-        """K1 of one (ti, tj) block, rows i0.. of ``m1`` against rows j0..
-        of ``m2``: (G, ti, tj) int32 counters."""
-        global K1_BLOCKS
+              ti: int, tj: int,
+              fx: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One (ti, tj) block, rows i0.. of ``m1`` against rows j0.. of
+        ``m2``: (G, ti, tj) int32 counters, by K1; or given the strip's f
+        features ``fx``, by K6 against the slice at j0 of ``m2``'s g
+        cache."""
+        global K1_BLOCKS, K6_BLOCKS
         if i0 + ti > m1.shape[0] or j0 + tj > m2.shape[0]:
             raise ValueError(
                 f"block ({i0}+{ti}, {j0}+{tj}) outside the prepared rows"
                 f" ({m1.shape[0]}, {m2.shape[0]})"
             )
+        if fx is not None:
+            K6_BLOCKS += 1
+            return cached_ops.contract(fx, self.gfeat_of(m2)[:, j0 : j0 + tj],
+                                       self.cplan)
         K1_BLOCKS += 1
         return kernels.counters(m1[i0 : i0 + ti], m2[j0 : j0 + tj],
                                 self.kplan)
 
+    def first_dispatch(self, m1: torch.Tensor, m2: torch.Tensor, i0: int,
+                       col_starts, ti: int, tj: int,
+                       ref: Optional[torch.Tensor] = None):
+        """The (G, ti, tj) int32 counters of each block of one strip, rows
+        i0.. of ``m1`` against rows j0.. of ``m2`` for each j0 of
+        ``col_starts``, and on the cached-feature path, with a reference
+        row ``ref`` and no f cache on ``m1``, the strip rows' baseline
+        against it ((G, ti), else None: an f cache's is kept whole).  With
+        a g cache on ``m2`` the strip's f features are built (or sliced)
+        once and each block is one K6 contraction against the cache's
+        slice at j0 (the JAX engine's _dispatch_strip); without one each
+        block is one K1 launch."""
+        if self.gfeat_of(m2) is None:
+            return [self.block(m1, m2, i0, j0, ti, tj)
+                    for j0 in col_starts], None
+        if i0 + ti > m1.shape[0]:
+            raise ValueError(f"strip ({i0}+{ti}) outside the prepared rows"
+                             f" ({m1.shape[0]})")
+        fx = self.fx_strip(m1, i0, ti)
+        blocks = [self.block(m1, m2, i0, j0, ti, tj, fx) for j0 in col_starts]
+        rb = None
+        if ref is not None and id(m1) not in self._fcache:
+            rb = self._k6_baseline(fx, self.ref_features(ref)[1])[:, :, 0]
+        return blocks, rb
+
     def baselines(self, m1: torch.Tensor, m2: torch.Tensor,
-                  ref: Optional[torch.Tensor] = None):
-        """(rb, cb, cc) of ``m1``'s rows and ``m2``'s against ``ref`` (the
-        engine's reference row by default): (G, rows of m1), (G, rows of
-        m2), (G,) int32, kept as ``_baseline`` keeps them."""
+                  ref: Optional[torch.Tensor], i0: int, ti: int,
+                  rb: Optional[torch.Tensor] = None):
+        """(rb, cb, cc) of rows i0..i0+ti of ``m1`` and of ``m2``'s rows
+        against ``ref`` (the engine's reference row when None): (G, ti),
+        (G, rows of m2), (G,) int32.  cb and cc are kept as ``_baseline``
+        keeps them; rb is the given one (a cached-feature strip's), else a
+        slice of m1's kept row baseline (K1's, or K6's over m1's f
+        cache)."""
         if ref is None:
             ref = self.rel_ref
-        return (self._baseline(m1, ref, "row"), self._baseline(m2, ref, "col"),
+        if rb is None:
+            rb = self._baseline(m1, ref, "row")[:, i0 : i0 + ti]
+        return (rb, self._baseline(m2, ref, "col"),
                 self._baseline(ref, ref, "self"))
 
     def pack_block(self, c: torch.Tensor, mode: str, i0: int, j0: int,
@@ -660,12 +805,13 @@ class _BlockEngine:
         """A block's (G, ti, tj) counters at rung ``mode``: themselves
         under "none", their narrow lanes or wide words under "narrow" and
         "wide"; else (lanes, cb[, exc_idx, exc_val]) packed against
-        ``bases`` = (rb, cb, cc) of the block's whole sides (its rows are
-        rows i0.. of them, its columns j0..).  ``nv`` = (valid rows, valid
-        columns) of the sides: the rel4 pack zeroes padding cells so they
-        cannot flood the exception sidecar.  ``diag_off`` (sweeps over one
-        source): the row side's offset minus the column side's, for
-        masking self-pairs; None when the sides hold no self-pairs."""
+        ``bases`` = (rb, cb, cc): rb of the block's rows, cb of its whole
+        column side (its columns are columns j0.. of it).  ``nv`` = (valid
+        rows, valid columns) of the sides: the rel4 pack zeroes padding
+        cells so they cannot flood the exception sidecar.  ``diag_off``
+        (sweeps over one source): the row side's offset minus the column
+        side's, for masking self-pairs; None when the sides hold no
+        self-pairs."""
         RUNG_BLOCKS[mode] += 1
         if mode == "none":
             return c
@@ -673,9 +819,8 @@ class _BlockEngine:
             return packing.pack_narrow(self.measure, c, self.width)
         if mode == "wide":
             return packing.pack_wide(self.measure, c)
-        _, ti, tj = c.shape
-        rb_all, cb_all, cc = bases
-        rb = rb_all[:, i0 : i0 + ti]
+        tj = c.shape[2]
+        rb, cb_all, cc = bases
         cb = cb_all[:, j0 : j0 + tj]
         if mode == "rel4":
             lanes, exc_idx, exc_val = packing.pack_rel4(
@@ -801,13 +946,19 @@ class _BlockEngine:
     def release(self, handle: torch.Tensor) -> None:
         """Free a prepared matrix's memory now rather than when its last
         reference goes (the handle is empty afterwards), with its
-        baselines."""
+        baselines and its feature caches."""
         self._prepared.pop(id(handle), None)
         for side in ("row", "col"):
             self._bases.pop((id(handle), side), None)
-        storage = handle.untyped_storage()
-        if storage.resizable():
-            storage.resize_(0)
+        doomed = [handle]
+        for cache in (self._gcache, self._fcache):
+            entry = cache.pop(id(handle), None)
+            if entry is not None and entry[0] is handle:
+                doomed.append(entry[1])
+        for tensor in doomed:
+            storage = tensor.untyped_storage()
+            if storage.resizable():
+                storage.resize_(0)
 
 
 class _Strip:
@@ -837,20 +988,23 @@ class _Strip:
         self.nv = nv if nv is not None else (m1.shape[0], m2.shape[0])
         self.diag_off, self.ref = diag_off, ref
         self._kept: Optional[List[torch.Tensor]] = None
-        self._bases = None
+        self._rb = self._bases = None
 
     def __call__(self, mode: Optional[str] = None):
         eng = self.eng
         if mode is None:
             mode = eng.mode_for(self.tj)
+        rel = mode in ("rel4", "rel")
         if self._kept is None:
-            self._kept = [eng.block(self.m1, self.m2, self.i0, j0, self.ti,
-                                    self.tj)
-                          for j0 in self.col_starts]
-        if mode in ("rel4", "rel") and self._bases is None:
+            ref = self.ref if self.ref is not None else eng.rel_ref
+            self._kept, self._rb = eng.first_dispatch(
+                self.m1, self.m2, self.i0, self.col_starts, self.ti,
+                self.tj, ref if rel else None)
+        if rel and self._bases is None:
             # a stream group's codes are not prepared, so the engine does
             # not keep their baseline: the strip does
-            self._bases = eng.baselines(self.m1, self.m2, self.ref)
+            self._bases = eng.baselines(self.m1, self.m2, self.ref, self.i0,
+                                        self.ti, self._rb)
         bases = self._bases
         handles = [eng.pack_block(c, mode, self.i0, j0, bases, self.nv,
                                   self.diag_off)
@@ -860,9 +1014,8 @@ class _Strip:
                     else handles[0])
         lanes = torch.cat([h[0] for h in handles], dim=-1)
         cb = torch.cat([h[1] for h in handles], dim=-1)
-        rb_all, _, cc = bases
-        rb_cc = torch.cat([rb_all[:, self.i0 : self.i0 + self.ti],
-                           cc[:, None]], dim=1)
+        rb, _, cc = bases
+        rb_cc = torch.cat([rb, cc[:, None]], dim=1)
         if mode == "rel4":
             return lanes, packing.bundle_sidecars(
                 cb, rb_cc, torch.stack([h[2] for h in handles]),
@@ -871,7 +1024,7 @@ class _Strip:
 
     def release(self) -> None:
         """Drop the kept counters and baselines."""
-        self._kept = self._bases = None
+        self._kept = self._rb = self._bases = None
 
 
 class _AsyncFetch:
@@ -1337,6 +1490,11 @@ def _sweep_load(setup: Setup) -> None:
         len(get_plan(setup.measure).counters), ti, tj,
     )
     budget = _device_budget(device)
+    # the cached-feature path when its caches fit beside the rest (the
+    # JAX engine's predicates): it never sends a sweep out of core
+    cplan = _cached_plan_for(setup.measure)
+    cache_g = cplan is not None and _cache_fits(
+        cplan, rows[-1], width, ti, tj, footprint, budget)
     if budget is not None and footprint > budget:
         print(
             f"[distance-tpu] out-of-core {'' if square else 'rectangle '}"
@@ -1351,8 +1509,11 @@ def _sweep_load(setup: Setup) -> None:
     with phase_timer("diff-ref"):
         diff_ref = eng.diff_ref_for(sources[0])
     with phase_timer("prepare-upload"):
-        mats = [eng.prepare(src, mb, diff_ref=diff_ref)
-                for src, (_, mb) in zip(sources, prepared)]
+        # the g cache on the column side (the square's one matrix, the
+        # rectangle's file2)
+        mats = [eng.prepare(src, mb, diff_ref=diff_ref,
+                            cache_g=cache_g and k == len(sources) - 1)
+                for k, (src, (_, mb)) in enumerate(zip(sources, prepared))]
     m1, m2 = mats[0], mats[-1]
     plan = eng.plan
     # the square masks its self-pairs; rel4 masks rows and columns past
@@ -1444,8 +1605,81 @@ def _blocked_footprint(x_rows: int, y_rows: int, width: int,
             + (STRIP_LOOKAHEAD + 1) * strip + 2 * pack * ti * y_rows + l_pad)
 
 
+def _cache_bytes(plan: CounterPlan, cached_rows: int, width: int, ti: int,
+                 tj: int) -> int:
+    """Device bytes the cached-feature path adds to a square or rectangle
+    sweep whose feature caches hold ``cached_rows`` prepared rows: those
+    caches (R int8 a padded site), the f features of one strip (a strip's
+    are built at its first dispatch and freed once its contractions are
+    queued, before the next strip's), the reference row's f and g
+    features, and for a shared plan one block's per-channel products
+    (R int32 a pair, freed once mixed)."""
+    l_pad = _padded_shape(1, width, 1, 1)[1]
+    r = plan.total_channels
+    mix = 4 * r * ti * tj if plan.mix_num is not None else 0
+    return r * l_pad * (cached_rows + ti + 2) + mix
+
+
+def _cache_fits(plan: CounterPlan, cached_rows: int, width: int, ti: int,
+                tj: int, footprint: int, budget: Optional[int]) -> bool:
+    """Whether an in-core sweep of ``footprint`` device bytes engages a g
+    cache of ``cached_rows`` prepared rows: the cache within
+    FEATCACHE_BUDGET, and the sweep with the cached path's bytes within
+    the device budget (the JAX engine's predicates, engine.py:1051-1071)."""
+    l_pad = _padded_shape(1, width, 1, 1)[1]
+    return (plan.total_channels * cached_rows * l_pad <= FEATCACHE_BUDGET
+            and (budget is None
+                 or footprint + _cache_bytes(plan, cached_rows, width, ti, tj)
+                 <= budget))
+
+
+def _staged_cache(plan: Optional[CounterPlan], width: int, ti: int,
+                  tj: int) -> Optional[CounterPlan]:
+    """``plan`` when an out-of-core sweep's super-rows of at least ``tj``
+    rows can keep their g caches within FEATCACHE_BUDGET, else None (the
+    sweep then takes K1)."""
+    l_pad = _padded_shape(1, width, 1, 1)[1]
+    if plan is None or (plan.total_channels * (tj + max(ti, tj)) * l_pad
+                        > FEATCACHE_BUDGET):
+        return None
+    return plan
+
+
+def _x_cache_rows(cache: Optional[CounterPlan], group: int, width: int,
+                  ti: int) -> int:
+    """Prepared rows of an out-of-core X group of ``group`` rows that its f
+    cache holds: all of them when it fits half of FEATCACHE_BUDGET (the
+    predicate of ``_BlockEngine.prepare``), else 0 (no f cache)."""
+    if cache is None:
+        return 0
+    rows, l_pad = _padded_shape(group, width, ti, ti)
+    return rows if cache.total_channels * rows * l_pad <= (
+        FEATCACHE_BUDGET // 2) else 0
+
+
+def _layout_footprint(group: int, rows: int, n_y: int, width: int,
+                      counters_per_pair: int, ti: int, tj: int,
+                      cache: Optional[CounterPlan] = None) -> int:
+    """Device bytes of an out-of-core sweep against ``n_y`` columns in X
+    groups of ``group`` rows and super-rows of ``rows``: ``_blocked_footprint``
+    of one of each (a super-row prepared as ``max(ti, tj)`` rows more,
+    every super-row of at least ``tj`` rows keeping a baseline of its
+    prepared rows), and with ``cache`` the cached-feature path's bytes
+    (``_cache_bytes``: the X group's f cache when it has one, the
+    super-row's g cache)."""
+    pad = max(ti, tj)
+    kept = n_y + -(-n_y // tj) * pad
+    fp = _blocked_footprint(group, rows + pad, width, counters_per_pair, ti,
+                            tj, kept)
+    if cache is not None:
+        fp += _cache_bytes(cache, _x_cache_rows(cache, group, width, ti)
+                           + rows + pad, width, ti, tj)
+    return fp
+
+
 def _blocked_layout(n_x: int, n_y: int, width: int, counters_per_pair: int,
-                    ti: int, tj: int, budget: int) -> Tuple[int, int]:
+                    ti: int, tj: int, budget: int,
+                    cache: Optional[CounterPlan] = None) -> Tuple[int, int]:
     """(X-group rows, Y super-row rows) of an out-of-core sweep of ``n_x``
     rows against ``n_y`` columns.
 
@@ -1455,23 +1689,31 @@ def _blocked_layout(n_x: int, n_y: int, width: int, counters_per_pair: int,
     needs more (``_cap_tile_ram`` bounds that strip), and its codes at
     most a third of the device budget.  A super-row is a multiple of
     ``tj``, prepared as at most ``max(ti, tj)`` rows more, and takes the
-    rest, as ``_blocked_footprint`` counts it beside the baselines every
-    super-row keeps (``_StagedSide``)."""
+    rest, as ``_layout_footprint`` counts it beside the baselines every
+    super-row keeps (``_StagedSide``).
+
+    ``cache`` (the plan of the cached-feature path, ``_staged_cache``): an
+    X row then costs its R features too (the JAX engine's (1 + R) x
+    l_pad row bytes), an X group keeps an f cache when it fits half of
+    FEATCACHE_BUDGET (``_BlockEngine.prepare``), every super-row a g cache
+    within FEATCACHE_BUDGET, and the layout counts them
+    (``_cache_bytes``)."""
     l_pad = _padded_shape(1, width, 1, 1)[1]
+    r = cache.total_channels if cache is not None else 0
     host_cap = HOST_BUF_BUDGET // 2 // max(1, n_y * counters_per_pair * 4)
-    group = max(ti, min(host_cap // ti * ti, budget // 3 // l_pad // ti * ti,
+    group = max(ti, min(host_cap // ti * ti,
+                        budget // 3 // ((1 + r) * l_pad) // ti * ti,
                         -(-n_x // ti) * ti))
     pad = max(ti, tj)
-    # every super-row of at least tj rows keeps a baseline of its
-    # prepared rows
-    kept = n_y + -(-n_y // tj) * pad
 
     def footprint(rows: int) -> int:
-        return _blocked_footprint(group, rows + pad, width,
-                                  counters_per_pair, ti, tj, kept)
+        return _layout_footprint(group, rows, n_y, width, counters_per_pair,
+                                 ti, tj, cache)
 
     per_tj = footprint(tj) - footprint(0)
     rows = max(0, budget - footprint(0)) // per_tj * tj
+    if cache is not None:
+        rows = min(rows, (FEATCACHE_BUDGET // (r * l_pad) - pad) // tj * tj)
     return group, max(tj, min(rows, -(-n_y // tj) * tj))
 
 
@@ -1490,19 +1732,22 @@ class _StagedSide:
     direction, so the last super-row of one group is the first of the
     next: one upload fewer per group.  The resident super-row is released
     before the next one is uploaded, so one slot is on the device at a
-    time.  Uploads run on the current stream, after the kernels that read
-    the released super-row: the allocator hands its memory on in stream
-    order.  The K1 baselines of a released super-row stay on the device
+    time, with its g cache under ``cache_g`` (built from the codes on the
+    device each time it is staged).  Uploads run on the current stream,
+    after the kernels that read the released super-row: the allocator
+    hands its memory on in stream order.  The K1 baselines of a released super-row stay on the device
     (G int32 a prepared row, which the layouts count), so a super-row
     staged again against the same reference row launches none.
     """
 
     def __init__(self, eng: _BlockEngine, source: np.ndarray,
-                 max_block: int, diff_ref: Optional[np.ndarray] = None) -> None:
+                 max_block: int, diff_ref: Optional[np.ndarray] = None,
+                 cache_g: bool = False) -> None:
         self.eng = eng
         self.source = source
         self.max_block = max_block
         self.diff_ref = diff_ref
+        self.cache_g = cache_g
         self._memos: Dict[Tuple[int, int], dict] = {}
         self._memo_bytes = 0
         self._bases: Dict[Tuple[int, int], list] = {}
@@ -1529,7 +1774,7 @@ class _StagedSide:
         with phase_timer("ooc-stage"):
             self._dev = self.eng.prepare(self.source[q0:q1], self.max_block,
                                          diff_ref=self.diff_ref,
-                                         h2d_memo=memo)
+                                         h2d_memo=memo, cache_g=self.cache_g)
         if memo is not None and memo.get("enc") is not prev:
             # a prepare may replace a kept encoding (a retarget swapped
             # the uploader), not only fill an empty one
@@ -1574,7 +1819,17 @@ def _sweep_blocked(setup: Setup, sources: List[np.ndarray], width: int,
     eng = _BlockEngine(setup.measure, device, ti, width, rel=True)
     plan = eng.plan
     g = len(plan.counters)
-    group_rows, sr_rows = _blocked_layout(n1, n2, width, g, ti, tj, budget)
+    cache = _staged_cache(_cached_plan_for(setup.measure), width, ti, tj)
+    group_rows, sr_rows = _blocked_layout(n1, n2, width, g, ti, tj, budget,
+                                          cache)
+    if cache is not None and _layout_footprint(
+            group_rows, sr_rows, n2, width, g, ti, tj, cache) > budget:
+        # the least layout with the caches passes the budget: K1
+        cache = None
+        group_rows, sr_rows = _blocked_layout(n1, n2, width, g, ti, tj,
+                                              budget)
+    # the f cache of an X group when the layout counted it
+    x_cache = _x_cache_rows(cache, group_rows, width, ti) > 0
     strip_starts, weights = _strip_grid(square, n1, n2, ti)
     a, b = _split_strips(weights, setup.shard)
     if a >= b:
@@ -1589,7 +1844,7 @@ def _sweep_blocked(setup: Setup, sources: List[np.ndarray], width: int,
     pool = _ScratchPool()
     with phase_timer("diff-ref"):
         dref = eng.diff_ref_for(src1)
-    yside = _StagedSide(eng, src2, tj, dref)
+    yside = _StagedSide(eng, src2, tj, dref, cache_g=cache is not None)
 
     def sweep_super_row(dev_x, bufs, g0, g1, col0, q0, q1):
         """Every strip of the group against source2[q0:q1], into bufs."""
@@ -1640,7 +1895,8 @@ def _sweep_blocked(setup: Setup, sources: List[np.ndarray], width: int,
                 continue
             col0 = g0 if square else 0
             with phase_timer("ooc-xgroup-prepare"):
-                dev_x = eng.prepare(src1[g0:g1], ti, diff_ref=dref)
+                dev_x = eng.prepare(src1[g0:g1], ti, diff_ref=dref,
+                                    cache_f=x_cache)
             try:
                 bufs = np.zeros((g, g1 - g0, n2 - col0), dtype=np.int32)
                 spans = [(q0, min(q0 + sr_rows, n2))

@@ -17,12 +17,16 @@ from distance_tpu_torch import engine  # noqa: E402
 from distance_tpu_torch.encoding import ALL_CODES, CODE_TO_CHAR  # noqa: E402
 from distance_tpu_torch.measures import MEASURES  # noqa: E402
 from distance_tpu_torch.ops import counters as kernels  # noqa: E402
-from distance_tpu_torch.ops import diffup, packing  # noqa: E402
+from distance_tpu_torch.ops import cached, diffup, packing  # noqa: E402
 from distance_tpu_torch.ops.features import (  # noqa: E402
     get_plan,
     reference_counter_matrix,
 )
-from distance_tpu_torch.ops.plan import plan_to_torch  # noqa: E402
+from distance_tpu_torch.ops.plan import (  # noqa: E402
+    cached_plan_to_torch,
+    fold_cached,
+    plan_to_torch,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -126,6 +130,12 @@ def test_kernel_counts_launches_and_refuses_strided_codes(dev):
     assert kernels.LAUNCHES == before + 1
 
 
+def counter_launches() -> int:
+    """Launches of the counter kernels: K1, and K6 on the cached-feature
+    path."""
+    return kernels.LAUNCHES + cached.LAUNCHES_CONTRACT
+
+
 @pytest.mark.parametrize("measure", ["raw", "n", "k80", "tn93"])
 def test_cli_cuda_equals_torch(dev, tmp_path, measure):
     rng = np.random.default_rng(22)
@@ -138,11 +148,11 @@ def test_cli_cuda_equals_torch(dev, tmp_path, measure):
     outs = {}
     for backend in ("cuda", "torch"):
         outs[backend] = tmp_path / f"{backend}.tsv"
-        before = kernels.LAUNCHES
+        before = counter_launches()
         rc = cli.main([str(fasta), "-m", measure, "--backend", backend,
                        "-o", str(outs[backend])])
         assert rc == 0
-        assert (kernels.LAUNCHES > before) == (backend == "cuda")
+        assert (counter_launches() > before) == (backend == "cuda")
     assert outs["cuda"].read_bytes() == outs["torch"].read_bytes()
 
 
@@ -158,14 +168,17 @@ def test_small_tiles_on_card(dev, tmp_path):
         )
         setup = engine.set_up(args)
         setup.tile_i = setup.tile_j = 16
-        before, rel4 = kernels.LAUNCHES, engine.RUNG_BLOCKS["rel4"]
+        before, rel4 = counter_launches(), engine.RUNG_BLOCKS["rel4"]
+        k1 = kernels.LAUNCHES
         engine.run(setup)
         setup.writer.close()
         if backend == "cuda":
-            # 15 blocks at rel4 (no segment of 1 cell saturates), and the
-            # baselines of the matrix's rows, its columns and the reference
+            # 15 blocks at rel4 (no segment of 1 cell saturates), through
+            # K6 (tn93 takes the cached-feature path), and the baselines:
+            # each strip's rows (5), the matrix's columns and the reference
             assert engine.RUNG_BLOCKS["rel4"] - rel4 == 5 + 4 + 3 + 2 + 1
-            assert kernels.LAUNCHES - before == 5 + 4 + 3 + 2 + 1 + 3
+            assert counter_launches() - before == 5 + 4 + 3 + 2 + 1 + 5 + 2
+            assert kernels.LAUNCHES == k1
         outs.append(out.read_bytes())
     assert outs[0] == outs[1]
 
@@ -201,7 +214,8 @@ def test_kernel_takes_millions_of_x_rows(dev, measure):
 @pytest.mark.parametrize("mode", ["square", "rectangle", "stream"])
 def test_out_of_core_cuda_equals_torch(dev, tmp_path, monkeypatch, mode):
     """Budgets lowered so that each mode goes out of core in several groups
-    and super-rows: K1 runs every block, and the bytes are the plain
+    and super-rows: a counter kernel runs every block (K6, or K1 where
+    the caches do not fit the budget), and the bytes are the plain
     version's."""
     rng = np.random.default_rng(27)
     mat = random_codes(rng, 100, 300)
@@ -219,11 +233,11 @@ def test_out_of_core_cuda_equals_torch(dev, tmp_path, monkeypatch, mode):
     outs = {}
     for backend in ("cuda", "torch"):
         outs[backend] = tmp_path / f"{backend}.tsv"
-        before = kernels.LAUNCHES
+        before = counter_launches()
         rc = cli.main(args + ["-m", "tn93", "--backend", backend, "-o",
                               str(outs[backend])])
         assert rc == 0
-        assert (kernels.LAUNCHES > before) == (backend == "cuda")
+        assert (counter_launches() > before) == (backend == "cuda")
     assert outs["cuda"].read_bytes() == outs["torch"].read_bytes()
 
 
@@ -675,3 +689,116 @@ def test_out_of_core_packed_square_equals_in_core(dev, tmp_path,
         assert diffup.LAUNCHES > before[1]
         shas.append(hashlib.sha256(out.read_bytes()).hexdigest())
     assert shas[0] == shas[1]
+
+
+# The edges of K5 (``csrc/features.cu``), (rows, sites): 16-site pieces
+# whole, ragged and at the bench width, no rows, one row.
+K5_EDGES = [(37, 16), (37, 4095), (9, 29952), (0, 128), (1, 128),
+            (1, 29952), (300, 31)]
+# The edges of K6 (``csrc/contract.cu``), (x rows, y rows, sites): either
+# side of its 128 x 256 tile at either side of a 32-site k-step and of a
+# 64-site stage, an empty side, and the rel baselines' one-row sides.
+K6_EDGES = ([(m, n, w) for m in (127, 128, 129) for n in (255, 256, 257)
+             for w in (31, 32, 33, 4095)]
+            + [(0, 5, 128), (6, 0, 128), (3000, 1, 640), (1, 3000, 640),
+               (1, 1, 640), (13, 7, 200)])
+# Both forms of a plan K6 contracts: the JAX plan's own channels (the
+# engine's), and K1's folded channels (measured beside it).
+CACHED_FORMS = {"jax": cached_plan_to_torch, "folded": fold_cached}
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+def test_features_kernel_matches_plain(dev, measure):
+    """K5 byte-equal to the LUT lookup on both sides: code 0 and every
+    Paradis code in every position of a 16-site piece, and K5_EDGES."""
+    rng = np.random.default_rng(41)
+    plan = cached_plan_to_torch(get_plan(measure), dev)
+    codes = np.concatenate([[0], ALL_CODES]).astype(np.uint8)
+    truth = np.stack([np.roll(codes, s)[:16] for s in range(codes.size)])
+    cases = [truth] + [random_codes(rng, m, w) for m, w in K5_EDGES]
+    before = cached.LAUNCHES_FEATURES
+    for c in cases:
+        x = torch.from_numpy(c).to(dev)
+        for side in ("f", "g"):
+            got = cached.features_cuda(x, plan, side)
+            torch.cuda.synchronize()
+            assert torch.equal(got, cached.features_torch(x, plan, side)), (
+                c.shape, side)
+    assert cached.LAUNCHES_FEATURES == before + 2 * sum(
+        1 for c in cases if c.size)
+
+
+@pytest.mark.parametrize("form", sorted(CACHED_FORMS))
+@pytest.mark.parametrize("measure", MEASURES)
+def test_contract_kernel_matches_plain(dev, measure, form):
+    """K6 equal to its plain version at K6_EDGES, and the counters equal
+    K1's plain version of the same codes."""
+    rng = np.random.default_rng(42)
+    plan = CACHED_FORMS[form](get_plan(measure), dev)
+    kp = plan_to_torch(get_plan(measure), dev)
+    for m, n, width in K6_EDGES:
+        x = torch.from_numpy(random_codes(rng, m, width)).to(dev)
+        y = torch.from_numpy(random_codes(rng, n, width)).to(dev)
+        fx = cached.features_torch(x, plan, "f")
+        gy = cached.features_torch(y, plan, "g")
+        got = cached.contract_cuda(fx, gy, plan)
+        torch.cuda.synchronize()
+        want = cached.contract_torch(fx, gy, plan)
+        assert torch.equal(got, want), (m, n, width)
+        assert torch.equal(want, kernels.counters_torch(x, y, kp)), (
+            m, n, width)
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+def test_contract_kernel_reads_cache_slices(dev, measure):
+    """A strip of an f cache at i0 > 0 against a block of a g cache at
+    j0 > 0, both read in place at their channel and row strides, and
+    counters_cached: equal to the plain version on compact copies."""
+    rng = np.random.default_rng(43)
+    plan = cached_plan_to_torch(get_plan(measure), dev)
+    codes = torch.from_numpy(random_codes(rng, 900, 640)).to(dev)
+    f_cache = cached.features_cuda(codes, plan, "f")
+    g_cache = cached.features_cuda(codes, plan, "g")
+    fx, gy = f_cache[:, 128:384], g_cache[:, 512:768]
+    assert not gy.is_contiguous()
+    before = cached.LAUNCHES_CONTRACT
+    got = cached.contract_cuda(fx, gy, plan)
+    assert cached.LAUNCHES_CONTRACT == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, cached.contract_torch(fx.contiguous(),
+                                                  gy.contiguous(), plan))
+    both = cached.counters_cached(codes[128:384], codes[512:768], plan)
+    assert torch.equal(both, got)
+
+
+def test_cached_kernels_past_2_31_bytes(dev):
+    """raw's g cache of 4096 x 29952 is 18 x 4096 x 29952 bytes, past
+    2^31: K5 builds all of it, and K6 reads its last rows at offsets past
+    2^31."""
+    rng = np.random.default_rng(44)
+    plan = cached_plan_to_torch(get_plan("raw"), dev)
+    codes = torch.from_numpy(random_codes(rng, 4096, 29952)).to(dev)
+    g = cached.features_cuda(codes, plan, "g")
+    assert g.numel() > 1 << 31
+    torch.cuda.synchronize()
+    assert torch.equal(g, cached.features_torch(codes, plan, "g"))
+    fx = cached.features_cuda(codes[:129], plan, "f")
+    gy = g[:, 3800:]
+    got = cached.contract_cuda(fx, gy, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cached.contract_torch(fx, gy, plan))
+
+
+def test_cached_wrappers_refuse_what_they_do_not_take(dev):
+    plan = cached_plan_to_torch(get_plan("tn93"), dev)
+    codes = torch.zeros((8, 32), dtype=torch.uint8, device=dev)
+    fx = cached.features(codes, plan, "f")
+    before = (cached.LAUNCHES_FEATURES, cached.LAUNCHES_CONTRACT)
+    with pytest.raises(ValueError, match="plan tables"):
+        cached.features_cuda(codes, cached_plan_to_torch(get_plan("tn93"),
+                                                         "cpu"), "f")
+    with pytest.raises(ValueError, match="int8"):
+        cached.contract_cuda(fx.to(torch.int32), fx, plan)
+    with pytest.raises(ValueError, match="channels"):
+        cached.contract_cuda(fx[:3], fx[:3], plan)
+    assert (cached.LAUNCHES_FEATURES, cached.LAUNCHES_CONTRACT) == before

@@ -98,7 +98,7 @@ def test_knob_defaults_are_the_jax_clis():
             for name in port_engine.KNOB_ENV} == {
         "DEVICE_BUDGET": 0, "HOST_BUF_BUDGET": 4 << 30, "STREAM_GROUP": 0,
         "STRIP_LOOKAHEAD": 6, "STREAM_PENDING": 3, "NARROW_STICKY_LIMIT": 2,
-        "RETARGET_FAIL_LIMIT": 3}
+        "RETARGET_FAIL_LIMIT": 3, "FEATCACHE_BUDGET": 8 << 30}
 
 
 @pytest.fixture

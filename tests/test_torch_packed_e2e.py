@@ -57,12 +57,13 @@ def diverse_fastas(seed=3, n1=150, n2=140, width=300):
 @pytest.fixture
 def spies(monkeypatch):
     """Counts of diff uploads, of blocks by rung, of counter-kernel calls
-    (``k1``), of blocks first dispatched (``first``: every strip, stream
-    group and staged part is dispatched once, then perhaps again) and of
-    baselines in one run."""
+    (``k1``: K1's, or K6's on the cached-feature path), of blocks first
+    dispatched (``first``: every strip, stream group and staged part is
+    dispatched once, then perhaps again) and of baselines in one run."""
     seen = {"diff": 0, "k1": 0, "first": 0}
     real = diffup.DiffUploader.upload_encoded
     real_counters = port_engine.kernels.counters
+    real_contract = port_engine.cached_ops.contract
     real_strip = port_engine._Strip.__init__
 
     def upload_encoded(self, enc, rows_pad):
@@ -73,6 +74,10 @@ def spies(monkeypatch):
         seen["k1"] += 1
         return real_counters(*args, **kwargs)
 
+    def contract(*args, **kwargs):
+        seen["k1"] += 1
+        return real_contract(*args, **kwargs)
+
     def strip(self, eng, m1, m2, i0, col_starts, *args, **kwargs):
         seen["first"] += len(col_starts)
         real_strip(self, eng, m1, m2, i0, col_starts, *args, **kwargs)
@@ -80,6 +85,7 @@ def spies(monkeypatch):
     monkeypatch.setattr(diffup.DiffUploader, "upload_encoded",
                         upload_encoded)
     monkeypatch.setattr(port_engine.kernels, "counters", counters)
+    monkeypatch.setattr(port_engine.cached_ops, "contract", contract)
     monkeypatch.setattr(port_engine._Strip, "__init__", strip)
 
     def snapshot():

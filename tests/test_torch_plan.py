@@ -15,6 +15,8 @@ from distance_tpu_torch.ops.counters import features_torch  # noqa: E402
 from distance_tpu_torch.ops.plan import (  # noqa: E402
     MAX_CHANNELS,
     MAX_COUNTERS,
+    cached_plan_to_torch,
+    fold_cached,
     plan_to_torch,
 )
 
@@ -180,3 +182,54 @@ def test_kernel_nibble_lookup_equals_luts(measure):
             for side, lut in ((0, kp.f_lut), (1, kp.g_lut)):
                 got = _lookup(words[k, side], sel, hi).view(np.int8)
                 np.testing.assert_array_equal(got, lut[k].numpy()[rolled])
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+def test_cached_plan_carries_the_jax_plan(measure):
+    """The unfolded carrier of the cached-feature path: the JAX plan's own
+    channels (LUTs with the f side's sign), its counter slices or its mix
+    and divisors, the same from either package."""
+    jp = jax_features.get_plan(measure)
+    cp = cached_plan_to_torch(jp, CPU)
+    np.testing.assert_array_equal(cp.f_lut.numpy(), jp.f_luts)
+    np.testing.assert_array_equal(cp.g_lut.numpy(), jp.g_luts)
+    assert cp.channels == jp.total_channels
+    assert cp.counters == len(jp.counters)
+    assert cp.den == (1,) * cp.planes
+    if jp.mix_num is None:
+        assert cp.bounds == (0,) + tuple(hi for _, _, hi in jp.slices)
+        assert cp.mix_num is None and cp.mix_den is None
+    else:
+        assert cp.bounds == tuple(range(jp.total_channels + 1))
+        np.testing.assert_array_equal(np.array(cp.mix_num), jp.mix_num)
+        np.testing.assert_array_equal(np.array(cp.mix_den), jp.mix_den)
+    other = cached_plan_to_torch(port_features.get_plan(measure), CPU)
+    assert torch.equal(other.f_lut, cp.f_lut)
+    assert (other.bounds, other.mix_num, other.mix_den) == (
+        cp.bounds, cp.mix_num, cp.mix_den)
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+def test_cached_plan_nibble_tables_decide_every_code(measure):
+    """K5's lookup (csrc/features.cu split, lookup, as csrc/counters.cu's)
+    of the unfolded nibble tables gives each side's LUT feature for code
+    0 and every Paradis code in every byte of a word; the folded form is
+    K1's plan."""
+    from distance_tpu_torch.encoding import ALL_CODES
+
+    cp = cached_plan_to_torch(port_features.get_plan(measure), CPU)
+    codes = np.concatenate([[0], ALL_CODES, [0, 0]]).astype(np.uint8)
+    for nib, lut in ((cp.f_nib, cp.f_lut), (cp.g_nib, cp.g_lut)):
+        words = np.ascontiguousarray(nib).view("<u4").reshape(-1, 4)
+        for shift in range(4):
+            rolled = np.roll(codes, shift)
+            sel, hi = _split(rolled.view("<u4"))
+            for k in range(cp.channels):
+                got = _lookup(words[k], sel, hi).view(np.int8)
+                np.testing.assert_array_equal(got, lut[k].numpy()[rolled])
+    folded = fold_cached(port_features.get_plan(measure), CPU)
+    kp = plan_to_torch(port_features.get_plan(measure), CPU)
+    assert torch.equal(folded.f_lut, kp.f_lut)
+    assert torch.equal(folded.g_lut, kp.g_lut)
+    assert (folded.bounds, folded.den, folded.mix_num) == (
+        kp.bounds, kp.den, None)
