@@ -7,8 +7,9 @@ Run from the root of a checkout.  It builds the kernels from
 ``distance_tpu_torch/csrc`` (K1 the counters, K2 the rel4/rel packs, K3
 the diff rebuild, K4 the narrow/wide packs, K5 the features and K6 their
 contraction, the cached-feature path that the engine's measure set,
-``engine.CACHED_MEASURES``, sends the square's and the rectangle's blocks
-through), holds each against its plain
+``engine.CACHED_MEASURES``, sends the square's, the rectangle's and the
+stream's blocks through where their caches fit), holds each against its
+plain
 PyTorch version, drives the port's CLI on SARS-CoV-2-scale synthetic
 alignments made from a seed (29904 sites) in its three modes, in and out
 of core, with diff-encoded uploads and the pack ladder on, checks the
@@ -68,7 +69,10 @@ output, and times the kernels beside their plain versions.  Phases:
    f-cache slice at i0 > 0 read at their strides, the main path's
    launches (a 2048-row strip against 2048-row slices of the square's
    8192-row g cache, its baselines, phase 12's out-of-core blocks and
-   baselines) and a g cache past 2^31 bytes;
+   baselines, the stream's 2000-row f cache against its groups' g
+   features of 8000 and 384 rows and its baselines, phase 12's staged
+   stream parts, ``STREAM_CACHED_LAUNCHES``) and a g cache past 2^31
+   bytes;
 3. the square path: the CLI on the 8192 x 29904 alignment, ``-m raw
    --backend cuda``; line count, 1200 random rows against the host
    oracle, each kernel's launch count in that run (10 blocks at rel4; 3
@@ -106,7 +110,9 @@ output, and times the kernels beside their plain versions.  Phases:
    version and both yardsticks (``torch._int_mm`` a folded counter, and
    one ``torch._int_mm`` a channel with the planes and the mix in torch),
    and K5 at the square's 8192 x 29952 g cache and a 2048-row strip
-   beside its byte bound;
+   beside its byte bound; then K6 at the stream's 2000 x 8000 group
+   beside its bound and K1 at the same shape, and K5 at the group's
+   8000-row g features and the 2000-row f cache;
 6. the rectangle path: the CLI on 4096 x 8192 x 29904 (two files cut
    from one alignment), ``-m raw``; line count, 1200 random rows, launch
    count, and a ``torch.profiler`` split of a second run's device time
@@ -114,8 +120,10 @@ output, and times the kernels beside their plain versions.  Phases:
 7. the stream path: 2000 loaded x 16384 streamed x 29904 with ``-b
    1000``, ``-m raw``: groups of 8000, 8000 and 384 records, so group
    ends are ragged and a pinned buffer is refilled; line count, 1200
-   random rows, one launch per group, the TSV's sha256, and the profiler
-   split;
+   random rows, one K6 launch per group against the loaded rows' f
+   cache (K5 once), each group's g features (K5 once a group), the
+   baselines through K6 (``check_stream_cached``: no K1), the TSV's
+   sha256, and the profiler split;
 8. all six measures, ``--backend cuda`` against ``--backend torch``:
    identical bytes for a 128 x 256 rectangle and a 128-loaded x
    300-streamed stream with ``-b 7``;
@@ -139,12 +147,14 @@ output, and times the kernels beside their plain versions.  Phases:
    own measure set, the six measures out of core at small shapes
    (square 256, rectangle 128 x 256, stream 128 x 300 ``-b 7``) against
    the in-core ``--backend torch`` bytes, and an in-core stream of 8
-   records against 4,194,305 loaded records of 64 sites (one launch;
-   line count and 1200 random rows);
+   records against 4,194,305 loaded records of 64 sites (one K1 launch:
+   its 9.66 GB f cache passes half of the feature-cache budget, so the
+   stream takes K1; line count and 1200 random rows);
 10. more than one process: the stream of phase 7 in two shards in this
-   process, ``--shard 0/2`` in core (groups 0 and 2: 2 launches) and
-   ``--shard 1/2`` staged under a device budget of 400 MB (group 1
-   against loaded super-rows of 1024 and 976 rows: 2 launches), their
+   process, ``--shard 0/2`` in core (groups 0 and 2: 2 K6 launches) and
+   ``--shard 1/2`` staged under a device budget of 600 MB (group 1
+   against loaded super-rows of 1024 and 976 rows: 2 K1 launches, as
+   the group's g features alone pass the budget), their
    ``.units`` sidecars, and ``--merge``, whose sha256 must be phase 7's;
    then as subprocesses on the same card, each TSV's sha256 against the
    single run's and each wall beside one single-process subprocess
@@ -164,7 +174,12 @@ output, and times the kernels beside their plain versions.  Phases:
    for the reference row, K6 = first dispatches + baselines; and the
    square out of core for tn93 (``OOC_CACHED``: each X group with its f
    cache, each super-row with its g cache): the in-core sha256, K5's
-   builds by kind, peak device memory within the budget.
+   builds by kind, peak device memory within the budget; the stream of
+   phase 7 for raw and tn93 through K5 + K6 and through K1
+   (``DISTANCE_TPU_FEATCACHE_BUDGET=0``), and the tn93 stream of 8192
+   loaded x 4096 records in core and staged with its caches
+   (``STREAM_CACHED``: each super-row with its f cache, each group's g
+   features once) and staged through K1: equal sha256 each.
 
 Every profiled run's split shows device time for each kernel it
 launched.  K3's launches on each path of phases 3-11 must be
@@ -291,6 +306,28 @@ LADDER_UNPACKED = (256, 65600)
 # (engine._blocked_layout with the tn93 plan at 29904 sites: 1,265,043,216
 # B).
 OOC_CACHED = (1_400_000_000, 1_200_000_000, (1024, 1024))
+# Phase 12: the tn93 stream of N_OOC_STREAM records (-b 1000) staged with
+# its caches, (device budget, host budget, (TILE_I, TILE_J)): below the
+# 411,733,392 B that the 8192 loaded rows need in core beside the least
+# group (engine._stream_footprint), so staged, in groups of at most
+# 1144 records (the host budget's half over 4 x 4 B x 8192 loaded rows),
+# so 1000, 1000, 1000 and 1096, against 16 super-rows of 512 loaded rows,
+# each with its f cache (engine._stream_layout with the tn93 plan at
+# 29904 sites: 357,191,312 B with the caches; at a budget below that the
+# stream takes K1, in super-rows of 3072 or 3584 rows).  raw's group
+# features, 18 B a site against tn93's 5, pass what the loaded codes
+# leave at these shapes: a raw stream staged at them takes K1.
+STREAM_CACHED = (400_000_000, 300_000_000, (512, 1024))
+STREAM_CACHED_GROUPS = (1000, 1000, 1000, 1096)
+STREAM_CACHED_ROWS = 512
+# The K6 launches of the cached stream, (x rows, y rows): the stream of
+# phase 7 (its 2000 loaded rows against groups of 8000 and 384, the
+# loaded rows' baseline and the groups' against the reference row, and
+# the reference row's own) and the parts of STREAM_CACHED's staged
+# stream (a 512-row super-row against each group, and their baselines).
+STREAM_CACHED_LAUNCHES = [(2000, 8000), (2000, 384), (2000, 1), (1, 8000),
+                          (1, 384), (1, 1), (512, 1000), (512, 1096),
+                          (512, 1), (1, 1000), (1, 1096)]
 # Strips of the in-core square (8192 records, auto tiles of 2048) and of
 # the rectangle (4096 x 8192): on the cached path each computes its rows'
 # baseline with one K6 launch.
@@ -599,6 +636,23 @@ def phase_cached_vs_plain(bench: np.ndarray) -> int:
                  f_cache[:, 1024:2048], g_cache[:, 1024:2048]),
                 ("out-of-core rb 3072 x 1", f_cache[:, 3072:6144], g_ref),
                 ("out-of-core cb 1 x 3072", f_ref, g_cache[:, 5120:])]
+        # the cached stream's: an f cache of its loaded rows (or of a
+        # super-row) against a group's g features, and their baselines,
+        # each side built by K5 at its shape and held byte-equal
+        for m, n in STREAM_CACHED_LAUNCHES:
+            sides = []
+            for rows, side, one in ((m, "f", f_ref), (n, "g", g_ref)):
+                if rows == 1:
+                    sides.append(one)
+                    continue
+                c = square[N_BENCH - rows:] if side == "g" else square[:rows]
+                feats = cached.features_cuda(c, plan, side)
+                torch.cuda.synchronize()
+                check(torch.equal(feats, cached.features_torch(c, plan,
+                                                               side)),
+                      f"{measure} K5 {side} {rows} rows: kernel != plain")
+                sides.append(feats)
+            path.append((f"stream {m} x {n}", *sides))
         for form, make in (("jax", cached_plan_to_torch),
                            ("folded", fold_cached)):
             fplan = make(get_plan(measure), dev)
@@ -625,11 +679,11 @@ def phase_cached_vs_plain(bench: np.ndarray) -> int:
                                     f" |kernel - plain| = {err}")
                 check(want_k1 is None or torch.equal(want, want_k1),
                       f"{measure} K6 {form} {name}: plain != K1's plain")
-        del g_cache, f_cache, f_strip
         print(f"[2] {measure}: K5 == plain on {len(k5_cases)} shapes, both"
-              f" sides; K6 == plain on {len(card.K6_EDGES)} edges in both"
-              f" plan forms (== K1's plain) and {len(path)} main-path"
-              f" launches")
+              f" sides, and at the stream's; K6 == plain on"
+              f" {len(card.K6_EDGES)} edges in both plan forms (== K1's"
+              f" plain) and {len(path)} main-path launches")
+        del g_cache, f_cache, f_strip, path, cases
     # past 2^31 bytes: raw's g cache of 4096 x 29952, and K6 reading its
     # last rows
     plan = cached_plan_to_torch(get_plan("raw"), dev)
@@ -1193,8 +1247,23 @@ def check_cached(tag: str, counts: dict, strips: int,
     """A run whose blocks and baselines all went through K6: no K1 launch;
     K5 built one g cache, each strip's f features once and, with a
     reference row, its f and g features."""
-    want = {"g": 1, "f": 0, "strip": strips, "ref": 2 if ref else 0}
+    want = {"g": 1, "f": 0, "strip": strips, "ref": 2 if ref else 0,
+            "group": 0}
     check(counts["counters"] == 0 and counts["builds"] == want,
+          f"{tag}: launches {counts}, expected no K1 and feature builds"
+          f" {want}")
+
+
+def check_stream_cached(tag: str, counts: dict, groups: int,
+                        f_builds: int = 1) -> None:
+    """A stream whose blocks and baselines all went through K6: no K1
+    launch; K5 built the loaded rows' f cache (``f_builds``: one in
+    core, one a staging of a super-row), each group's g features once,
+    and the reference row's f and g features."""
+    want = {"g": 0, "f": f_builds, "strip": 0, "ref": 2, "group": groups}
+    check(counts["counters"] == 0 and counts["k1_blocks"] == 0
+          and counts["builds"] == want
+          and counts["k6_baselines"] == counts["baselines"],
           f"{tag}: launches {counts}, expected no K1 and feature builds"
           f" {want}")
 
@@ -1497,8 +1566,10 @@ def phase_cached_timing(bench: np.ndarray):
     K1, its bound, its plain version and the yardsticks; K5 at the
     square's 8192 x 29952 g cache and a 2048-row f strip beside its bound
     (the codes read once and the features written once at the memory
-    rate) and its plain version.  Returns raw's numbers for the result
-    line and the largest |kernel - plain|."""
+    rate) and its plain version; then K6 at the stream's 2000 x 8000
+    group (the loaded rows' f cache against the group's g features)
+    beside its bound and K1, and K5 at both.  Returns raw's numbers for
+    the result line and the largest |kernel - plain|."""
     import torch
 
     from distance_tpu_torch.measures import MEASURES
@@ -1572,17 +1643,56 @@ def phase_cached_timing(bench: np.ndarray):
                   f" {k5[tag]['kernel']:.4f} ms, bound {k5_bound:.4f} ms"
                   f" (bytes) = {k5_bound / k5[tag]['kernel']:.4f} of the"
                   f" bound; plain {k5[tag]['plain']:.4f} ms ({card})")
+        # the stream's first group: K6 of the 2000 loaded rows' f cache
+        # against the 8000-record group's g features, beside K1 at the same
+        # shape, and K5 at both
+        sx = codes[: N_STREAM[0]]
+        sy = codes[N_BENCH - STREAM_GROUPS[0]:]
+        sfx = cached.features_cuda(sx, plan, "f")
+        sgy = cached.features_cuda(sy, plan, "g")
+        got = cached.contract_cuda(sfx, sgy, plan)
+        check(torch.equal(got, counters_cuda(sx, sy, kp)),
+              f"{measure}: K6 != K1 at the stream's group")
+        del got
+        fns = {
+            "kernel": (lambda: cached.contract_cuda(sfx, sgy, plan), 5),
+            "K1": (lambda: counters_cuda(sx, sy, kp), 5),
+            "f cache": (lambda: cached.features_cuda(sx, plan, "f"), 10),
+            "group": (lambda: cached.features_cuda(sy, plan, "g"), 10),
+        }
+        for fn, _ in fns.values():
+            fn()  # the allocator's first request of each output size
+        sms = in_turns(fns, ("kernel", "K1", "f cache", "group", "group",
+                             "f cache", "K1", "kernel"))
+        del sfx, sgy
+        sbound, sby = contract_bound_ms(sx.shape[0], sy.shape[0],
+                                        bench.shape[1], r, g, l_pad)
+        k5_stream = {tag: (1 + r) * c.shape[0] * l_pad / PEAK_BYTES * 1e3
+                     for tag, c in (("f cache", sx), ("group", sy))}
+        print(f"[5] K6 {measure} stream group {sx.shape[0]} x {sy.shape[0]}"
+              f" x {l_pad}: == K1; bound {sbound:.4f} ms ({sby}); kernel"
+              f" {sms['kernel']:.4f} ms = {sbound / sms['kernel']:.4f} of the"
+              f" bound; K1 {sms['K1']:.4f} ms; K5 f cache {sx.shape[0]} rows"
+              f" {sms['f cache']:.4f} ms (bound {k5_stream['f cache']:.4f}),"
+              f" group g features {sy.shape[0]} rows {sms['group']:.4f} ms"
+              f" (bound {k5_stream['group']:.4f}) ({card})")
         if measure == "raw":
             out["contract"] = dict(
                 ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound,
                 bound_by=by, library_ms=ms["library"],
                 folded_ms=ms["folded"], channels_ms=ms["channels"],
-                k1_ms=ms["K1"])
+                k1_ms=ms["K1"], stream_group_ms=sms["kernel"],
+                stream_group_bound_ms=sbound,
+                stream_group_k1_ms=sms["K1"])
             out["features"] = dict(
                 ms=k5["g cache"]["kernel"], plain_ms=k5["g cache"]["plain"],
                 bound_ms=k5["g cache"]["bound"], bound_by="bytes",
                 library_ms=None, strip_ms=k5["f strip"]["kernel"],
-                strip_bound_ms=k5["f strip"]["bound"])
+                strip_bound_ms=k5["f strip"]["bound"],
+                stream_group_ms=sms["group"],
+                stream_group_bound_ms=k5_stream["group"],
+                stream_f_cache_ms=sms["f cache"],
+                stream_f_cache_bound_ms=k5_stream["f cache"])
         del fx, gy
     return out, worst
 
@@ -2079,10 +2189,14 @@ def phase_stream(tmp: str) -> tuple:
     # row once, and the group's rows with each packed block
     check_packed_path("[7]", counts, len(STREAM_GROUPS), 2,
                       group_baselines=True)
+    if cached_path():
+        check_stream_cached("[7]", counts, len(STREAM_GROUPS))
     pairs = n1 * n2
     print(f"[7] stream: {pairs} pairs in {wall:.3f} s ="
           f" {pairs / wall:.6e} pairs/s end to end, groups {STREAM_GROUPS},"
-          f" {counts['counters']} K1 launches ({gpu_line()})")
+          f" {counts['contract']} K6 ({counts['k6_blocks']} blocks +"
+          f" {counts['k6_baselines']} baselines), {counts['features']} K5"
+          f" and {counts['counters']} K1 launches ({gpu_line()})")
     data, nl = read_tsv(args[-1], 1 + pairs)
     rng = np.random.default_rng(SEED + 6)
     for i, r in zip(rng.integers(0, n1, SAMPLES).tolist(),
@@ -2356,7 +2470,7 @@ def phase_out_of_core(shas: dict) -> dict:
         ref = os.path.join(tmp, "in_core.tsv")
         wall, n = run_cli("[9] stream in core", args + [ref])
         print(f"[9] stream {n1} x {n2} in core: wall {wall:.3f} s,"
-              f" {n['counters']} K1 launches")
+              f" {n['counters']} K1 and {n['contract']} K6 launches")
         launches["stream-staged"] = ooc_cli(
             "[9] stream", args + [os.path.join(tmp, "ooc.tsv")],
             "stream", sha256(ref), min_groups=2)
@@ -2421,6 +2535,12 @@ def phase_long_loaded(tmp: str) -> dict:
     # 40 mutations in 64 sites: too diverse for diff uploads
     check_packed_path("[9] long loaded", counts, 1, 2, rebuilds=0,
                       group_baselines=True)
+    # the loaded rows' f cache (R x n1 x 128 B, 9.66 GB at raw) passes
+    # half of the feature-cache budget: the stream takes K1, decided
+    # before any launch
+    check(counts["k1_blocks"] == 1 and counts["contract"] == 0
+          and counts["features"] == 0,
+          f"[9] long loaded: launches {counts}, expected K1 and no K5/K6")
     l_pad = -(-width // 128) * 128
     # the group's block, and the baselines of the loaded rows, the
     # group's rows and the reference row
@@ -2430,8 +2550,8 @@ def phase_long_loaded(tmp: str) -> dict:
           f" phase 2 checked {sorted(want)}")
     pairs = n1 * n2
     print(f"[9] stream {n2} x {n1} loaded x {width}: {pairs} pairs in"
-          f" {wall:.3f} s, one K1 block launch of {n1} x rows"
-          f" ({gpu_line()})")
+          f" {wall:.3f} s, one K1 block launch of {n1} x rows (its f cache"
+          f" would pass half of the feature-cache budget) ({gpu_line()})")
     data, nl = read_tsv(out, 1 + pairs)
     rng = np.random.default_rng(SEED + 9)
     for i, r in zip(rng.integers(0, n1, SAMPLES).tolist(),
@@ -2503,6 +2623,8 @@ def phase_multiprocess(shas: dict) -> int:
         # reference row, and of each group's rows
         check_packed_path("[10] shard 0/2", c_in_core, 2, 2,
                           group_baselines=True)
+        if cached_path():
+            check_stream_cached("[10] shard 0/2", c_in_core, 2)
         n_in_core = c_in_core["blocks"]["rel4"]
         with out_of_core(*SHARD_STAGED) as seen:
             wall1, c_staged = run_cli(
@@ -2516,11 +2638,13 @@ def phase_multiprocess(shas: dict) -> int:
               and [q1 - q0 for q0, q1 in spans] == [m for m, _ in
                                                     SHARD_STAGED_LAUNCHES]
               and seen["launch_shapes"] == want
-              and blocks["rel4"] == 2 and c_staged["baselines"] == 4,
+              and blocks["rel4"] == 2 and c_staged["baselines"] == 4
+              and c_staged["contract"] == c_staged["features"] == 0,
               f"shard 1/2: groups {seen['groups']}, super-rows {spans},"
               f" launch shapes {sorted(seen['launch_shapes'])}, launches"
               f" {c_staged}; expected one staged group against two"
-              " super-rows at rel4, and 4 baselines")
+              " super-rows at rel4 through K1 (the group's g features"
+              " alone pass the budget), and 4 baselines")
         check_launches("[10] shard 1/2", c_staged,
                        len(SHARD_STAGED_LAUNCHES))
         check_packs("[10] shard 1/2", seen, "stream-shard-staged")
@@ -2540,8 +2664,9 @@ def phase_multiprocess(shas: dict) -> int:
         merge_wall = time.perf_counter() - t0
         check_sha("[10] --merge of the shards", merged, shas["stream"])
         print(f"[10] stream {n1} x {n2} in two shards in this process:"
-              f" shard 0/2 in core {wall0:.3f} s ({n_in_core} K1 block launches,"
-              f" groups 0 and 2), shard 1/2 staged under"
+              f" shard 0/2 in core {wall0:.3f} s ({n_in_core} blocks:"
+              f" {c_in_core['contract']} K6, {c_in_core['counters']} K1"
+              f" launches, groups 0 and 2), shard 1/2 staged under"
               f" {SHARD_STAGED[0]} B {wall1:.3f} s ({n_staged} K1 launches:"
               f" group 1 against super-rows {[q1 - q0 for q0, q1 in spans]}"
               f" and 4 baselines);"
@@ -2680,12 +2805,24 @@ def ladder_square(tmp: str, tag: str, mat: np.ndarray, rungs: tuple,
     return counts
 
 
+@contextlib.contextmanager
+def featcache_off():
+    """The cached-feature path switched off in this process, as
+    DISTANCE_TPU_FEATCACHE_BUDGET=0 switches it off."""
+    os.environ["DISTANCE_TPU_FEATCACHE_BUDGET"] = "0"
+    try:
+        yield
+    finally:
+        del os.environ["DISTANCE_TPU_FEATCACHE_BUDGET"]
+
+
 def phase_cached(shas: dict) -> dict:
     """The cached-feature path against K1's on the main path's inputs: the
     square of phase 3 and the rectangle of phase 6 for raw and tn93, with
     the engine's measure set holding the measure (K5 and K6) and then
     empty (K1), and the square out of core for tn93 with its caches
-    (``OOC_CACHED``).  Returns the launch counts by path."""
+    (``OOC_CACHED``); then the stream (``phase_cached_stream``).  Returns
+    the launch counts by path."""
     import torch
 
     print("[12] the cached-feature path against K1's, in this process")
@@ -2740,7 +2877,7 @@ def phase_cached(shas: dict) -> dict:
                               f" budget {budget} B")
         check(counts["counters"] == 0 and len(groups) >= 2 and len(spans) >= 2
               and b == {"g": seen["stagings"], "f": len(groups), "strip": 0,
-                        "ref": 2},
+                        "ref": 2, "group": 0},
               f"{tag}: launches {counts} for groups {groups}, super-rows"
               f" {spans} ({seen['stagings']} stagings)")
         check_launches(tag, counts, counts["k6_blocks"])
@@ -2750,7 +2887,111 @@ def phase_cached(shas: dict) -> dict:
               f" {seen['stagings']} times each with its g cache, peak device"
               f" memory {peak} B <= budget {budget} B; TSV sha256 equals the"
               f" in-core run's ({gpu_line()})")
+    launches.update(phase_cached_stream(shas))
     print(f"[12] phase 12 passed in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_cached_stream(shas: dict) -> dict:
+    """The stream of phase 7 for raw and tn93 through K5 + K6 (the engine's
+    measure set holding the measure) and through K1
+    (DISTANCE_TPU_FEATCACHE_BUDGET=0); then the tn93 stream of
+    N_OOC_STREAM records in core through K5 + K6, staged with its caches
+    (``STREAM_CACHED``) and staged through K1 (the measure set emptied):
+    equal sha256, the launches and feature builds of each cached run,
+    and the staged run's layout and peak device memory.  Returns the
+    launch counts by path."""
+    import torch
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        *_, f1, f2 = write_inputs(tmp, "[12]", *N_STREAM, SEED + 5, "s")
+        args = [f1, "-s", f2, "-b", str(STREAM_BATCH), "-o",
+                os.path.join(tmp, "stream.tsv")]
+        groups = len(STREAM_GROUPS)
+        for measure in ("raw", "tn93"):
+            tag = f"[12] stream {measure}"
+            with measure_set({measure}):
+                wall, counts = run_cli(f"{tag} cached", args, measure)
+            check_packed_path(f"{tag} cached", counts, groups, 2,
+                              group_baselines=True)
+            check_stream_cached(f"{tag} cached", counts, groups)
+            sha = sha256(args[-1])
+            with featcache_off():
+                wall1, counts1 = run_cli(f"{tag} K1", args, measure)
+            check(counts1["contract"] == counts1["features"] == 0,
+                  f"{tag} K1: launches {counts1}")
+            check_packed_path(f"{tag} K1", counts1, groups, 2,
+                              group_baselines=True)
+            check(sha256(args[-1]) == sha, f"{tag}: K6 and K1 TSVs differ")
+            check(measure != "raw" or sha == shas["stream"],
+                  f"{tag}: TSV differs from phase 7's")
+            launches[f"stream-{measure}-cached"] = counts
+            print(f"{tag}: sha256 equal through K5 + K6 (wall {wall:.3f} s,"
+                  f" {counts['contract']} K6, {counts['features']} K5"
+                  f" launches, no K1) and through K1 with"
+                  f" DISTANCE_TPU_FEATCACHE_BUDGET=0 (wall {wall1:.3f} s,"
+                  f" {counts1['counters']} K1 launches) ({gpu_line()})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        n1, n2 = N_OOC_STREAM
+        *_, f1, f2 = write_inputs(tmp, "[12]", n1, n2, SEED + 7, "s")
+        args = [f1, "-s", f2, "-b", str(STREAM_BATCH), "-o"]
+        ref = os.path.join(tmp, "in_core.tsv")
+        tag = "[12] stream tn93 8192 loaded"
+        with measure_set({"tn93"}):
+            wall0, counts0 = run_cli(f"{tag} in core", args + [ref], "tn93")
+        # one group of all 4096 records
+        check_stream_cached(f"{tag} in core", counts0, 1)
+        check_launches(f"{tag} in core", counts0, 1)
+        sha = sha256(ref)
+        out = os.path.join(tmp, "staged.tsv")
+        budget = STREAM_CACHED[0]
+        with out_of_core(*STREAM_CACHED) as seen, measure_set({"tn93"}):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            wall, counts = run_cli(f"{tag} staged", args + [out], "tn93")
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+        spans = sorted(set(seen["spans"]))
+        rows = [q1 - q0 for q0, q1 in spans]
+        check(seen["groups"] == list(STREAM_CACHED_GROUPS)
+              and rows == [STREAM_CACHED_ROWS] * (n1 // STREAM_CACHED_ROWS)
+              and not seen["launch_shapes"],
+              f"{tag} staged: groups {seen['groups']}, super-rows {rows},"
+              f" K1 launch shapes {sorted(seen['launch_shapes'])}")
+        check_stream_cached(f"{tag} staged", counts,
+                            len(STREAM_CACHED_GROUPS), seen["stagings"])
+        # a part a super-row sweep; the baselines: each super-row's rows
+        # once however often it is staged, each group's and the
+        # reference row's
+        check_launches(f"{tag} staged", counts, len(seen["spans"]))
+        check(counts["baselines"] == len(spans) + len(seen["groups"]) + 1,
+              f"{tag} staged: launches {counts}")
+        check(peak <= budget, f"{tag} staged: peak device memory {peak} B"
+                              f" over the budget {budget} B")
+        check(sha256(out) == sha, f"{tag} staged: TSV differs from in core")
+        with out_of_core(*STREAM_CACHED) as seen1, measure_set(()):
+            wall1, counts1 = run_cli(f"{tag} staged K1", args + [out],
+                                     "tn93")
+        rows1 = sorted({q1 - q0 for q0, q1 in seen1["spans"]})
+        check(counts1["contract"] == counts1["features"] == 0
+              and seen1["groups"] == seen["groups"]
+              and sha256(out) == sha,
+              f"{tag} staged K1: launches {counts1}, groups"
+              f" {seen1['groups']}, or its TSV differs")
+        launches["stream-tn93-staged-cached"] = counts
+        print(f"{tag}: sha256 equal in core through K5 + K6 (wall"
+              f" {wall0:.3f} s, {counts0['contract']} K6), staged with its"
+              f" caches (wall {wall:.3f} s, groups {seen['groups']} against"
+              f" {len(spans)} super-rows of {STREAM_CACHED_ROWS} rows staged"
+              f" {seen['stagings']} times, each with its f cache;"
+              f" {counts['contract']} K6, {counts['features']} K5 launches,"
+              f" no K1; peak device memory {peak} B <= budget {budget} B)"
+              f" and staged through K1 (wall {wall1:.3f} s, super-rows of"
+              f" {rows1} rows, {counts1['counters']} K1 launches)"
+              f" ({gpu_line()})")
     return launches
 
 

@@ -31,8 +31,11 @@ against one loaded alignment.  The loaded sweeps in core:
 
 The stream (``_run_stream``) keeps the loaded side's variant columns on
 the device and sends the records in groups (diff-encoded, with the
-reference retargeted when a group's lineage differs), one kernel launch
-and one pack per group (see there).  A run whose device footprint passes
+reference retargeted when a group's lineage differs), one counter block
+and one pack per group: on the cached-feature path (the JAX engine's
+``counters_xla`` in ``_jit_stream_fn``) the loaded rows' f features built
+once and each group's g features once, then one contraction; else one K1
+launch (see there).  A run whose device footprint passes
 the device budget (``_device_budget``) goes out of core: the loaded
 sweeps stage row groups and super-rows through the device
 (``_sweep_blocked``), and the stream sweeps a host-resident loaded side
@@ -506,11 +509,12 @@ K1_BLOCKS = 0
 RUNG_BLOCKS = {"rel4": 0, "rel": 0, "narrow": 0, "wide": 0, "none": 0}
 # On the cached-feature path: the baselines among BASELINES that K6 made,
 # K6's counter blocks (first dispatches), and the K5 feature builds by
-# kind: a prepared matrix's g cache, an X group's f cache, a strip's f
-# features, and the reference row's f and g features.
+# kind: a prepared matrix's g cache, an f cache (an X group's, or the
+# stream's loaded rows' or super-row's), a strip's f features, the
+# reference row's f and g features, and a stream group's g features.
 K6_BASELINES = 0
 K6_BLOCKS = 0
-FEATURE_BUILDS = {"g": 0, "f": 0, "strip": 0, "ref": 0}
+FEATURE_BUILDS = {"g": 0, "f": 0, "strip": 0, "ref": 0, "group": 0}
 
 
 def _cached_plan_for(measure: str) -> Optional[CounterPlan]:
@@ -601,9 +605,10 @@ class _BlockEngine:
         ``cache_g`` / ``cache_f`` (the JAX engine's): on the cached-feature
         path, build the matrix's g features (the column side of its
         blocks) or f features (an out-of-core X group, whose strips run
-        against every super-row) once, when they fit FEATCACHE_BUDGET
-        (the f cache half of it).  The sweep passes them only when the
-        cache fits its device budget beside everything else
+        against every super-row; the stream's loaded rows or super-row,
+        whose one block takes every group) once, when they fit
+        FEATCACHE_BUDGET (the f cache half of it).  The sweep passes them
+        only when the cache fits its device budget beside everything else
         (``_cache_bytes``), as the JAX engine's predicates do; a matrix
         without a cache takes K1."""
         n, width = matrix.shape
@@ -671,11 +676,40 @@ class _BlockEngine:
 
     def fx_strip(self, m1: torch.Tensor, i0: int, ti: int) -> torch.Tensor:
         """f features of rows i0.. of ``m1``: a slice of its f cache, else
-        built from its codes (once a strip)."""
+        built from its codes (once a strip of at most the engine's ``ti``
+        rows: a stream's whole loaded side, or a super-row, without its f
+        cache would build them all in one temporary)."""
         entry = self._fcache.get(id(m1))
         if entry is not None and entry[0] is m1:
             return entry[1][:, i0 : i0 + ti]
+        if ti > self.ti:
+            raise ValueError(
+                f"f features of {ti} rows without an f cache: a strip"
+                f" builds its own only up to {self.ti} rows")
         return self._features(m1[i0 : i0 + ti], "f", "strip")
+
+    def cache_group(self, codes: torch.Tensor, loaded: torch.Tensor) -> None:
+        """Build a stream group's g features (one K5,
+        FEATURE_BUILDS["group"]; the JAX ``counters_xla``'s
+        ``features_device(y, plan, "g")``), so that its blocks take K6
+        against the f cache of the loaded rows ``loaded`` (which must have
+        one) and its column baseline K6 against the reference row's f
+        features.  ``drop_group`` frees them, or ``release`` with the
+        codes of a staged group."""
+        entry = self._fcache.get(id(loaded))
+        if entry is None or entry[0] is not loaded:
+            raise ValueError("a stream group takes K6 only against loaded"
+                             " rows with an f cache")
+        self._gcache[id(codes)] = (codes,
+                                   self._features(codes, "g", "group"))
+
+    def drop_group(self, codes: torch.Tensor) -> None:
+        """Free a stream group's g features once its contractions and its
+        column baseline are queued: a refetch packs the counters its strip
+        kept."""
+        entry = self._gcache.pop(id(codes), None)
+        if entry is not None and entry[0] is codes:
+            _free(entry[1])
 
     def ref_features(self, ref: torch.Tensor) -> tuple:
         """(f, g) features of the reference row ``ref``, built once a
@@ -950,15 +984,20 @@ class _BlockEngine:
         self._prepared.pop(id(handle), None)
         for side in ("row", "col"):
             self._bases.pop((id(handle), side), None)
-        doomed = [handle]
+        _free(handle)
         for cache in (self._gcache, self._fcache):
             entry = cache.pop(id(handle), None)
             if entry is not None and entry[0] is handle:
-                doomed.append(entry[1])
-        for tensor in doomed:
-            storage = tensor.untyped_storage()
-            if storage.resizable():
-                storage.resize_(0)
+                _free(entry[1])
+
+
+def _free(tensor: torch.Tensor) -> None:
+    """Free a tensor's memory now rather than when its last reference goes
+    (it is empty afterwards).  On a CUDA device the allocator hands the
+    memory on in stream order, after the kernels already queued."""
+    storage = tensor.untyped_storage()
+    if storage.resizable():
+        storage.resize_(0)
 
 
 class _Strip:
@@ -1607,13 +1646,16 @@ def _blocked_footprint(x_rows: int, y_rows: int, width: int,
 
 def _cache_bytes(plan: CounterPlan, cached_rows: int, width: int, ti: int,
                  tj: int) -> int:
-    """Device bytes the cached-feature path adds to a square or rectangle
-    sweep whose feature caches hold ``cached_rows`` prepared rows: those
-    caches (R int8 a padded site), the f features of one strip (a strip's
+    """Device bytes the cached-feature path adds to a sweep whose feature
+    caches hold ``cached_rows`` prepared rows: those caches (R int8 a
+    padded site), the f features of one strip of ``ti`` rows (a strip's
     are built at its first dispatch and freed once its contractions are
     queued, before the next strip's), the reference row's f and g
-    features, and for a shared plan one block's per-channel products
-    (R int32 a pair, freed once mixed)."""
+    features, and for a shared plan one (ti, tj) block's per-channel
+    products (R int32 a pair, freed once mixed).  A stream's cache is a
+    group's g features (built at its dispatch, freed once its block and
+    its column baseline are queued; a staged group's serve every
+    super-row), and its strip the loaded rows' f cache."""
     l_pad = _padded_shape(1, width, 1, 1)[1]
     r = plan.total_channels
     mix = 4 * r * ti * tj if plan.mix_num is not None else 0
@@ -1732,22 +1774,26 @@ class _StagedSide:
     direction, so the last super-row of one group is the first of the
     next: one upload fewer per group.  The resident super-row is released
     before the next one is uploaded, so one slot is on the device at a
-    time, with its g cache under ``cache_g`` (built from the codes on the
-    device each time it is staged).  Uploads run on the current stream,
-    after the kernels that read the released super-row: the allocator
-    hands its memory on in stream order.  The K1 baselines of a released super-row stay on the device
-    (G int32 a prepared row, which the layouts count), so a super-row
-    staged again against the same reference row launches none.
+    time, with its g cache under ``cache_g`` (a blocked sweep's Y side)
+    or its f cache under ``cache_f`` (the cached stream's loaded side),
+    built from the codes on the device each time it is staged.  Uploads
+    run on the current stream, after the kernels that read the released
+    super-row: the allocator hands its memory on in stream order.  The
+    baselines of a released super-row stay on the device (G int32 a
+    prepared row, which the layouts count), so a super-row staged again
+    against the same reference row launches none, whichever kernel made
+    them (the counters are exact integers).
     """
 
     def __init__(self, eng: _BlockEngine, source: np.ndarray,
                  max_block: int, diff_ref: Optional[np.ndarray] = None,
-                 cache_g: bool = False) -> None:
+                 cache_g: bool = False, cache_f: bool = False) -> None:
         self.eng = eng
         self.source = source
         self.max_block = max_block
         self.diff_ref = diff_ref
         self.cache_g = cache_g
+        self.cache_f = cache_f
         self._memos: Dict[Tuple[int, int], dict] = {}
         self._memo_bytes = 0
         self._bases: Dict[Tuple[int, int], list] = {}
@@ -1774,7 +1820,8 @@ class _StagedSide:
         with phase_timer("ooc-stage"):
             self._dev = self.eng.prepare(self.source[q0:q1], self.max_block,
                                          diff_ref=self.diff_ref,
-                                         h2d_memo=memo, cache_g=self.cache_g)
+                                         h2d_memo=memo, cache_g=self.cache_g,
+                                         cache_f=self.cache_f)
         if memo is not None and memo.get("enc") is not prev:
             # a prepare may replace a kept encoding (a retarget swapped
             # the uploader), not only fill an empty one
@@ -2164,12 +2211,15 @@ def _staged_group_cap(n1: int, counters_per_pair: int) -> int:
 class _StreamLayout:
     """How a stream runs: ``group`` streamed records at most per device
     group (the resume unit), ``pending`` groups computed ahead of the one
-    being emitted, and ``sr_rows`` loaded rows per super-row of a staged
-    stream (0 when the loaded side is on the device whole)."""
+    being emitted, ``sr_rows`` loaded rows per super-row of a staged
+    stream (0 when the loaded side is on the device whole), and whether
+    its blocks take the cached-feature form (``cached``: the loaded rows'
+    f cache, each group's g features, K6) or K1."""
 
     group: int
     pending: int
     sr_rows: int = 0
+    cached: bool = False
 
 
 def _stream_layout(n1: int, width: int, measure: str, device: torch.device,
@@ -2192,9 +2242,18 @@ def _stream_layout(n1: int, width: int, measure: str, device: torch.device,
     layouts, and ``_stream_group_size`` sizes with it too.  A
     group, in core, and a super-row's part of one, staged, stay within
     what one rel pack takes (``packing.MAX_CELLS``).
+
+    Then, for a measure of the cached-feature path (``_cached_plan_for``),
+    whether its caches engage (``_stream_cache_fits``): in core beside
+    the in-core footprint; staged with super-rows sized with the caches
+    counted (an f cache of R bytes a site on every loaded row of a
+    super-row, the JAX staged stream's (1 + R) bytes a site), and K1's
+    super-rows when even the least of those does not fit.  The caches
+    never move the group size or the choice between in core and staged.
     """
     g = len(get_plan(measure).counters)
     col_bytes = max(1, g * n1 * 4)
+    cplan = _cached_plan_for(measure)
 
     def fits(budget: Optional[int], grows: int) -> bool:
         # one launch and one pack over the whole group
@@ -2209,18 +2268,38 @@ def _stream_layout(n1: int, width: int, measure: str, device: torch.device,
         grows = min(max(grows, 2048), _staged_group_cap(n1, g))
     budget = _device_budget(device)
     if fits(budget, grows):
-        return _StreamLayout(grows, STREAM_PENDING)
+        return _StreamLayout(grows, STREAM_PENDING, cached=(
+            cplan is not None and _stream_cache_fits(
+                cplan, n1, grows, width,
+                _stream_footprint(grows, n1, width, g, STREAM_PENDING + 1),
+                budget)))
     pending = max(1, min(STREAM_PENDING,
                          HOST_BUF_BUDGET // 2 // (col_bytes * grows)))
-    # one group at a time against a super-row; every loaded row keeps its
-    # baseline (``_StagedSide``)
-    fixed = _stream_footprint(grows, 0, width, g, 1, kept=n1)
-    per_row = _stream_footprint(grows, 1, width, g, 1, kept=n1) - fixed
-    rows = min(max(0, budget - fixed) // per_row,
-               packing.MAX_CELLS // (g * grows))
-    return _StreamLayout(
-        grows, pending, max(ti, min(rows // ti * ti, -(-n1 // ti) * ti))
-    )
+
+    def footprint(rows: int, cache: Optional[CounterPlan] = None) -> int:
+        # one group at a time against a super-row; every loaded row keeps
+        # its baseline (``_StagedSide``)
+        fp = _stream_footprint(grows, rows, width, g, 1, kept=n1)
+        if cache is not None:
+            fp += _cache_bytes(cache, grows, width, rows, grows)
+        return fp
+
+    def super_row(cache: Optional[CounterPlan] = None) -> int:
+        per_row = footprint(1, cache) - footprint(0, cache)
+        rows = min(max(0, budget - footprint(0, cache)) // per_row,
+                   packing.MAX_CELLS // (g * grows))
+        if cache is not None:
+            # the f cache within half of FEATCACHE_BUDGET (``prepare``)
+            rows = min(rows, FEATCACHE_BUDGET // 2 // (
+                cache.total_channels * _padded_shape(1, width, 1, 1)[1]))
+        return max(ti, min(rows // ti * ti, -(-n1 // ti) * ti))
+
+    if cplan is not None:
+        rows = super_row(cplan)
+        if _stream_cache_fits(cplan, rows, grows, width, footprint(rows),
+                              budget):
+            return _StreamLayout(grows, pending, rows, cached=True)
+    return _StreamLayout(grows, pending, super_row())
 
 
 def _stream_footprint(grows: int, rows: int, width: int,
@@ -2242,6 +2321,21 @@ def _stream_footprint(grows: int, rows: int, width: int,
              + _SIDECAR_BYTES)
     return (_upload_bytes(rows, l_pad) + g4 * (rows + kept + 1)
             + groups * group + pack * rows * grows + l_pad)
+
+
+def _stream_cache_fits(plan: CounterPlan, rows: int, grows: int, width: int,
+                       footprint: int, budget: Optional[int]) -> bool:
+    """Whether a stream of ``footprint`` device bytes with ``rows`` loaded
+    rows on the device (all of them, or a super-row) and groups of
+    ``grows`` records engages the cached-feature form: the loaded rows'
+    f cache within half of FEATCACHE_BUDGET (``_BlockEngine.prepare``'s
+    rule), and ``_cache_fits`` of its one (rows, grows) block, whose
+    group's g features are the cache and whose loaded rows the strip.
+    Otherwise the stream takes K1, decided before any launch."""
+    l_pad = _padded_shape(1, width, 1, 1)[1]
+    return (plan.total_channels * rows * l_pad <= FEATCACHE_BUDGET // 2
+            and _cache_fits(plan, grows, width, rows, grows, footprint,
+                            budget))
 
 
 class _GroupUploads:
@@ -2315,8 +2409,11 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
     groups of at most ``layout.group`` rows; a group holds whole user
     batches (a batch larger than a group fills groups of its own).  Per
     group, the codes go to the device diff-encoded (``dispatch_stream``,
-    which retargets the reference row) or dense, one kernel launch
-    computes the (G, n1, rows) counters, and one pack at the engine's
+    which retargets the reference row) or dense, one counter block
+    computes the (G, n1, rows) counters (``layout.cached``: K5 builds the
+    group's g features, contracted by K6 against the f cache that K5
+    built once for the loaded rows, with the baselines by K6 too; else
+    one K1 launch), and one pack at the engine's
     rung gives rel4 (an odd group rel) lanes and a sidecar bundle, or
     narrow lanes or wide words, which are copied back asynchronously into
     pinned memory with ``layout.pending`` groups in flight; the host
@@ -2392,13 +2489,15 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
             file=sys.stderr,
         )
         with phase_timer("diff-ref"):
-            lside = _StagedSide(eng, mat_loaded, 1, diff_ref())
+            lside = _StagedSide(eng, mat_loaded, 1, diff_ref(),
+                                cache_f=layout.cached)
         spans = [(q0, min(q0 + layout.sr_rows, n1))
                  for q0 in range(0, n1, layout.sr_rows)]
     else:
         def prepare():
             with phase_timer("stream-prepare-upload"):
-                return eng.prepare(mat_loaded, 1, diff_ref=diff_ref())
+                return eng.prepare(mat_loaded, 1, diff_ref=diff_ref(),
+                                   cache_f=layout.cached)
 
         # The loaded side's upload (with its reference row) overlaps the
         # stream parse.  Its future's result() raises a failed upload on
@@ -2562,12 +2661,18 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
                 eng, lside, spans, buf[:bn], lambda: uploads.send(bn), n1,
                 bn)
         else:
-            # one K1 launch, the baselines and one pack over the whole
-            # (G, n1, bn) group; its counters stay on the device for a
-            # refetch at a lower rung
+            # one block over the whole (G, n1, bn) group (the group's g
+            # features against the loaded rows' f cache by K6, else K1),
+            # the baselines and one pack; its counters stay on the device
+            # for a refetch at a lower rung
+            if layout.cached:
+                eng.cache_group(codes, m1)
             redispatch = _Strip(eng, m1, codes, 0, [0], n1, bn, (n1, bn),
                                 None, ref)
-            fetch = _AsyncFetch(redispatch())
+            try:
+                fetch = _AsyncFetch(redispatch())
+            finally:
+                eng.drop_group(codes)
         pending.append((this_global, this_local, ids2, bcounts, offs, bn,
                         fetch, redispatch))
         while len(pending) > layout.pending:
@@ -2626,11 +2731,15 @@ def _dispatch_stream_staged(eng: _BlockEngine, lside: _StagedSide,
     encoded, or ``send_dense()``), after the first super-row is staged,
     so that the uploader exists; they and their reference serve every
     super-row (the JAX engine's ``h2d_cache``), and their baselines are
-    kept until the group is done.  Each loaded super-row is staged (in
-    serpentine order, so the boundary super-row of the last group is not
-    uploaded again), launched against the codes as x, packed at the
-    engine's rung, and fetched and finished into the group's buffer,
-    with its own refetch, before the next super-row is staged.
+    kept until the group is done.  On the cached-feature form (the
+    super-rows staged with their f caches, ``lside.cache_f``) the group's
+    g features are built once then too, serve every super-row, and go
+    with its codes.  Each loaded super-row is staged (in serpentine
+    order, so the boundary super-row of the last group is not uploaded
+    again), its block launched (K6, else K1: the super-row as x against
+    the group), packed at the engine's rung, and fetched and finished
+    into the group's buffer, with its own refetch, before the next
+    super-row is staged.
     """
     buf = np.empty((len(eng.plan.counters), n1, bn), dtype=np.int32)
     codes = ref = None
@@ -2641,6 +2750,8 @@ def _dispatch_stream_staged(eng: _BlockEngine, lside: _StagedSide,
                 with phase_timer("stream-upload"):
                     codes, ref = eng.dispatch_stream(padded, send_dense)
                 eng.adopt(codes)
+                if lside.cache_f:
+                    eng.cache_group(codes, m1)
 
             strip = _Strip(eng, m1, codes, 0, [0], q1 - q0, bn,
                            (q1 - q0, bn), None, ref)

@@ -2,15 +2,16 @@
 """Where the contraction kernel's time goes: time variants of
 csrc/contract.cu.
 
-    python3 scripts/k6_variants.py [variant ...]
+    python3 scripts/k6_variants.py [variant ...] [MxN ...]
 
 Run from the root of a checkout on a machine with a CUDA card.  Each
 variant is the kernel's source with one part changed by a textual patch,
 built with nvcc (and ptxas's report) into a temporary directory and
 launched through the port's own wrapper at the main path's block (2048 x
 2048 rows x 29952 sites of features built from random Paradis codes made
-from a seed, the JAX plan's channels) for tn93, k80 and n, timed with
-CUDA events beside K1 on the same codes:
+from a seed, the JAX plan's channels), or at each M x N rows given (the
+stream's group: 2000x8000), for tn93, k80 and n, timed with CUDA events
+beside K1 on the same codes:
 
 - ``kernel``: the source as it is (its counters must equal the plain
   version's);
@@ -53,7 +54,8 @@ VARIANTS = {
 }
 EXACT = ("kernel", "nst3")
 MEASURES = ("tn93", "k80", "n")
-SHAPE = (2048, 2048, 29952)
+SHAPE = (2048, 2048)
+WIDTH = 29952
 REPS = 10
 
 
@@ -88,7 +90,7 @@ def timed(fn) -> float:
     return start.elapsed_time(end) / REPS
 
 
-def main(names: list) -> int:
+def main(argv: list) -> int:
     import torch
 
     from distance_tpu_torch.encoding import ALL_CODES
@@ -100,6 +102,13 @@ def main(names: list) -> int:
     if not torch.cuda.is_available():
         print("k6_variants: no CUDA device", file=sys.stderr)
         return 1
+    def is_shape(arg: str) -> bool:
+        parts = arg.split("x")
+        return len(parts) == 2 and all(p.isdigit() for p in parts)
+
+    shapes = [tuple(int(v) for v in a.split("x")) for a in argv
+              if is_shape(a)]
+    names = [a for a in argv if not is_shape(a)]
     unknown = set(names) - set(VARIANTS)
     if unknown:
         print(f"k6_variants: no variant {sorted(unknown)}", file=sys.stderr)
@@ -111,20 +120,21 @@ def main(names: list) -> int:
         source = f.read()
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
-    m, n, width = SHAPE
-    x = torch.from_numpy(rng.choice(ALL_CODES, size=(m, width))
-                         .astype(np.uint8)).to(dev)
-    y = torch.from_numpy(rng.choice(ALL_CODES, size=(n, width))
-                         .astype(np.uint8)).to(dev)
+    width = WIDTH
     cases = {}
-    for measure in MEASURES:
-        plan = cached_plan_to_torch(get_plan(measure), dev)
-        kp = plan_to_torch(get_plan(measure), dev)
-        cases[measure] = (plan, cached.features_torch(x, plan, "f"),
-                          cached.features_torch(y, plan, "g"),
-                          kernels.counters_cuda(x, y, kp))
-        k1 = timed(lambda: kernels.counters_cuda(x, y, kp))
-        print(f"K1 {measure} {m} x {n} x {width}: {k1:.3f} ms")
+    for m, n in shapes or [SHAPE]:
+        x = torch.from_numpy(rng.choice(ALL_CODES, size=(m, width))
+                             .astype(np.uint8)).to(dev)
+        y = torch.from_numpy(rng.choice(ALL_CODES, size=(n, width))
+                             .astype(np.uint8)).to(dev)
+        for measure in MEASURES:
+            plan = cached_plan_to_torch(get_plan(measure), dev)
+            kp = plan_to_torch(get_plan(measure), dev)
+            cases[measure, m, n] = (plan, cached.features_torch(x, plan, "f"),
+                                    cached.features_torch(y, plan, "g"),
+                                    kernels.counters_cuda(x, y, kp))
+            k1 = timed(lambda: kernels.counters_cuda(x, y, kp))
+            print(f"K1 {measure} {m} x {n} x {width}: {k1:.3f} ms")
     cached._lib("contract")  # binds the argument types
     bound = cached._bound["contract"]
     types = {e: (getattr(bound, e).argtypes, getattr(bound, e).restype)
@@ -142,7 +152,7 @@ def main(names: list) -> int:
                 getattr(lib, entry).argtypes = args
                 getattr(lib, entry).restype = res
             cached._bound["contract"] = lib
-            for measure, (plan, fx, gy, want) in cases.items():
+            for (measure, m, n), (plan, fx, gy, want) in cases.items():
                 got = cached.contract_cuda(fx, gy, plan)
                 torch.cuda.synchronize()
                 exact = bool(torch.equal(got, want))

@@ -263,18 +263,19 @@ def test_cli_cuda_equals_torch_rect_stream(dev, tmp_path, monkeypatch, mode,
     outs = {}
     for backend in ("cuda", "torch"):
         outs[backend] = tmp_path / f"{backend}.tsv"
-        before = kernels.LAUNCHES
+        before = (kernels.LAUNCHES, counter_launches())
         rc = cli.main(args + ["-m", measure, "--backend", backend, "-o",
                               str(outs[backend])])
         assert rc == 0
-        launched = kernels.LAUNCHES - before
+        launched = counter_launches() - before[1]
         if backend == "torch":
             assert launched == 0
         elif mode == "stream":
-            # 11 batches of 7, then 3: 23 groups, each a block and its
+            # 11 batches of 7, then 3: 23 groups, each a K6 block and its
             # column baseline; the loaded rows' and the reference's
-            # baselines once
+            # baselines once; no K1
             assert launched == 2 * (11 * 2 + 1) + 2
+            assert kernels.LAUNCHES == before[0]
     assert outs["cuda"].read_bytes() == outs["torch"].read_bytes()
 
 
@@ -283,7 +284,8 @@ def test_stream_shards_on_card_merge_to_plain_bytes(dev, tmp_path,
                                                     monkeypatch, measure):
     """Two stream shards on the card (groups of 14 records: two -b 7
     batches, 22 groups in all, round-robin) merge to the plain version's
-    unsharded bytes; each shard launches a K1 block per group it owns."""
+    unsharded bytes; each shard launches a K6 block per group it owns,
+    and no K1."""
     rng = np.random.default_rng(30)
     anc = random_codes(rng, 1, 300)
     mat = np.repeat(anc, 428, axis=0)
@@ -297,18 +299,144 @@ def test_stream_shards_on_card_merge_to_plain_bytes(dev, tmp_path,
     parts, launched = [], []
     for k in range(2):
         parts.append(str(tmp_path / f"p{k}"))
-        before, rel4 = kernels.LAUNCHES, engine.RUNG_BLOCKS["rel4"]
+        before = (engine.RUNG_BLOCKS["rel4"], counter_launches(),
+                  kernels.LAUNCHES)
         rc = cli.main(args + ["--backend", "cuda", "--shard", f"{k}/2",
                               "-o", parts[-1]])
         assert rc == 0
-        launched.append((engine.RUNG_BLOCKS["rel4"] - rel4,
-                         kernels.LAUNCHES - before))
+        launched.append((engine.RUNG_BLOCKS["rel4"] - before[0],
+                         counter_launches() - before[1],
+                         kernels.LAUNCHES - before[2]))
     # a block and a column baseline a group, and two baselines a shard
-    assert launched == [(11, 24), (11, 24)]
+    assert launched == [(11, 24, 0), (11, 24, 0)]
     merged, plain = tmp_path / "merged.tsv", tmp_path / "plain.tsv"
     assert cli.main(["--merge", *parts, "-o", str(merged)]) == 0
     assert cli.main(args + ["--backend", "torch", "-o", str(plain)]) == 0
     assert merged.read_bytes() == plain.read_bytes()
+
+
+def staged_stream_budget(measure: str, n1: int, grows: int, width: int,
+                         sr_rows: int, ti: int) -> int:
+    """A device budget under which a stream of ``n1`` loaded rows of
+    ``width`` sites on the device, in groups of ``grows`` records, is
+    staged with its caches in super-rows of ``sr_rows`` rows (a multiple
+    of the tile ``ti``): one group's footprint beside a super-row of
+    ``sr_rows + ti`` rows with the cached form's bytes, less one byte."""
+    plan = get_plan(measure)
+    return (engine._stream_footprint(grows, sr_rows + ti, width,
+                                     len(plan.counters), 1, kept=n1)
+            + engine._cache_bytes(plan, grows, width, sr_rows + ti, grows)
+            - 1)
+
+
+@pytest.mark.parametrize("layout", ["in core", "staged", "shards"])
+@pytest.mark.parametrize("measure", ["raw", "k80", "tn93"])
+def test_cached_stream_on_card_equals_torch_and_k1(dev, tmp_path,
+                                                   monkeypatch, layout,
+                                                   measure):
+    """The stream through K5 and K6 on the card (70 loaded records, 120
+    streamed in -b 7 batches, groups of at most 16): in core, staged with
+    its caches in super-rows of 32, 32 and 6 loaded rows, and as two
+    shards merged, its bytes equal ``--backend torch``'s and those of the
+    K1 run (the engine's measure set emptied)."""
+    rng = np.random.default_rng(36)
+    anc = random_codes(rng, 1, 300)
+    mat = np.repeat(anc, 190, axis=0)
+    hits = rng.random(mat.shape) < 0.1
+    mat[hits] = rng.choice(ALL_CODES, size=int(hits.sum()))
+    a, b = tmp_path / "a.fasta", tmp_path / "b.fasta"
+    write_fasta(a, mat[:70])
+    write_fasta(b, mat[70:])
+    args = [str(a), "-s", str(b), "-b", "7", "-m", measure]
+    monkeypatch.setattr(engine, "STREAM_GROUP", 16)
+    monkeypatch.setattr(engine, "TILE_I", 16)
+    # every site on the device (no variant split), as the budget counts
+    monkeypatch.setattr(engine, "PRUNE_MIN_FRACTION", 2.0)
+    monkeypatch.setattr(engine, "CACHED_MEASURES", frozenset(MEASURES))
+    if layout == "staged":
+        monkeypatch.setattr(engine, "DEVICE_BUDGET", staged_stream_budget(
+            measure, 70, 16, 300, 32, 16))
+
+    def run(tag, backend):
+        out = tmp_path / f"{tag}.tsv"
+        if layout != "shards":
+            assert cli.main(args + ["--backend", backend, "-o",
+                                    str(out)]) == 0
+            return out.read_bytes()
+        parts = [str(tmp_path / f"{tag}{k}") for k in range(2)]
+        for k, part in enumerate(parts):
+            assert cli.main(args + ["--backend", backend, "--shard",
+                                    f"{k}/2", "-o", part]) == 0
+        assert cli.main(["--merge", *parts, "-o", str(out)]) == 0
+        return out.read_bytes()
+
+    before = (kernels.LAUNCHES, cached.LAUNCHES_CONTRACT,
+              dict(engine.FEATURE_BUILDS))
+    got = run("cached", "cuda")
+    builds = {k: engine.FEATURE_BUILDS[k] - before[2][k]
+              for k in before[2]}
+    # 120 records in -b 7 batches: 8 groups of 14 and one of 8, each
+    # with its g features
+    assert kernels.LAUNCHES == before[0]
+    assert cached.LAUNCHES_CONTRACT > before[1] and builds["group"] == 9
+    assert builds["f"] >= (3 if layout == "staged" else 1)
+    monkeypatch.setattr(engine, "CACHED_MEASURES", frozenset())
+    before = (kernels.LAUNCHES, cached.LAUNCHES_CONTRACT)
+    k1 = run("k1", "cuda")
+    assert kernels.LAUNCHES > before[0]
+    assert cached.LAUNCHES_CONTRACT == before[1]
+    assert got == k1 == run("torch", "torch")
+
+
+def lineage_codes(rng, anc: np.ndarray, n: int) -> np.ndarray:
+    """``n`` records of the ancestor ``anc`` with 4 sites each moved to
+    another base."""
+    step = np.zeros(256, dtype=np.uint8)
+    bases = ALL_CODES[:4]
+    step[bases] = np.roll(bases, 1)
+    mat = np.repeat(anc[None], n, axis=0)
+    for row in mat:
+        sites = rng.choice(anc.size, 4, replace=False)
+        row[sites] = step[row[sites]]
+    return mat
+
+
+@pytest.mark.parametrize("staged", [False, True])
+def test_cached_stream_retarget_on_card_equals_torch_and_k1(
+        dev, tmp_path, monkeypatch, staged):
+    """A stream of two lineages, neither the loaded one's, retargets the
+    reference row at its first group and at the switch: on the card each
+    new row's features are built and the baselines taken again through
+    K6 (in core, and staged with its caches), and the bytes equal
+    ``--backend torch``'s and the K1 run's."""
+    rng = np.random.default_rng(37)
+    ancs = [rng.choice(ALL_CODES[:4], size=384).astype(np.uint8)
+            for _ in range(3)]
+    a, b = tmp_path / "a.fasta", tmp_path / "b.fasta"
+    write_fasta(a, lineage_codes(rng, ancs[0], 40))
+    write_fasta(b, np.concatenate([lineage_codes(rng, ancs[1], 24),
+                                   lineage_codes(rng, ancs[2], 24)]))
+    args = [str(a), "-s", str(b), "-b", "3", "-m", "n_high"]
+    monkeypatch.setattr(engine, "STREAM_GROUP", 6)
+    monkeypatch.setattr(engine, "TILE_I", 16)
+    monkeypatch.setattr(engine, "PRUNE_MIN_FRACTION", 2.0)
+    if staged:
+        monkeypatch.setattr(engine, "DEVICE_BUDGET", staged_stream_budget(
+            "n_high", 40, 6, 384, 16, 16))
+    outs = {}
+    for tag, backend, measures in (("cached", "cuda", MEASURES),
+                                   ("k1", "cuda", ()),
+                                   ("torch", "torch", MEASURES)):
+        monkeypatch.setattr(engine, "CACHED_MEASURES", frozenset(measures))
+        before = (kernels.LAUNCHES, engine.FEATURE_BUILDS["ref"])
+        out = tmp_path / f"{tag}.tsv"
+        assert cli.main(args + ["--backend", backend, "-o", str(out)]) == 0
+        if tag == "cached":
+            # two reference rows, each with its f and g features
+            assert kernels.LAUNCHES == before[0]
+            assert engine.FEATURE_BUILDS["ref"] - before[1] == 4
+        outs[tag] = out.read_bytes()
+    assert outs["cached"] == outs["k1"] == outs["torch"]
 
 
 def test_counters_with_a_one_row_side(dev):

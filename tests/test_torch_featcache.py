@@ -180,7 +180,8 @@ def test_cached_sweep_in_core_equals_numpy(tmp_path, monkeypatch, fastas,
     strips = -(-(39 if mode == "square" else 37) // 16)
     assert n.k6_blocks >= strips and n.k1_blocks == 0
     assert n.baselines == n.k6_baselines
-    assert n.builds == {"g": 1, "f": 0, "strip": strips, "ref": 2}
+    assert n.builds == {"g": 1, "f": 0, "strip": strips, "ref": 2,
+                        "group": 0}
     # a row baseline a strip, the column side's, and the self-counter
     assert n.k6_baselines == strips + 2
 

@@ -284,9 +284,9 @@ def test_auto_groups_hold_whole_batches_up_to_the_cap(tmp_path, monkeypatch):
     calls = []
     real = port_engine._BlockEngine.block
 
-    def spy(self, m1, m2, i0, j0, bi, bj):
-        calls.append(bj)  # K1 runs at first dispatches alone
-        return real(self, m1, m2, i0, j0, bi, bj)
+    def spy(self, m1, m2, i0, j0, bi, bj, fx=None):
+        calls.append(bj)  # K1 or K6 runs at first dispatches alone
+        return real(self, m1, m2, i0, j0, bi, bj, fx)
 
     monkeypatch.setattr(port_engine._BlockEngine, "block", spy)
     a, b = write(tmp_path, f1, f2)
@@ -356,7 +356,7 @@ def test_stream_mid_error_matches_jax_cli(tmp_path, capsys, monkeypatch,
 
 
 def test_stream_prepare_failure_surfaces(tmp_path, monkeypatch, fastas):
-    def broken(self, matrix, max_block, diff_ref=None):
+    def broken(self, matrix, max_block, diff_ref=None, **caches):
         raise _Boom("upload failed")
 
     monkeypatch.setattr(port_engine._BlockEngine, "prepare", broken)
