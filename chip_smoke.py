@@ -179,7 +179,37 @@ output, and times the kernels beside their plain versions.  Phases:
    (``DISTANCE_TPU_FEATCACHE_BUDGET=0``), and the tn93 stream of 8192
    loaded x 4096 records in core and staged with its caches
    (``STREAM_CACHED``: each super-row with its f cache, each group's g
-   features once) and staged through K1: equal sha256 each.
+   features once) and staged through K1: equal sha256 each;
+13. more than one device (``phase_multi_device``): the engine's
+   ``devices_of`` returns every card, or on a host of one card two
+   logical devices on it (``SPLIT_DEVICES``), each with its own stream;
+   the square of phase 3, the rectangle of phase 6, the stream of phase
+   7 and the square for tn93 each run on one device and split (every
+   block's columns, every stream group's records, over the devices):
+   equal sha256, the split run's launches as ``check_split`` derives
+   them from the one-device run's (a launch and a pack a part at the
+   part shapes, K5 by part, K3 a part an upload, the row baselines once),
+   the first strip's merged rel4 sidecars equal to the one-device run's,
+   both walls (logical devices on one card: not a scaling figure); the
+   out-of-core square of phase 9 split (its sha256, its launches against
+   phase 9's); and ``parallel.mesh.sharded_counters`` on a (2, 2) grid
+   of four logical devices against the plain version, six measures at
+   2000 x 8000.
+   Phase 2 holds every launch of the split runs against its plain
+   version, six measures: K1 at the out-of-core square's parts (1024 x
+   512 on two devices); K5 building each part's blocked g cache of the
+   square and K6 of a strip against it at a nonzero offset, the loaded
+   rows against each part of a stream group (2000 x 4096 and 2000 x
+   3904) and the parts' column baselines; K2 rel4 (each part a window of
+   its block, the merged sidecars against the whole block's) and rel on
+   the parts of the square's diagonal block, of a stream group and of
+   the out-of-core square's blocks at each of their positions and masks,
+   and K4 at those parts' shape.
+
+Phases 2-12 run the engine on the first card alone
+(``engine_devices``), their subprocesses with ``CUDA_VISIBLE_DEVICES``
+set to it: on a host of several cards phase 13 is the only one that
+splits.
 
 Every profiled run's split shows device time for each kernel it
 launched.  K3's launches on each path of phases 3-11 must be
@@ -188,7 +218,8 @@ Any failed check raises, and the script exits non-zero without a result.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the eight kernels (``counters``, ``pack_rel4``, ``pack_rel``,
 ``pack_narrow``, ``pack_wide``, ``diff_rebuild``, ``features``,
-``contract``) with their launches per path, errors, times and bounds.
+``contract``) with their launches per path (``multi_device`` for phase
+13's split runs), errors, times and bounds.
 Without a CUDA device, or without the package beside it, it fails.
 
     python3 chip_smoke.py --measure
@@ -333,6 +364,56 @@ STREAM_CACHED_LAUNCHES = [(2000, 8000), (2000, 384), (2000, 1), (1, 8000),
 # baseline with one K6 launch.
 SQUARE_STRIPS = 4
 RECT_STRIPS = 2
+# Phase 13: the logical devices of a split run on a host of one card (on
+# a host of several, every card), the group size of phase 7's stream (the
+# engine's cap; each device takes SPLIT_GROUP / devices of a group's
+# columns), and the (x rows, y rows) of the mesh's check.
+SPLIT_DEVICES = 2
+SPLIT_GROUP = 8192
+MESH_SHAPE = (2000, 8000)
+
+
+def split_devices() -> list:
+    """Phase 13's devices: every card of a host of several, else
+    SPLIT_DEVICES logical devices on the one card."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    return ([torch.device("cuda", c) for c in range(cards)] if cards > 1
+            else [torch.device("cuda", 0)] * SPLIT_DEVICES)
+
+
+def part_bounds(span: int, width: int) -> list:
+    """(first column, end column) of each part of ``width`` columns that
+    takes columns of a block ``span`` wide (``_BlockEngine.bounds``)."""
+    return [(c0, min(c0 + width, span)) for c0 in range(0, span, width)]
+
+
+def split_parts(k: int) -> dict:
+    """The (x rows, y rows) of phase 13's block parts on ``k`` devices:
+    the square's and the rectangle's (BLOCK, BLOCK / k), the stream
+    groups' (loaded rows, the group's records in a part of SPLIT_GROUP /
+    k), and the out-of-core square's (TILE_I, TILE_J / k)."""
+    ti, tj = OOC["square"][2]
+    return {"square": {(BLOCK, BLOCK // k)},
+            "stream": {(N_STREAM[0], c1 - c0) for bn in STREAM_GROUPS
+                       for c0, c1 in part_bounds(bn, SPLIT_GROUP // k)},
+            "square-ooc": {(ti, tj // k)}}
+
+
+@contextlib.contextmanager
+def engine_devices(devices):
+    """The engine's cuda runs in this process on ``devices`` (the tests
+    substitute ``engine.devices_of`` alike)."""
+    from distance_tpu_torch import engine
+
+    real = engine.devices_of
+    engine.devices_of = (lambda backend: list(devices) if backend == "cuda"
+                         else real(backend))
+    try:
+        yield
+    finally:
+        engine.devices_of = real
 # Seconds a phase 10 subprocess may take before it is killed.
 PROC_TIMEOUT_S = 300
 
@@ -501,6 +582,9 @@ def phase_kernel_vs_plain(bench: np.ndarray) -> int:
                  for m, n in shapes]
     launches += [("stream-shard-staged", m, n)
                  for m, n in SHARD_STAGED_LAUNCHES + SHARD_STAGED_BASELINES]
+    # phase 13's out-of-core square: each part of a block
+    launches += [("square-ooc split", m, n) for m, n in
+                 split_parts(len(split_devices()))["square-ooc"]]
     path_cases = [(f"{tag} {m}x{n}x{l_pad}", padded(bench[:m]),
                    padded(bench[-n:])) for tag, m, n in launches]
     # the rel baselines: every prepared row against the reference row,
@@ -597,6 +681,8 @@ def phase_cached_vs_plain(bench: np.ndarray) -> int:
     card = card_tests()
     rng = np.random.default_rng(SEED + 11)
     dev = torch.device("cuda", 0)
+    k = len(split_devices())
+    split = split_parts(k)
 
     def codes(rows, width):
         return torch.from_numpy(rng.choice(ALL_CODES, size=(rows, width))
@@ -638,21 +724,46 @@ def phase_cached_vs_plain(bench: np.ndarray) -> int:
                 ("out-of-core cb 1 x 3072", f_ref, g_cache[:, 5120:])]
         # the cached stream's: an f cache of its loaded rows (or of a
         # super-row) against a group's g features, and their baselines,
-        # each side built by K5 at its shape and held byte-equal
-        for m, n in STREAM_CACHED_LAUNCHES:
+        # each side built by K5 at its shape and held byte-equal; and
+        # phase 13's, the loaded rows against each part of a group and
+        # each part's column baseline
+        built = {}
+        for m, n in STREAM_CACHED_LAUNCHES + sorted(
+                split["stream"] | {(1, n) for _, n in split["stream"]}):
             sides = []
             for rows, side, one in ((m, "f", f_ref), (n, "g", g_ref)):
                 if rows == 1:
                     sides.append(one)
                     continue
-                c = square[N_BENCH - rows:] if side == "g" else square[:rows]
-                feats = cached.features_cuda(c, plan, side)
-                torch.cuda.synchronize()
-                check(torch.equal(feats, cached.features_torch(c, plan,
-                                                               side)),
-                      f"{measure} K5 {side} {rows} rows: kernel != plain")
-                sides.append(feats)
+                if (rows, side) not in built:
+                    c = (square[N_BENCH - rows:] if side == "g"
+                         else square[:rows])
+                    feats = cached.features_cuda(c, plan, side)
+                    torch.cuda.synchronize()
+                    check(torch.equal(feats, cached.features_torch(
+                        c, plan, side)),
+                        f"{measure} K5 {side} {rows} rows: kernel != plain")
+                    built[rows, side] = feats
+                sides.append(built[rows, side])
             path.append((f"stream {m} x {n}", *sides))
+        del built
+        # phase 13's square: each part's g cache, its columns of every
+        # block of BLOCK rows, block after block (``_BlockEngine._gpart``),
+        # a strip against it at j0 4096 (its rows from 4096 / BLOCK x the
+        # part's width on) and its column baseline
+        (_, w), = split["square"]
+        for d in range(k):
+            c = (square.view(-1, BLOCK, l_pad)[:, d * w:(d + 1) * w]
+                 .reshape(-1, l_pad))
+            g_part = cached.features_cuda(c, plan, "g")
+            torch.cuda.synchronize()
+            check(torch.equal(g_part, cached.features_torch(c, plan, "g")),
+                  f"{measure} K5 g of part {d} of {k}: kernel != plain")
+            g0 = 4096 // BLOCK * w
+            path += [(f"split square part {d} of {k}: {BLOCK} x {w} at j0"
+                      f" 4096 (g0 {g0})", f_strip, g_part[:, g0:g0 + w]),
+                     (f"split cb part {d} of {k}: 1 x {c.shape[0]}", f_ref,
+                      g_part)]
         for form, make in (("jax", cached_plan_to_torch),
                            ("folded", fold_cached)):
             fplan = make(get_plan(measure), dev)
@@ -680,10 +791,12 @@ def phase_cached_vs_plain(bench: np.ndarray) -> int:
                 check(want_k1 is None or torch.equal(want, want_k1),
                       f"{measure} K6 {form} {name}: plain != K1's plain")
         print(f"[2] {measure}: K5 == plain on {len(k5_cases)} shapes, both"
-              f" sides, and at the stream's; K6 == plain on"
-              f" {len(card.K6_EDGES)} edges in both plan forms (== K1's"
-              f" plain) and {len(path)} main-path launches")
-        del g_cache, f_cache, f_strip, path, cases
+              f" sides, at the stream's and on the split square's {k} part"
+              f" g caches; K6 == plain on {len(card.K6_EDGES)} edges in both"
+              f" plan forms (== K1's plain) and {len(path)} main-path"
+              f" launches (phase 13's parts among them:"
+              f" {sorted(split['square'] | split['stream'])})")
+        del g_cache, f_cache, f_strip, path, cases, g_part
     # past 2^31 bytes: raw's g cache of 4096 x 29952, and K6 reading its
     # last rows
     plan = cached_plan_to_torch(get_plan("raw"), dev)
@@ -861,6 +974,68 @@ def phase_pack_and_rebuild(bench: np.ndarray) -> int:
           f" diagonal block (self-pairs and padding masked) and the stream's"
           f" {N_STREAM[0]} x {STREAM_GROUPS[0]} group, six measures;"
           f" {outliers} residuals of the stream groups outside [-7, 7]")
+
+    def windows(tag, bounds, c, rb, cb, cc, i0=0, j0=0, nv=None,
+                diag_off=None):
+        """K2 rel4 and rel of each part of a block split over devices
+        (rel4 the window of its columns ``bounds``, with the block's
+        width) == plain, and the parts' rel4 lanes joined and sidecars
+        merged == the whole block's launch.  Adds the parts' launches
+        to CHECKED_PACKS."""
+        g, m, n = c.shape
+        nv = nv or (i0 + m, j0 + n)
+        parts = []
+        for c0, c1 in bounds:
+            cs, cbs = c[:, :, c0:c1].contiguous(), cb[:, c0:c1]
+            got = packing.pack_rel4_cuda(cs, rb, cbs, cc, i0, j0 + c0, nv,
+                                         diag_off, c0, n)
+            torch.cuda.synchronize()
+            mask = packing.block_mask(m, c1 - c0, i0, j0 + c0, nv, diag_off,
+                                      dev)
+            same(f"rel4 columns {c0}..{c1} of {tag}", got,
+                 packing.pack_rel4_torch(cs, rb, cbs, cc, mask, c0, n))
+            parts.append(got)
+            got = packing.pack_rel_cuda(cs, rb, cbs, cc, i0, j0 + c0,
+                                        diag_off)
+            torch.cuda.synchronize()
+            mask = packing.block_mask(m, c1 - c0, i0, j0 + c0, None,
+                                      diag_off, dev)
+            same(f"rel columns {c0}..{c1} of {tag}", [got],
+                 [packing.pack_rel_torch(cs, rb, cbs, cc, mask)])
+            CHECKED_PACKS.update({
+                ("rel4", m, c1 - c0, i0, j0 + c0, nv, diag_off, c0, n),
+                ("rel", m, c1 - c0, i0, j0 + c0, diag_off)})
+        whole = packing.pack_rel4_cuda(c, rb, cb, cc, i0, j0, nv, diag_off)
+        merged = packing.merge_rel4_sidecars(
+            torch.stack([p[1] for p in parts]),
+            torch.stack([p[2] for p in parts]))
+        same(f"rel4 parts of {tag} merged",
+             (torch.cat([p[0] for p in parts], dim=-1), *merged), whole)
+
+    k = len(split_devices())
+    cols = STREAM_GROUPS[0]
+    square_parts = part_bounds(BLOCK, BLOCK // k)
+    stream_parts = part_bounds(cols, SPLIT_GROUP // k)
+    for measure in MEASURES:
+        plan = plan_to_torch(get_plan(measure), dev)
+        windows(f"{measure} square {BLOCK}x{BLOCK} diagonal block",
+                square_parts, *bench_baselines(square, square, ref, plan),
+                nv=(BLOCK - 48, BLOCK - 100), diag_off=0)
+        windows(f"{measure} stream {N_STREAM[0]}x{cols}", stream_parts,
+                *bench_baselines(loaded, group, ref, plan),
+                nv=(N_STREAM[0], cols))
+    for parts in (2, 4):
+        windows(f"outliers 2x{BLOCK}x{BLOCK} in {parts} parts",
+                part_bounds(BLOCK, BLOCK // parts),
+                *outlier_counters(dev, 2, BLOCK, BLOCK, SEED + 25 + parts),
+                3, 5, (BLOCK - 1, BLOCK - 2), diag_off=2)
+    print(f"[2] K2 rel4 and rel == plain on the parts of the split blocks"
+          f" (phase 13's part shapes on {k} devices: the square's {BLOCK} x"
+          f" {BLOCK} diagonal block in parts {square_parts}, the stream's"
+          f" {N_STREAM[0]} x {cols} group in parts {stream_parts}, six"
+          f" measures; counters with chosen outliers in 2 and 4 parts):"
+          f" each rel4 part a window of its block, their sidecars merged =="
+          f" the whole block's launch")
     shapes = [(2, 2048, 2048), (4, 33, 66), (1, 1, 2), (3, 129, 258),
               (2, 31, 33), (4, 0, 8), (1, 5000, 3000)]
     for k, (g, m, n) in enumerate(shapes):
@@ -973,7 +1148,7 @@ def phase_pack_and_rebuild(bench: np.ndarray) -> int:
           f" around 255 (2 x 3, 33 x 65, {BLOCK} x {BLOCK}); {saturated}"
           f" pairs of the square's blocks saturate a narrow lane at"
           f" {bench.shape[1]} sites (six measures together)")
-    ooc_packs_vs_plain(dev, rows, ref, both, lanes_equal, widths)
+    ooc_packs_vs_plain(dev, rows, ref, both, windows, lanes_equal, widths)
     return 0
 
 
@@ -1035,21 +1210,24 @@ def ooc_dispatches(mode: str) -> list:
 
 
 # The K2 and K4 launches phase 2 held against their plain versions at the
-# out-of-core blocks: ("rel4", rows, cols, i0, j0, nv, diag_off), ("rel",
-# rows, cols, i0, j0, diag_off), ("narrow", rows, cols) and ("wide", rows,
-# cols), for all six measures.  Phases 9 and 10 fail on a launch outside it.
+# out-of-core blocks and their split parts: ("rel4", rows, cols, i0, j0,
+# nv, diag_off, col0, block columns), ("rel", rows, cols, i0, j0,
+# diag_off), ("narrow", rows, cols) and ("wide", rows, cols), for all six
+# measures.  Phases 9, 10 and 13 fail on a launch outside it.
 CHECKED_PACKS: set = set()
 
 
-def ooc_packs_vs_plain(dev, rows: np.ndarray, ref, both, lanes_equal,
-                       widths: tuple) -> None:
+def ooc_packs_vs_plain(dev, rows: np.ndarray, ref, both, windows,
+                       lanes_equal, widths: tuple) -> None:
     """Phase 2 at every block of ``ooc_blocks``, for the six measures: K2
     (rel4 and rel) with the block's i0, j0, valid rows and self-pair
     offset, on counters whose residuals fill [-7, 7] with chosen outliers
     (zero baselines, so a cell masked wrongly shows), and on the bench
     alignment's counters and baselines at each block shape; K4 (narrow
     and wide) at each block shape on the bench alignment's counters at
-    ``widths``.  Fills CHECKED_PACKS."""
+    ``widths``.  Then the same for the parts of the square's blocks split
+    as phase 13 splits them (``windows``: K2 on each part, rel4 a window
+    of its block).  Fills CHECKED_PACKS."""
     import torch
 
     from distance_tpu_torch.measures import MEASURES
@@ -1072,8 +1250,9 @@ def ooc_packs_vs_plain(dev, rows: np.ndarray, ref, both, lanes_equal,
                 both(f"{measure} out-of-core {m}x{n} at ({i0}, {j0}) nv {nv}"
                      f" diag_off {diag_off}", *(t[:g] for t in outliers),
                      i0, j0, nv, diag_off)
-                CHECKED_PACKS.update({("rel4", m, n, i0, j0, nv, diag_off),
-                                      ("rel", m, n, i0, j0, diag_off)})
+                CHECKED_PACKS.update({
+                    ("rel4", m, n, i0, j0, nv, diag_off, 0, n),
+                    ("rel", m, n, i0, j0, diag_off)})
             i0, j0, nv, diag_off = min(masks, key=str)
             both(f"{measure} out-of-core {m}x{n} bench", c, rb, cb, cc, i0,
                  j0, nv, diag_off)
@@ -1083,6 +1262,34 @@ def ooc_packs_vs_plain(dev, rows: np.ndarray, ref, both, lanes_equal,
         print(f"[2] K2 == plain (rel4, rel) at the {len(masks)} out-of-core"
               f" positions and masks of {m} x {n} blocks and K4 == plain"
               f" (narrow, wide) at that shape, six measures")
+    k = len(split_devices())
+    ti, tj = OOC["square"][2]
+    bounds = part_bounds(tj, tj // k)
+    masks = sorted({tuple(mask) for _, _, *mask in ooc_blocks("square")},
+                   key=str)
+    x = torch.from_numpy(rows[:ti]).to(dev)
+    y = torch.from_numpy(rows[-tj:]).to(dev)
+    outliers = outlier_counters(dev, 4, ti, tj, SEED + 70)
+    for measure in MEASURES:
+        plan = plan_to_torch(get_plan(measure), dev)
+        g = plan.counters
+        c, rb, cb, cc = bench_baselines(x, y, ref, plan)
+        for i0, j0, nv, diag_off in masks:
+            windows(f"{measure} split out-of-core {ti}x{tj} at ({i0}, {j0})"
+                    f" nv {nv} diag_off {diag_off}",
+                    bounds, *(t[:g] for t in outliers), i0, j0, nv, diag_off)
+        windows(f"{measure} split out-of-core {ti}x{tj} bench", bounds, c, rb,
+                cb, cc, *masks[0])
+        for c0, c1 in bounds:
+            for width in widths:
+                lanes_equal(f"split out-of-core {ti}x{c1 - c0}", measure,
+                            c[:, :, c0:c1].contiguous(), width)
+    CHECKED_PACKS.update({(kind, ti, c1 - c0) for kind in ("narrow", "wide")
+                          for c0, c1 in bounds})
+    print(f"[2] K2 == plain (rel4 windows, rel) on the parts {bounds} of the"
+          f" {ti} x {tj} blocks at the {len(masks)} out-of-core positions"
+          f" and masks of phase 13's split square, and K4 == plain (narrow,"
+          f" wide) at the parts' shapes, six measures")
     torch.cuda.synchronize()
 
 
@@ -2015,11 +2222,11 @@ def time_glue(rows: np.ndarray, refp: np.ndarray, card: str) -> None:
 
     n1, bn = N_STREAM[0], STREAM_GROUPS[0]
     width = L_BENCH
-    eng = engine._BlockEngine("raw", dev, 1, width, rel=True)
+    eng = engine._BlockEngine("raw", [dev], 1, width, rel=True, tj=bn)
     m1 = eng.prepare(rows[:n1, :width], 1, diff_ref=refp[:width])
     group = rows[-bn:]
-    codes, ref = eng.dispatch_stream(group, lambda: diffup.to_device(group,
-                                                                      dev))
+    codes, ref = eng.dispatch_stream(group, lambda: [
+        diffup.to_device(group, dev)])
     enc = eng.diff_up.encode(group, n_real=bn)
 
     def step():
@@ -2299,14 +2506,17 @@ def out_of_core(budget: int, host: int, tiles: tuple):
         return real[4](up, padded, n_real)
 
     def pack_block(eng, c, mode, i0, j0, bases=None, nv=None,
-                   diag_off=None):
+                   diag_off=None, *window):
         if mode != "none":
             seen["blocks"].add((*c.shape[1:], i0, j0, nv, diag_off))
-        return real[5](eng, c, mode, i0, j0, bases, nv, diag_off)
+        return real[5](eng, c, mode, i0, j0, bases, nv, diag_off, *window)
 
-    def rel4(c, rb, cb, cc, i0=0, j0=0, nv=None, diag_off=None):
-        seen["packs"].add(("rel4", *c.shape[1:], i0, j0, nv, diag_off))
-        return real_packs[0](c, rb, cb, cc, i0, j0, nv, diag_off)
+    def rel4(c, rb, cb, cc, i0=0, j0=0, nv=None, diag_off=None, col0=0,
+             n_whole=None):
+        seen["packs"].add(("rel4", *c.shape[1:], i0, j0, nv, diag_off, col0,
+                           c.shape[2] if n_whole is None else n_whole))
+        return real_packs[0](c, rb, cb, cc, i0, j0, nv, diag_off, col0,
+                             n_whole)
 
     def rel(c, rb, cb, cc, i0=0, j0=0, diag_off=None):
         seen["packs"].add(("rel", *c.shape[1:], i0, j0, diag_off))
@@ -2609,7 +2819,9 @@ def phase_multiprocess(shas: dict) -> int:
     t_phase = time.perf_counter()
     card = gpu_line()
     here = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=here,
+    # the processes see the first card alone, as on a host of one card
+    first = (os.environ.get("CUDA_VISIBLE_DEVICES") or "0").split(",")[0]
+    env = dict(os.environ, PYTHONPATH=here, CUDA_VISIBLE_DEVICES=first,
                DISTANCE_TPU_MERGE_TIMEOUT=str(PROC_TIMEOUT_S))
     l_pad = -(-L_BENCH // 128) * 128
     with tempfile.TemporaryDirectory() as tmp:
@@ -2995,6 +3207,317 @@ def phase_cached_stream(shas: dict) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def split_over(devices):
+    """The engine's cuda runs on ``devices`` in this process (the tests
+    substitute ``engine.devices_of`` alike), watched: the (x rows, y rows)
+    of each K1 and K6 launch, each strip call's (rung, blocks, parts of a
+    block), and the sidecar bundle of the first strip's first call."""
+    from distance_tpu_torch import engine
+
+    real = (engine.kernels.counters, engine.cached_ops.contract,
+            engine._Strip.__call__)
+    seen = {"shapes": [], "calls": [], "bundle": None}
+
+    def counters(x, y, plan):
+        seen["shapes"].append((x.shape[0], y.shape[0]))
+        return real[0](x, y, plan)
+
+    def contract(fx, gy, plan):
+        seen["shapes"].append((fx.shape[1], gy.shape[1]))
+        return real[1](fx, gy, plan)
+
+    def call(strip, mode=None):
+        first = strip._kept is None
+        rung = mode or strip.eng.mode_for(strip.tj)
+        out = real[2](strip, mode)
+        seen["calls"].append((rung, first, len(strip.col_starts),
+                              len(strip.eng.bounds(strip.tj)), strip.tj))
+        if strip.i0 == 0 and first and seen["bundle"] is None and isinstance(
+                out, tuple):
+            seen["bundle"] = out[1].cpu().numpy()
+        return out
+
+    engine.kernels.counters = counters
+    engine.cached_ops.contract = contract
+    engine._Strip.__call__ = call
+    try:
+        with engine_devices(devices):
+            yield seen
+    finally:
+        (engine.kernels.counters, engine.cached_ops.contract,
+         engine._Strip.__call__) = real
+
+
+def check_split(tag: str, one: dict, split: dict, seen1: dict, seen: dict,
+                k: int, parts: set) -> None:
+    """A split run's launches against its one-device run's: the same
+    strips at the same rungs (the ladder's course is the one device's,
+    the parts' sidecars merging into the whole blocks'), each block a
+    launch and a pack a part (K6 or K1 and K2 or K4 at the part shapes
+    ``parts``), the g caches, strip and f features built by each part and
+    a stream group's g features by each part its records reach, the
+    reference row's features and the row baselines and self-counter once,
+    a K6 column baseline a part, and K3 once a part an upload."""
+    rungs = [(rung, first, blocks) for rung, first, blocks, *_ in
+             seen1["calls"]]
+    check([(r, f, b) for r, f, b, *_ in seen["calls"]] == rungs,
+          f"{tag}: strips {seen['calls']} against one device's {rungs}")
+    packs = {rung: 0 for rung in split["blocks"]}
+    first = groups = 0
+    for rung, was_first, blocks, n_parts, _ in seen["calls"]:
+        packs[rung] += blocks * n_parts
+        first += was_first * blocks * n_parts
+    b1 = one["builds"]
+    groups = first if b1["group"] else 0
+    want_builds = {"g": k * b1["g"], "f": k * b1["f"],
+                   "strip": k * b1["strip"], "ref": b1["ref"],
+                   "group": groups}
+    extra = (k - 1) * b1["g"] + groups - b1["group"]
+    check(split["blocks"] == packs and split["builds"] == want_builds
+          and split["k1_blocks"] + split["k6_blocks"] == first
+          and split["baselines"] == one["baselines"] + extra
+          and split["diff_rebuild"] == k * one["diff_rebuild"],
+          f"{tag}: launches {split}, expected packs {packs}, builds"
+          f" {want_builds}, {first} block parts, {one['baselines'] + extra}"
+          f" baselines and {k * one['diff_rebuild']} K3")
+    check_launches(tag, split, first)
+    shapes = {s for s in seen["shapes"] if 1 not in s}
+    check(shapes == parts, f"{tag}: block launch shapes {sorted(shapes)},"
+                           f" expected the parts {sorted(parts)}")
+
+
+def check_mesh() -> None:
+    """``parallel.mesh.sharded_counters`` on a (2, 2) grid of four
+    logical devices (over every card, round-robin) against the plain
+    version (and K1) on one device, six measures, both backends."""
+    import torch
+
+    from distance_tpu_torch.measures import MEASURES
+    from distance_tpu_torch.ops.counters import counters_cuda, counters_torch
+    from distance_tpu_torch.ops.features import get_plan
+    from distance_tpu_torch.ops.plan import plan_to_torch
+    from distance_tpu_torch.parallel import mesh
+
+    cards = torch.cuda.device_count()
+    dev = torch.device("cuda", 0)
+    x_rows, y_rows = MESH_SHAPE
+    bench = make_alignment(N_BENCH, L_BENCH, SEED)
+    l_pad = -(-L_BENCH // 128) * 128
+    rows = np.zeros((N_BENCH, l_pad), dtype=np.uint8)
+    rows[:, :L_BENCH] = bench
+    x = torch.from_numpy(rows[:x_rows]).to(dev)
+    y = torch.from_numpy(rows[-y_rows:]).to(dev)
+    grid = mesh.make_mesh([torch.device("cuda", i % cards) for i in range(4)],
+                          sp=2)
+    for measure in MEASURES:
+        plan = get_plan(measure)
+        kplan = plan_to_torch(plan, dev)
+        want = counters_torch(x, y, kplan)
+        check(torch.equal(counters_cuda(x, y, kplan), want),
+              f"[13] K1 {measure} != plain")
+        for backend in mesh.BACKENDS:
+            got = mesh.sharded_counters(x, y, plan, grid, backend)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"[13] sharded_counters {measure}"
+                                          f" {backend} != plain")
+    print(f"[13] parallel.mesh.sharded_counters on a (2, 2) grid of"
+          f" {grid} (y rows over dp, sites over sp, int32 partials summed)"
+          f" == the plain version and K1 on one device, {x_rows} x {y_rows} x {L_BENCH}, six"
+          f" measures, through K5 + K6 and through K1")
+
+
+def time_split_parts() -> dict:
+    """K6 at the split runs' part shapes, raw, by CUDA events beside the
+    one-device block and their bounds: the square's (2048, 1024) part
+    alone, the two parts of a 2048² block on two streams of one card, and
+    the stream's 2000 x 4096 part; K2 rel4 on a (2048, 1024) part (a
+    window of its block) cold, as phase 5 times it, beside its bound."""
+    import torch
+
+    from distance_tpu_torch.ops import cached, packing
+    from distance_tpu_torch.ops.features import get_plan
+    from distance_tpu_torch.ops.plan import cached_plan_to_torch
+
+    dev = torch.device("cuda", 0)
+    plan = get_plan("raw")
+    cplan = cached_plan_to_torch(plan, dev)
+    r, g = plan.total_channels, len(plan.counters)
+    l_pad = -(-L_BENCH // 128) * 128
+    rows = np.zeros((N_BENCH, l_pad), dtype=np.uint8)
+    rows[:, :L_BENCH] = make_alignment(N_BENCH, L_BENCH, SEED)
+    codes = torch.from_numpy(rows).to(dev)
+    fx = cached.features(codes[:BLOCK], cplan, "f")
+    gy = cached.features(codes[:BLOCK], cplan, "g")
+    half = BLOCK // 2
+    side = torch.cuda.Stream(dev)
+
+    def two_parts():
+        main = torch.cuda.current_stream(dev)
+        side.wait_stream(main)
+        cached.contract(fx, gy[:, :half], cplan)
+        with torch.cuda.stream(side):
+            cached.contract(fx, gy[:, half:], cplan)
+        main.wait_stream(side)
+
+    def block(n):
+        return lambda: cached.contract(fx, gy[:, :n], cplan)
+
+    for fn in (block(BLOCK), block(half), two_parts):
+        fn()
+    ms = in_turns({"block": (block(BLOCK), 20), "part": (block(half), 20),
+                   "two": (two_parts, 20)},
+                  ("block", "part", "two", "two", "part", "block"))
+    out = {"k6_block_ms": ms["block"], "k6_part_ms": ms["part"],
+           "k6_two_parts_ms": ms["two"]}
+    bound_block = contract_bound_ms(BLOCK, BLOCK, L_BENCH, r, g, l_pad)[0]
+    bound_part = contract_bound_ms(BLOCK, half, L_BENCH, r, g, l_pad)[0]
+    fl = cached.features(codes[: N_STREAM[0]], cplan, "f")
+    gg = cached.features(codes[-SPLIT_GROUP // 2:], cplan, "g")
+    step = lambda: cached.contract(fl, gg, cplan)  # noqa: E731
+    step()
+    out["k6_stream_part_ms"] = cuda_timed(step, 10)
+    bound_stream = contract_bound_ms(N_STREAM[0], SPLIT_GROUP // 2, L_BENCH,
+                                     r, g, l_pad)[0]
+    del fl, gg
+    c = cached.contract(fx, gy[:, :half], cplan)
+    rb = torch.zeros((g, BLOCK), dtype=torch.int32, device=dev)
+    cb = torch.zeros((g, half), dtype=torch.int32, device=dev)
+    cc = torch.zeros(g, dtype=torch.int32, device=dev)
+    ring = cold_ring_ms(lambda t: packing.pack_rel4_cuda(
+        t, rb, cb, cc, 0, half, None, None, half, BLOCK), c, "rel4_pack", 20)
+    bound_k2 = (4.0 * g * BLOCK * half + g * BLOCK * half / 2) / PEAK_BYTES * 1e3
+    out.update(k2_part_ms=ring["ms"], k2_part_call_ms=ring["call_ms"],
+               bounds={"k6_block": bound_block, "k6_part": bound_part,
+                       "k6_stream_part": bound_stream, "k2_part": bound_k2})
+    print(f"[13] K6 raw at the split square's part ({BLOCK}, {half}):"
+          f" {out['k6_part_ms']:.4f} ms ({bound_part / out['k6_part_ms']:.3f}"
+          f" of its bound {bound_part:.4f} ms), the whole {BLOCK}² block"
+          f" {out['k6_block_ms']:.4f} ms ({bound_block / out['k6_block_ms']:.3f}"
+          f" of {bound_block:.4f}), its two parts on two streams of the card"
+          f" {out['k6_two_parts_ms']:.4f} ms; at the stream's part"
+          f" ({N_STREAM[0]}, {SPLIT_GROUP // 2}) {out['k6_stream_part_ms']:.4f}"
+          f" ms ({bound_stream / out['k6_stream_part_ms']:.3f} of"
+          f" {bound_stream:.4f}); K2 rel4 on the ({BLOCK}, {half}) part, a"
+          f" window of its block, cold {out['k2_part_ms']:.4f} ms"
+          f" ({bound_k2 / out['k2_part_ms']:.3f} of its bound"
+          f" {bound_k2:.5f} ms, bytes), a call {out['k2_part_call_ms']:.4f}"
+          f" ms ({gpu_line()})")
+    return out
+
+
+def phase_multi_device(shas: dict, ooc_one: dict) -> dict:
+    """The engine's column split over several devices (``devices_of``
+    returning every card, or on a host of one card two logical devices
+    on it, each with its own stream): the square of phase 3, the
+    rectangle of phase 6, the stream of phase 7 and the square for tn93,
+    each beside its one-device run (equal sha256, launches as
+    ``check_split`` derives them, walls), the first strip's rel4 sidecar
+    bundle equal to the one-device run's, and the out-of-core square of
+    phase 9 (its sha256, its launches against phase 9's ``ooc_one``);
+    then ``parallel.mesh.sharded_counters`` on a (2, 2) grid against the
+    plain version on one device, six measures.  Returns the split runs'
+    launches."""
+    import torch
+
+    from distance_tpu_torch.ops import packing
+
+    cards = torch.cuda.device_count()
+    one = [torch.device("cuda", 0)]
+    devices = split_devices()
+    k = len(devices)
+    what = (f"{k} logical devices on one card, not a scaling figure"
+            if cards == 1 else f"{k} cards")
+    print(f"[13] the engine's blocks split over {what}")
+    t_phase = time.perf_counter()
+    totals = {name: 0 for name in KERNELS}
+    split = split_parts(k)
+    group_parts, square_parts = split["stream"], split["square"]
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = [os.path.join(tmp, d) for d in "qrs"]
+        for d in dirs:
+            os.mkdir(d)
+        fasta = os.path.join(dirs[0], "bench.fasta")
+        write_fasta(fasta, make_alignment(N_BENCH, L_BENCH, SEED))
+        *_, r1, r2 = write_inputs(dirs[1], "[13]", *N_RECT, SEED + 3, "b")
+        *_, s1, s2 = write_inputs(dirs[2], "[13]", *N_STREAM, SEED + 5, "s")
+        out = os.path.join(tmp, "split.tsv")
+        cases = [("square", [fasta], "raw", shas["square"], square_parts),
+                 ("rectangle", [r1, r2], "raw", shas["rectangle"],
+                  square_parts),
+                 ("stream", [s1, "-s", s2, "-b", str(STREAM_BATCH)], "raw",
+                  shas["stream"], group_parts),
+                 ("square tn93", [fasta], "tn93", None, square_parts)]
+        for name, inputs, measure, want, parts in cases:
+            tag = f"[13] {name}"
+            with split_over(one) as seen1, measure_set({measure}):
+                wall1, c1 = run_cli(f"{tag} one device", inputs + ["-o", out],
+                                    measure)
+            sha1 = sha256(out)
+            with split_over(devices) as seen, measure_set({measure}):
+                wall, c = run_cli(f"{tag} on {what}", inputs + ["-o", out],
+                                  measure)
+            sha = sha256(out)
+            check(sha == sha1 and want in (None, sha),
+                  f"{tag}: TSV on {what} differs from one device's")
+            check_split(tag, c1, c, seen1, seen, k, parts)
+            if name == "square":
+                check(seen["bundle"] is not None and np.array_equal(
+                    seen["bundle"], seen1["bundle"]),
+                      f"{tag}: the first strip's sidecar bundle differs")
+                exc = packing.unbundle_sidecars(seen["bundle"])[2]
+                print(f"{tag}: the first strip's rel4 sidecars (4 blocks,"
+                      f" {int((exc >= 0).sum())} outliers kept) merged from"
+                      f" the parts equal the one-device run's, bundle and"
+                      f" all")
+            for kernel in KERNELS:
+                totals[kernel] += c[kernel]
+            print(f"{tag}: sha256 equal; wall {wall1:.3f} s on one device,"
+                  f" {wall:.3f} s on {what}; K6 {c['contract']}, K1"
+                  f" {c['counters']}, K5 {c['features']}, K2"
+                  f" {c['pack_rel4'] + c['pack_rel']}, K3"
+                  f" {c['diff_rebuild']} ({gpu_line()})")
+        tag = "[13] square out of core"
+        with out_of_core(*OOC["square"]) as ooc, measure_set(()), split_over(
+                devices) as seen:
+            wall, c = run_cli(tag, [fasta, "-o", out])
+        check(sha256(out) == shas["square"], f"{tag}: TSV differs")
+        ti, tj = OOC["square"][2]
+        shapes = {s for s in seen["shapes"] if 1 not in s}
+        check(c["k1_blocks"] == k * ooc_one["k1_blocks"]
+              and c["baselines"] == ooc_one["baselines"]
+              and c["blocks"] == {r: k * v
+                                  for r, v in ooc_one["blocks"].items()}
+              and c["diff_rebuild"] == k * ooc_one["diff_rebuild"]
+              and shapes == split["square-ooc"],
+              f"{tag}: launches {c} (block shapes {sorted(shapes)}) against"
+              f" phase 9's {ooc_one} on {k} devices")
+        check_launches(tag, c, c["k1_blocks"])
+        blocks = {(ti, c1 - c0, i0, j0 + c0, nv, diag_off)
+                  for _, _, i0, j0, nv, diag_off in ooc_dispatches("square")
+                  for c0, c1 in part_bounds(tj, tj // k)}
+        unchecked = ooc["packs"] - CHECKED_PACKS
+        check(ooc["blocks"] == blocks and ooc["packs"] and not unchecked,
+              f"{tag}: packed parts differ from the layout's at"
+              f" {sorted(map(str, ooc['blocks'] ^ blocks))[:6]}, or K2/K4"
+              f" launches phase 2 did not check:"
+              f" {sorted(map(str, unchecked))[:6]}")
+        print(f"{tag}: {len(blocks)} packed parts, the layout's blocks"
+              f" split; K2/K4 launched at {len(ooc['packs'])} (rung, shape,"
+              f" mask, window) keys, each held against its plain version in"
+              f" phase 2")
+        for kernel in KERNELS:
+            totals[kernel] += c[kernel]
+        print(f"{tag}: sha256 equals in core; wall {wall:.3f} s on {what};"
+              f" K1 {c['counters']} = {k} x phase 9's"
+              f" {ooc_one['k1_blocks']} blocks + {c['baselines']} baselines"
+              f" ({gpu_line()})")
+    check_mesh()
+    time_split_parts()
+    print(f"[13] phase 13 passed in {time.perf_counter() - t_phase:.1f} s")
+    return {"multi_device": totals}
+
+
 def measure_mode() -> None:
     """Walls and host phase totals of the rectangle and the stream for
     each measure and batch size, and of a longer stream; no checks."""
@@ -3082,33 +3605,11 @@ K3_LAUNCHES = {"square": 1, "square-dense": 0, "rectangle": 2, "stream": 4,
                "stream_shards": 6, "ladder": 0}
 
 
-def main(argv: list) -> int:
-    if argv not in ([], ["--measure"], ["--measure-ooc"], ["--measure-k3"]):
-        print("usage: chip_smoke.py [--measure | --measure-ooc |"
-              " --measure-k3]", file=sys.stderr)
-        return 2
-    here = os.path.dirname(os.path.abspath(__file__))
-    if not os.path.isdir(os.path.join(here, "distance_tpu_torch")):
-        print("chip_smoke: distance_tpu_torch is not beside this script",
-              file=sys.stderr)
-        return 1
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    t_start = time.perf_counter()
-    card = phase_environment()
-    if argv == ["--measure-k3"]:
-        time_k3(k3_uploads(make_alignment(N_BENCH, L_BENCH, SEED)), None,
-                card)
-    elif argv:
-        measure_mode() if argv == ["--measure"] else measure_out_of_core()
-    if argv:
-        print(f"chip_smoke --measure: done in"
-              f" {time.perf_counter() - t_start:.1f} s")
-        print(card)
-        return 0
+def one_device_phases() -> tuple:
+    """Phases 2-12 (the engine on one device): the kernels against their
+    plain versions, the main path in its modes, in and out of core, and
+    the timings.  Returns (launches by path, sha256 by mode, times by
+    kernel, (K1's, K5/K6's, K2-K4's largest absolute difference))."""
     t0 = time.perf_counter()
     bench = make_alignment(N_BENCH, L_BENCH, SEED)
     print(f"[2] bench alignment {bench.shape} made in"
@@ -3142,6 +3643,43 @@ def main(argv: list) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         launches["ladder"] = phase_ladder(tmp)
     launches.update(phase_cached(shas))
+    return launches, shas, times, (max_err, max_err_cached, max_err_pack)
+
+
+def main(argv: list) -> int:
+    if argv not in ([], ["--measure"], ["--measure-ooc"], ["--measure-k3"]):
+        print("usage: chip_smoke.py [--measure | --measure-ooc |"
+              " --measure-k3]", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "distance_tpu_torch")):
+        print("chip_smoke: distance_tpu_torch is not beside this script",
+              file=sys.stderr)
+        return 1
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    card = phase_environment()
+    # every phase but 13 runs the engine on the first card alone, as on a
+    # host of one card (a lone process would take every card)
+    with engine_devices([torch.device("cuda", 0)]):
+        if argv == ["--measure-k3"]:
+            time_k3(k3_uploads(make_alignment(N_BENCH, L_BENCH, SEED)), None,
+                    card)
+        elif argv:
+            measure_mode() if argv == ["--measure"] else measure_out_of_core()
+        else:
+            launches, shas, times, errs = one_device_phases()
+    if argv:
+        print(f"chip_smoke --measure: done in"
+              f" {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        return 0
+    max_err, max_err_cached, max_err_pack = errs
+    launches.update(phase_multi_device(shas, launches["square-ooc"]))
     k3 = {path: c["diff_rebuild"] for path, c in launches.items()
           if path in K3_LAUNCHES}
     check(k3 == K3_LAUNCHES, f"K3 launches by path {k3}, expected"

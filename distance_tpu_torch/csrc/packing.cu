@@ -38,7 +38,13 @@
 //   to exc_idx[s], the last of a segment holding two or more to
 //   exc_idx[8192 + s] (flat indices, -1 for none), and their true
 //   residuals to exc_val (0 where the index is -1): the JAX
-//   packing.py:208-224 exactly.
+//   packing.py:208-224 exactly.  A pack may be a column window of a
+//   wider block, the columns col0 .. col0 + n of a block of n_whole
+//   (one part of a block whose columns are split over devices): its
+//   segments and sidecar indices are then the whole block's, so that the
+//   parts' sidecars merge into the whole block's (packing.py
+//   merge_rel4_sidecars).  The window of a whole block (col0 0, n_whole
+//   n) is the plain pack.
 // - rel: |res| > 127 becomes -128, out (G, m, n) int8.
 //
 // Bound.  Bytes: the counters are read once (4 G m n B) and the lanes
@@ -225,6 +231,26 @@ __device__ __forceinline__ void quad_res(const Rel& p, Cursor& k,
   }
 }
 
+// The cells of a window (columns col0 .. col0 + p.n of each of the rows of
+// a block n_whole columns wide) whose flat index in the whole block is
+// below x: a segment of the whole block is a run of the window's cells.
+__device__ __forceinline__ unsigned window_before(const Rel& p, unsigned x,
+                                                  unsigned col0,
+                                                  unsigned n_whole) {
+  if (n_whole == p.n) return x;
+  const unsigned rows = x / n_whole, col = x - rows * n_whole;
+  return rows * p.n + (col <= col0 ? 0u : min(col - col0, p.n));
+}
+
+// The whole block's flat index of the window's cell f.
+__device__ __forceinline__ unsigned whole_index(const Rel& p, unsigned f,
+                                                unsigned col0,
+                                                unsigned n_whole) {
+  if (n_whole == p.n) return f;
+  const unsigned row = f / p.n;
+  return row * n_whole + col0 + (f - row * p.n);
+}
+
 // An outlier at cell f with residual res, for a lane's first and last.
 __device__ __forceinline__ void note(int f, int32_t res, int& first,
                                      int32_t& first_res, int& last,
@@ -242,12 +268,16 @@ __device__ __forceinline__ void note(int f, int32_t res, int& first,
 // 4 blocks an SM (at most 64 registers a thread): 1024 blocks take two
 // waves of the card's 132 SMs, not three.
 __global__ void __launch_bounds__(THREADS, 4)
-    rel4_pack(Rel p, unsigned seg_len, uint16_t* __restrict__ lanes,
+    rel4_pack(Rel p, unsigned seg_len, unsigned col0, unsigned n_whole,
+              unsigned whole, uint16_t* __restrict__ lanes,
               int32_t* __restrict__ exc) {
   const unsigned lane = threadIdx.x & 31;
   const unsigned s = blockIdx.x * SEG_WARPS + (threadIdx.x >> 5);
-  const unsigned lo = min(s * seg_len, p.cells);
-  const unsigned hi = min(lo + seg_len, p.cells);
+  // the segment's cells of the window, in its own flat order
+  const unsigned lo_w = min(s * seg_len, whole);
+  const unsigned lo = window_before(p, lo_w, col0, n_whole);
+  const unsigned hi =
+      window_before(p, min(lo_w + seg_len, whole), col0, n_whole);
   int first = INT_MAX, last = -1;
   int32_t first_res = 0, last_res = 0;
   const unsigned q_lo = (lo + 3u) >> 2, q_hi = (hi + 3u) >> 2;
@@ -304,8 +334,9 @@ __global__ void __launch_bounds__(THREADS, 4)
   if (lane == 0) {
     const bool one = seg_first != INT_MAX;
     const bool two = seg_last >= 0 && seg_last != seg_first;
-    exc[s] = one ? seg_first : -1;
-    exc[SEGMENTS + s] = two ? seg_last : -1;
+    exc[s] = one ? (int)whole_index(p, seg_first, col0, n_whole) : -1;
+    exc[SEGMENTS + s] =
+        two ? (int)whole_index(p, seg_last, col0, n_whole) : -1;
     exc[2 * SEGMENTS + s] = one ? first_res : 0;
     exc[3 * SEGMENTS + s] = two ? last_res : 0;
   }
@@ -441,25 +472,33 @@ bool rel_of(const void* c, const void* rb, long long rb_stride,
 // m, n/2) int8 and the sidecar exc (2, 16384) int32, exc_idx then
 // exc_val.  The block's rows are records i0.. and its columns j0..; `diag`
 // masks the self-pairs (i0 + r + doff == j0 + col), and cells past nv1
-// rows or nv2 columns are padding.  One launch on `stream`; returns
-// cudaGetLastError(), or cudaErrorInvalidValue for arguments the kernel
-// does not take (an odd n, 2^31 cells or more, c off the 16-byte grid).
+// rows or nv2 columns are padding.  c is the window of columns col0 ..
+// col0 + n of a block n_whole columns wide: the sidecar's segments and
+// indices are the whole block's (col0 0 and n_whole n for a whole block).
+// One launch on `stream`; returns cudaGetLastError(), or
+// cudaErrorInvalidValue for arguments the kernel does not take (an odd n,
+// a window outside its block, 2^31 cells or more in the block, c off the
+// 16-byte grid).
 extern "C" int dt_pack_rel4_launch(const void* c, const void* rb,
                                    long long rb_stride, const void* cb,
                                    long long cb_stride, const void* cc,
                                    long long g, long long m, long long n,
                                    long long i0, long long j0, long long nv1,
                                    long long nv2, int diag, long long doff,
+                                   long long col0, long long n_whole,
                                    void* lanes, void* exc, void* stream) {
   Rel p;
-  if (n % 2 || reinterpret_cast<uintptr_t>(lanes) % 2 ||
+  if (n % 2 || reinterpret_cast<uintptr_t>(lanes) % 2 || col0 < 0 ||
+      n_whole < n || col0 > n_whole - n || !valid(g, m, n_whole) ||
       !rel_of(c, rb, rb_stride, cb, cb_stride, cc, g, m, n, i0, j0, nv1, nv2,
               diag, doff, p))
     return (int)cudaErrorInvalidValue;
-  const unsigned seg_len = p.cells ? (p.cells + SEGMENTS - 1) / SEGMENTS : 1;
+  const unsigned whole = (unsigned)(g * m * n_whole);
+  const unsigned seg_len = whole ? (whole + SEGMENTS - 1) / SEGMENTS : 1;
   rel4_pack<<<SEGMENTS / SEG_WARPS, THREADS, 0,
               static_cast<cudaStream_t>(stream)>>>(
-      p, seg_len, static_cast<uint16_t*>(lanes), static_cast<int32_t*>(exc));
+      p, seg_len, (unsigned)col0, (unsigned)n_whole, whole,
+      static_cast<uint16_t*>(lanes), static_cast<int32_t*>(exc));
   return (int)cudaGetLastError();
 }
 

@@ -44,14 +44,24 @@ super-row encoded once a run) and packed as in core.  A sharded stream (``-s``
 with ``--shard K/N``) runs every N-th group and indexes its units in a
 ``.units`` sidecar, which ``parallel/multihost.merge_parts`` interleaves
 into the unsharded file.  The knobs of KNOB_ENV follow the JAX CLI's
-environment variables.  Multi-device runs are not ported yet.  Output
-bytes are identical to the JAX engine's for every tile, group, budget,
-shard and pack rung.
+environment variables.
+
+On more than one device (``devices_of``: every card of the host for a
+lone process) an engine splits the columns of every block, and the rows
+of every stream group, over them, as the JAX engine's GSPMD mesh does:
+each device holds the codes and the f features whole and its part of the
+g cache, runs the kernels on its columns, and packs them; the row
+baselines and the self-counter are made once, on the first device, the
+parts' rel4 sidecars merge into the whole block's, and the strip reaches
+the host from the first device in the one-device layout (``_BlockEngine``
+``parts``).  Output bytes are identical to the JAX engine's for every
+tile, group, budget, shard, pack rung and device count.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import os as _os
 import sys
 from dataclasses import dataclass
@@ -426,13 +436,16 @@ def _progress_mark(setup: Setup, units_done: int) -> None:
     setup.progress.record(units_done, offset)
 
 
-def device_of(backend: str) -> torch.device:
-    """The device a backend runs on: ``cuda`` the card, ``torch`` the CPU.
-    The card is cuda:0, or for a rank that torchrun started on a host of
-    several cards, cuda:(LOCAL_RANK mod the card count).  ``cuda`` without
-    a CUDA device is an error, not a CPU run."""
+def devices_of(backend: str) -> List[torch.device]:
+    """The devices a backend runs on: ``torch`` the CPU; ``cuda`` every
+    card of the host for a lone process (the JAX engine's
+    ``jax.devices()``), one card for a rank that torchrun started
+    (cuda:(LOCAL_RANK mod the card count)) or for worker k of a ``--launch
+    N`` (cuda:(k mod the card count)).  An engine splits its blocks over
+    them (``_BlockEngine``).  ``cuda`` without a CUDA device is an error,
+    not a CPU run."""
     if backend == "torch":
-        return torch.device("cpu")
+        return [torch.device("cpu")]
     if backend != "cuda":
         raise DistanceError(
             f"unknown backend {backend!r}: expected one of {BACKENDS}"
@@ -442,7 +455,20 @@ def device_of(backend: str) -> torch.device:
             "--backend cuda needs a CUDA device and none is available"
             " (--backend torch runs the plain version on the CPU)"
         )
-    return torch.device("cuda", _local_rank() % torch.cuda.device_count())
+    cards = torch.cuda.device_count()
+    if _os.environ.get("LOCAL_RANK") is not None:
+        return [torch.device("cuda", _local_rank() % cards)]
+    worker = _launch_worker()
+    if worker is not None:
+        return [torch.device("cuda", worker[0] % cards)]
+    return [torch.device("cuda", k) for k in range(cards)]
+
+
+def device_of(backend: str) -> torch.device:
+    """The first of ``devices_of(backend)``: the device whose memory sizes
+    a run, and where its baselines are made and its strips leave for the
+    host."""
+    return devices_of(backend)[0]
 
 
 def _local_rank() -> int:
@@ -451,15 +477,30 @@ def _local_rank() -> int:
     return int(_os.environ.get("LOCAL_RANK") or 0)
 
 
+def _launch_worker() -> Optional[Tuple[int, int]]:
+    """(k, N) for worker k of a ``--launch N`` (the launcher sets
+    CARD_SHARE_ENV to "k/N"), else None."""
+    value = _os.environ.get(CARD_SHARE_ENV)
+    if not value:
+        return None
+    k, n = value.split("/")
+    return int(k), int(n)
+
+
 def _card_share() -> int:
     """How many processes of this run share this process's card: the
-    workers of a ``--launch N`` (told by the launcher), or the ranks
-    torchrun started on this host whose LOCAL_RANK maps to the same card
-    (LOCAL_WORLD_SIZE of them, spread over the cards round-robin)."""
-    share = int(_os.environ.get(CARD_SHARE_ENV) or 1)
+    ranks torchrun started on this host whose LOCAL_RANK maps to the same
+    card (LOCAL_WORLD_SIZE of them, spread over the cards round-robin),
+    times the workers of a ``--launch N`` under such a rank; else the
+    workers of a ``--launch N`` whose index maps to this worker's card."""
+    cards = max(1, torch.cuda.device_count())
+    worker = _launch_worker()
+    if _os.environ.get("LOCAL_RANK") is None:
+        return (1 if worker is None
+                else len(range(worker[0] % cards, worker[1], cards)))
+    share = 1 if worker is None else worker[1]
     local_world = int(_os.environ.get("LOCAL_WORLD_SIZE") or 1)
     if local_world > 1:
-        cards = max(1, torch.cuda.device_count())
         card = _local_rank() % cards
         share *= len(range(card, local_world, cards))
     return share
@@ -525,8 +566,49 @@ def _cached_plan_for(measure: str) -> Optional[CounterPlan]:
     return None
 
 
+def _split_devices(devices: Sequence[torch.device],
+                   tj: int) -> List[torch.device]:
+    """The devices an engine of column tile ``tj`` splits its blocks over:
+    all of them when there are more than one and they divide ``tj`` (the
+    JAX engine's ``_device_mesh``), else the first alone."""
+    if len(devices) > 1 and tj > 0 and tj % len(devices) == 0:
+        return list(devices)
+    return list(devices[:1])
+
+
+def _g_rows(n_pad: int, tj: int, split: bool) -> int:
+    """Rows of the g cache of a prepared matrix of ``n_pad`` rows: on a
+    split engine whole blocks of ``tj`` (the JAX engine's blocked cache
+    pads its rows with zero features)."""
+    return -(-n_pad // tj) * tj if split else n_pad
+
+
+class _Part:
+    """One device of an engine (``_BlockEngine.parts``): its device, and
+    the stream its work is queued on, the device's current stream, or for
+    a device already in the engine's list (logical devices on one card) a
+    stream of its own, so that the parts' launches overlap.  Every tensor
+    of a part is made on its stream (``ctx``)."""
+
+    def __init__(self, device: torch.device, own_stream: bool) -> None:
+        self.device = device
+        self.stream = (torch.cuda.Stream(device)
+                       if own_stream and device.type == "cuda" else None)
+
+    def ctx(self):
+        """The part's stream as the current one."""
+        return (torch.cuda.stream(self.stream) if self.stream is not None
+                else contextlib.nullcontext())
+
+    def current(self):
+        """The stream the part's work is queued on."""
+        return (self.stream if self.stream is not None
+                else torch.cuda.current_stream(self.device))
+
+
 class _BlockEngine:
-    """Counter blocks for (strip, block) tile pairs on one torch device.
+    """Counter blocks for (strip, block) tile pairs on one torch device, or
+    split over several.
 
     Blocks leave the device packed, on the JAX engine's ladder
     (``pack_mode``): with ``rel`` ``prepare`` picks a reference row, and
@@ -535,24 +617,56 @@ class _BlockEngine:
     fewer than 2^16 sites (``packed``), narrow -> (saturations) -> wide,
     else int32 counters ("none").  ``prepare(diff_ref=...)`` sends codes
     diff-encoded.
+
+    Given several ``devices`` and a column tile ``tj`` that they divide,
+    the engine splits the columns of every block over them (the JAX
+    engine's pair-data parallelism over its "dp" mesh): ``parts`` holds a
+    ``_Part`` a device, part d takes columns d tj/k .. (d + 1) tj/k of
+    each block (``bounds``; a stream group's columns likewise, those
+    past its records taking none).  Every part holds the prepared
+    matrices whole (``reps``: the same diffs rebuilt on each, or one
+    pinned buffer copied to each), their f features and the strip's, and
+    of a g cache its own columns of every block; it launches its blocks'
+    counters and packs on its stream (``to_part`` passes a tensor from
+    one part to another).  The baselines against the
+    reference row are made on the first part (a split g cache's column
+    baseline by each part from its columns), and each strip's parts reach
+    the first part, where they join in the one-device layout, the rel4
+    sidecars merged into the whole blocks' (the parts pack windows of
+    their blocks).  rel4 needs tj / 2 to divide over the parts too (the
+    JAX engine's ``_rel4_shard_ok``).
     """
 
-    def __init__(self, measure: str, device: torch.device, ti: int,
-                 width: int = 0, rel: bool = False) -> None:
+    def __init__(self, measure: str, devices: Sequence[torch.device],
+                 ti: int, width: int = 0, rel: bool = False, *,
+                 tj: int) -> None:
+        devices = _split_devices(devices, tj)
         self.measure = measure
         self.plan = get_plan(measure)
-        self.kplan = plan_to_torch(self.plan, device)
-        self.device = device
+        seen: set = set()
+        self.parts: List[_Part] = []
+        for dev in devices:
+            self.parts.append(_Part(dev, dev in seen))
+            seen.add(dev)
+        self.k = len(self.parts)
+        self.tj = tj
+        self.part_w = tj // self.k
+        self.device = devices[0]
         self.ti = ti
         self.width = width
         self.rel = rel
         self.packed = 0 < width < packing.PACK_LIMIT
-        # Diff-encoded uploads: set by prepare(diff_ref=), swapped by a
-        # stream retarget; the identity of the diff_ref array the
-        # uploader was built from, so that prepares sharing one reuse it
-        self.diff_up: Optional[DiffUploader] = None
+        self._rel4_ok = (tj // 2) % self.k == 0
+        # the plans' tables on each device
+        self._kplans = {dev: plan_to_torch(self.plan, dev) for dev in seen}
+        self.kplan = self._kplans[self.device]
+        # Diff-encoded uploads: one uploader a part, all against one
+        # reference row; set by prepare(diff_ref=), swapped by a stream
+        # retarget; the identity of the diff_ref array they were built
+        # from, so that prepares sharing one reuse them
+        self._ups: Optional[List[DiffUploader]] = None
         self._diff_ref_src = None
-        # The reference row of the rel baselines, on the device
+        # The reference row of the rel baselines, on the first device
         self.rel_ref: Optional[torch.Tensor] = None
         # Consecutive saturated fetches at the narrow, rel4 and rel rungs
         self._overflow_streak = 0
@@ -568,20 +682,109 @@ class _BlockEngine:
         # are not prepared, and their baselines are not kept
         self._prepared: Dict[int, torch.Tensor] = {}
         self._bases: Dict[tuple, tuple] = {}
+        # On a split engine, the parts' copies of each device matrix the
+        # engine hands out (id of the first part's -> (it, copies))
+        self._reps: Dict[int, tuple] = {}
         # The cached-feature path (the JAX engine's feat_cache_on): its
-        # unfolded plan, the feature caches of prepared matrices (id ->
-        # (matrix, features)) and the reference row's (row, f, g) features
-        self.cplan = (cached_plan_to_torch(self.plan, device)
-                      if _cached_plan_for(measure) is not None else None)
+        # unfolded plan (its tables on each device), the feature caches
+        # of the parts' matrices (id -> (matrix, features[, blocked]))
+        # and the reference row's (row, f, g) features
+        self._cplans = ({dev: cached_plan_to_torch(self.plan, dev)
+                         for dev in seen}
+                        if _cached_plan_for(measure) is not None else None)
+        self.cplan = (self._cplans[self.device] if self._cplans is not None
+                      else None)
         self._gcache: Dict[int, tuple] = {}
         self._fcache: Dict[int, tuple] = {}
         self._ref_feats: Optional[tuple] = None
+
+    @property
+    def diff_up(self) -> Optional[DiffUploader]:
+        """The first part's diff uploader (the one that encodes)."""
+        return self._ups[0] if self._ups else None
+
+    @diff_up.setter
+    def diff_up(self, up: Optional[DiffUploader]) -> None:
+        self._ups = self._uploaders(up) if up is not None else None
+
+    def _uploaders(self, up: DiffUploader) -> List[DiffUploader]:
+        """``up`` and an uploader of its reference row for every other
+        part."""
+        return [up] + [DiffUploader(up.ref, p.device) for p in self.parts[1:]]
+
+    def bounds(self, span: int) -> List[Tuple[int, int, int]]:
+        """(part, first column, end column) of each part that takes columns
+        of a block ``span`` columns wide."""
+        if self.k == 1:
+            return [(0, 0, span)]
+        w = self.part_w
+        return [(d, d * w, min((d + 1) * w, span)) for d in range(self.k)
+                if d * w < span]
+
+    def reps(self, handle: torch.Tensor) -> List[torch.Tensor]:
+        """The parts' copies of a device matrix the engine handed out."""
+        if self.k == 1:
+            return [handle]
+        entry = self._reps.get(id(handle))
+        if entry is None or entry[0] is not handle:
+            raise ValueError("a matrix that the split engine did not place")
+        return entry[1]
+
+    def _register(self, reps: List[torch.Tensor]) -> torch.Tensor:
+        """The handle (the first part's copy) of a matrix placed on every
+        part, as ``reps`` lists them."""
+        if self.k > 1:
+            self._reps[id(reps[0])] = (reps[0], reps)
+        return reps[0]
+
+    def _dense(self, host: np.ndarray) -> List[torch.Tensor]:
+        """``host`` on every part: through one pinned buffer, copied to
+        each."""
+        if self.k == 1 or self.device.type != "cuda":
+            return [to_device(host, p.device) for p in self.parts]
+        staged = torch.empty(host.shape, dtype=torch.uint8, pin_memory=True)
+        staged.copy_(torch.from_numpy(host))
+        out = []
+        for part in self.parts:
+            with part.ctx():
+                out.append(staged.to(part.device, non_blocking=True))
+        return out
+
+    def _upload(self, ups: List[DiffUploader], enc,
+                rows: int) -> List[torch.Tensor]:
+        """An encoding rebuilt on every part by its uploader (K3 on
+        each)."""
+        out = []
+        for part, up in zip(self.parts, ups):
+            with part.ctx():
+                out.append(up.upload_encoded(enc, rows))
+        return out
+
+    def to_part(self, t: torch.Tensor, src: int, dst: int) -> torch.Tensor:
+        """``t``, made by part ``src``'s work, for part ``dst``'s: its
+        stream waits for what ``src`` queued so far; on one card ``t``
+        itself, kept from reuse until that stream is past it, else a copy
+        to ``dst``'s card."""
+        src_part, dst_part = self.parts[src], self.parts[dst]
+        if src == dst or t.device.type != "cuda":
+            return t
+        done = torch.cuda.Event()
+        done.record(src_part.current())
+        with dst_part.ctx():
+            stream = dst_part.current()
+            stream.wait_event(done)
+            if t.device == dst_part.device:
+                t.record_stream(stream)
+                return t
+            # the copy runs on the current stream of t's card, after dst's
+            t.record_stream(torch.cuda.current_stream(t.device))
+            return t.to(dst_part.device, non_blocking=True)
 
     def prepare(self, matrix: np.ndarray, max_block: int,
                 diff_ref: Optional[np.ndarray] = None,
                 h2d_memo: Optional[dict] = None, cache_g: bool = False,
                 cache_f: bool = False) -> torch.Tensor:
-        """Pad and upload a sequence matrix once.
+        """Pad and upload a sequence matrix once (to every part).
 
         Rows are padded so that every strip and block slice of up to
         ``max_block`` rows stays in bounds (torch slicing past the end
@@ -604,9 +807,10 @@ class _BlockEngine:
 
         ``cache_g`` / ``cache_f`` (the JAX engine's): on the cached-feature
         path, build the matrix's g features (the column side of its
-        blocks) or f features (an out-of-core X group, whose strips run
-        against every super-row; the stream's loaded rows or super-row,
-        whose one block takes every group) once, when they fit
+        blocks; on a split engine each part its columns of every block)
+        or f features (an out-of-core X group, whose strips run against
+        every super-row; the stream's loaded rows or super-row, whose one
+        block takes every group; on every part) once, when they fit
         FEATCACHE_BUDGET (the f cache half of it).  The sweep passes them
         only when the cache fits its device budget beside everything else
         (``_cache_bytes``), as the JAX engine's predicates do; a matrix
@@ -643,9 +847,10 @@ class _BlockEngine:
                     h2d_memo.clear()
                     h2d_memo.update(up=self.diff_up, n_pad=n_pad, enc=enc)
         if enc is not None:
-            dev = self.diff_up.upload_encoded(enc, n_pad)
+            reps = self._upload(self._ups, enc, n_pad)
         else:
-            dev = to_device(_padded(), self.device)
+            reps = self._dense(_padded())
+        dev = self._register(reps)
         if (self.rel and width > 0 and n
                 and not _os.environ.get("DISTANCE_TPU_NO_REL_PACK")):
             if self.diff_up is not None:
@@ -657,28 +862,52 @@ class _BlockEngine:
         self._prepared[id(dev)] = dev
         if self.cplan is not None:
             need = self.cplan.channels * n_pad * l_pad
-            if cache_g and need <= FEATCACHE_BUDGET:
-                self._gcache[id(dev)] = (dev, self._features(dev, "g", "g"))
-            if cache_f and need <= FEATCACHE_BUDGET // 2:
-                self._fcache[id(dev)] = (dev, self._features(dev, "f", "f"))
+            g_need = self.cplan.channels * _g_rows(
+                n_pad, self.tj, self.k > 1) * l_pad
+            for d, (part, rep) in enumerate(zip(self.parts, reps)):
+                with part.ctx():
+                    if cache_g and g_need <= FEATCACHE_BUDGET:
+                        self._gcache[id(rep)] = (rep, self._gpart(rep, d),
+                                                 True)
+                    if cache_f and need <= FEATCACHE_BUDGET // 2:
+                        self._fcache[id(rep)] = (
+                            rep, self._features(rep, "f", "f"))
         return dev
+
+    def _gpart(self, codes: torch.Tensor, d: int) -> torch.Tensor:
+        """Part ``d``'s g cache of a prepared matrix's copy ``codes``: its
+        features whole on one device; on a split engine those of its
+        columns of every block, block after block (the JAX
+        ``_jit_feat_builder_blocked``'s local shard; rows past the matrix
+        have zero features, the features of code 0)."""
+        if self.k == 1:
+            return self._features(codes, "g", "g")
+        rows, l_pad = codes.shape
+        nbp = _g_rows(rows, self.tj, True)
+        if nbp != rows:
+            codes = torch.cat([codes, codes.new_zeros((nbp - rows, l_pad))])
+        w = self.part_w
+        mine = codes.view(nbp // self.tj, self.tj, l_pad)[:, d * w:(d + 1) * w]
+        return self._features(mine.reshape(-1, l_pad), "g", "g")
 
     def _features(self, codes: torch.Tensor, side: str,
                   kind: str) -> torch.Tensor:
         """K5 of ``codes``, counted by kind in FEATURE_BUILDS."""
         FEATURE_BUILDS[kind] += 1
-        return cached_ops.features(codes, self.cplan, side)
+        return cached_ops.features(codes, self._cplans[codes.device], side)
 
     def gfeat_of(self, handle: torch.Tensor) -> Optional[torch.Tensor]:
-        """The g-feature cache of a prepared matrix, or None."""
+        """The g-feature cache of a prepared matrix, or of a part's copy of
+        it (that part's), or None."""
         entry = self._gcache.get(id(handle))
         return entry[1] if entry is not None and entry[0] is handle else None
 
     def fx_strip(self, m1: torch.Tensor, i0: int, ti: int) -> torch.Tensor:
-        """f features of rows i0.. of ``m1``: a slice of its f cache, else
-        built from its codes (once a strip of at most the engine's ``ti``
-        rows: a stream's whole loaded side, or a super-row, without its f
-        cache would build them all in one temporary)."""
+        """f features of rows i0.. of ``m1`` (a prepared matrix or a part's
+        copy): a slice of its f cache, else built from its codes (once a
+        strip of at most the engine's ``ti`` rows: a stream's whole loaded
+        side, or a super-row, without its f cache would build them all in
+        one temporary)."""
         entry = self._fcache.get(id(m1))
         if entry is not None and entry[0] is m1:
             return entry[1][:, i0 : i0 + ti]
@@ -689,7 +918,7 @@ class _BlockEngine:
         return self._features(m1[i0 : i0 + ti], "f", "strip")
 
     def cache_group(self, codes: torch.Tensor, loaded: torch.Tensor) -> None:
-        """Build a stream group's g features (one K5,
+        """Build a stream group's g features (one K5 a part, of its rows,
         FEATURE_BUILDS["group"]; the JAX ``counters_xla``'s
         ``features_device(y, plan, "g")``), so that its blocks take K6
         against the f cache of the loaded rows ``loaded`` (which must have
@@ -700,20 +929,26 @@ class _BlockEngine:
         if entry is None or entry[0] is not loaded:
             raise ValueError("a stream group takes K6 only against loaded"
                              " rows with an f cache")
-        self._gcache[id(codes)] = (codes,
-                                   self._features(codes, "g", "group"))
+        reps = self.reps(codes)
+        for d, c0, c1 in self.bounds(codes.shape[0]):
+            with self.parts[d].ctx():
+                self._gcache[id(reps[d])] = (
+                    reps[d], self._features(reps[d][c0:c1], "g", "group"),
+                    False)
 
     def drop_group(self, codes: torch.Tensor) -> None:
         """Free a stream group's g features once its contractions and its
-        column baseline are queued: a refetch packs the counters its strip
-        kept."""
-        entry = self._gcache.pop(id(codes), None)
-        if entry is not None and entry[0] is codes:
-            _free(entry[1])
+        column baseline are queued (a refetch packs the counters its strip
+        kept), and forget its parts' codes."""
+        for rep in self.reps(codes):
+            entry = self._gcache.pop(id(rep), None)
+            if entry is not None and entry[0] is rep:
+                _free(entry[1])
+        self._reps.pop(id(codes), None)
 
     def ref_features(self, ref: torch.Tensor) -> tuple:
         """(f, g) features of the reference row ``ref``, built once a
-        reference row."""
+        reference row, on the first part."""
         if self._ref_feats is None or self._ref_feats[0] is not ref:
             self._ref_feats = (ref, self._features(ref[None], "f", "ref"),
                                self._features(ref[None], "g", "ref"))
@@ -724,7 +959,7 @@ class _BlockEngine:
         global BASELINES, K6_BASELINES
         BASELINES += 1
         K6_BASELINES += 1
-        return cached_ops.contract(fx, gy, self.cplan)
+        return cached_ops.contract(fx, gy, self._cplans[fx.device])
 
     def diff_ref_for(self, source: np.ndarray) -> Optional[np.ndarray]:
         """Reference row for diff-encoded uploads of ``source`` (a row
@@ -742,7 +977,8 @@ class _BlockEngine:
         and its reference row.  On the cached-feature path K6 computes
         them instead, as the JAX engine does: "row" of a matrix with an f
         cache against the reference row's g features, "col" of a matrix
-        with a g cache against its f features, and "self" once those
+        with a g cache against its f features (on a split engine each
+        part its columns, joined on the first), and "self" once those
         features are built."""
         global BASELINES
         key = (id(m), side)
@@ -755,6 +991,8 @@ class _BlockEngine:
         if fxf is not None and fxf[0] is m:
             value = self._k6_baseline(fxf[1],
                                       self.ref_features(ref)[1])[:, :, 0]
+        elif gyf is not None and self.k > 1:
+            value = self._split_col_baseline(m, ref)
         elif gyf is not None:
             value = self._k6_baseline(self.ref_features(ref)[0], gyf)[:, 0, :]
         elif (side == "self" and self._ref_feats is not None
@@ -772,61 +1010,115 @@ class _BlockEngine:
             self._bases[key] = (m, ref, value)
         return value
 
+    def _split_col_baseline(self, m: torch.Tensor,
+                            ref: torch.Tensor) -> torch.Tensor:
+        """c(ref, m) (G, columns) on the first part, from each part's K6 of
+        the reference row's f features against its g features: a prepared
+        matrix's blocked cache (whole blocks of tj columns, zero past its
+        rows), or a stream group's rows."""
+        f_ref = self.ref_features(ref)[0]
+        vals, blocked = [], False
+        for d, rep in enumerate(self.reps(m)):
+            entry = self._gcache.get(id(rep))
+            if entry is None or entry[0] is not rep:
+                continue  # a stream group's part without columns
+            blocked = entry[2]
+            with self.parts[d].ctx():
+                v = self._k6_baseline(self.to_part(f_ref, 0, d),
+                                      entry[1])[:, 0, :]
+            vals.append(self.to_part(v, d, 0))
+        if not blocked:
+            return torch.cat(vals, dim=-1)
+        g = vals[0].shape[0]
+        return torch.stack([v.view(g, -1, self.part_w) for v in vals],
+                           dim=2).reshape(g, -1)
+
     def block(self, m1: torch.Tensor, m2: torch.Tensor, i0: int, j0: int,
               ti: int, tj: int,
               fx: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One (ti, tj) block, rows i0.. of ``m1`` against rows j0.. of
-        ``m2``: (G, ti, tj) int32 counters, by K1; or given the strip's f
-        features ``fx``, by K6 against the slice at j0 of ``m2``'s g
-        cache."""
+        """One (ti, tj) launch on the current stream, rows i0.. of ``m1``
+        against rows j0.. of ``m2`` (a prepared matrix or group, or one
+        part's copies): (G, ti, tj) int32 counters, by K1; or given the
+        strip's f features ``fx``, by K6 against rows j0.. of ``m2``'s g
+        features (``gfeat_of``: a part's own rows of them)."""
         global K1_BLOCKS, K6_BLOCKS
-        if i0 + ti > m1.shape[0] or j0 + tj > m2.shape[0]:
+        rows2 = m2.shape[0] if fx is None else self.gfeat_of(m2).shape[1]
+        if i0 + ti > m1.shape[0] or j0 + tj > rows2:
             raise ValueError(
                 f"block ({i0}+{ti}, {j0}+{tj}) outside the prepared rows"
-                f" ({m1.shape[0]}, {m2.shape[0]})"
+                f" ({m1.shape[0]}, {rows2})"
             )
         if fx is not None:
             K6_BLOCKS += 1
             return cached_ops.contract(fx, self.gfeat_of(m2)[:, j0 : j0 + tj],
-                                       self.cplan)
+                                       self._cplans[fx.device])
         K1_BLOCKS += 1
         return kernels.counters(m1[i0 : i0 + ti], m2[j0 : j0 + tj],
-                                self.kplan)
+                                self._kplans[m1.device])
 
     def first_dispatch(self, m1: torch.Tensor, m2: torch.Tensor, i0: int,
                        col_starts, ti: int, tj: int,
                        ref: Optional[torch.Tensor] = None):
-        """The (G, ti, tj) int32 counters of each block of one strip, rows
-        i0.. of ``m1`` against rows j0.. of ``m2`` for each j0 of
-        ``col_starts``, and on the cached-feature path, with a reference
-        row ``ref`` and no f cache on ``m1``, the strip rows' baseline
-        against it ((G, ti), else None: an f cache's is kept whole).  With
-        a g cache on ``m2`` the strip's f features are built (or sliced)
-        once and each block is one K6 contraction against the cache's
-        slice at j0 (the JAX engine's _dispatch_strip); without one each
-        block is one K1 launch."""
-        if self.gfeat_of(m2) is None:
-            return [self.block(m1, m2, i0, j0, ti, tj)
-                    for j0 in col_starts], None
+        """The int32 counters of each block of one strip, rows i0.. of
+        ``m1`` against rows j0.. of ``m2`` for each j0 of ``col_starts``,
+        each a list of its parts' (G, ti, columns) counters on their
+        devices (``bounds``: one (G, ti, tj) block on one device), and on
+        the cached-feature path, with a reference row ``ref`` and no f
+        cache on ``m1``, the strip rows' baseline against it ((G, ti) on
+        the first part, else None: an f cache's is kept whole).  With a
+        g cache on ``m2`` each part's f features of the strip are built
+        (or sliced) once and each block part is one K6 contraction
+        against its g features (the JAX engine's _dispatch_strip;
+        ``block``); without one, or on a split engine at a column start
+        off the block grid (the JAX ``gcache_usable``), each block part
+        is one K1 launch.  Every part's launches are queued before any
+        is waited for."""
+        bounds = self.bounds(tj)
+        r1, r2 = self.reps(m1), self.reps(m2)
+        cached = self.gfeat_of(m2) is not None and (
+            self.k == 1 or all(j0 % self.tj == 0 for j0 in col_starts))
+        if not cached:
+            kept = []
+            for j0 in col_starts:
+                row = []
+                for d, c0, c1 in bounds:
+                    with self.parts[d].ctx():
+                        row.append(self.block(r1[d], r2[d], i0, j0 + c0, ti,
+                                              c1 - c0))
+                kept.append(row)
+            return kept, None
         if i0 + ti > m1.shape[0]:
             raise ValueError(f"strip ({i0}+{ti}) outside the prepared rows"
                              f" ({m1.shape[0]})")
-        fx = self.fx_strip(m1, i0, ti)
-        blocks = [self.block(m1, m2, i0, j0, ti, tj, fx) for j0 in col_starts]
+        fxs = {}
+        for d, _, _ in bounds:
+            with self.parts[d].ctx():
+                fxs[d] = self.fx_strip(r1[d], i0, ti)
+        kept = []
+        for j0 in col_starts:
+            row = []
+            # a part's g features hold its columns of each block, block
+            # after block (one device: the matrix's rows)
+            g0 = j0 if self.k == 1 else j0 // self.tj * self.part_w
+            for d, c0, c1 in bounds:
+                with self.parts[d].ctx():
+                    row.append(self.block(r1[d], r2[d], i0, g0, ti, c1 - c0,
+                                          fxs[d]))
+            kept.append(row)
         rb = None
         if ref is not None and id(m1) not in self._fcache:
-            rb = self._k6_baseline(fx, self.ref_features(ref)[1])[:, :, 0]
-        return blocks, rb
+            rb = self._k6_baseline(fxs[0], self.ref_features(ref)[1])[:, :, 0]
+        return kept, rb
 
     def baselines(self, m1: torch.Tensor, m2: torch.Tensor,
                   ref: Optional[torch.Tensor], i0: int, ti: int,
                   rb: Optional[torch.Tensor] = None):
         """(rb, cb, cc) of rows i0..i0+ti of ``m1`` and of ``m2``'s rows
         against ``ref`` (the engine's reference row when None): (G, ti),
-        (G, rows of m2), (G,) int32.  cb and cc are kept as ``_baseline``
-        keeps them; rb is the given one (a cached-feature strip's), else a
-        slice of m1's kept row baseline (K1's, or K6's over m1's f
-        cache)."""
+        (G, rows of m2), (G,) int32, on the first part.  cb and cc are
+        kept as ``_baseline`` keeps them; rb is the given one (a
+        cached-feature strip's), else a slice of m1's kept row baseline
+        (K1's, or K6's over m1's f cache)."""
         if ref is None:
             ref = self.rel_ref
         if rb is None:
@@ -835,17 +1127,21 @@ class _BlockEngine:
                 self._baseline(ref, ref, "self"))
 
     def pack_block(self, c: torch.Tensor, mode: str, i0: int, j0: int,
-                   bases=None, nv=None, diag_off=None):
-        """A block's (G, ti, tj) counters at rung ``mode``: themselves
-        under "none", their narrow lanes or wide words under "narrow" and
-        "wide"; else (lanes, cb[, exc_idx, exc_val]) packed against
-        ``bases`` = (rb, cb, cc): rb of the block's rows, cb of its whole
-        column side (its columns are columns j0.. of it).  ``nv`` = (valid
-        rows, valid columns) of the sides: the rel4 pack zeroes padding
-        cells so they cannot flood the exception sidecar.  ``diag_off``
-        (sweeps over one source): the row side's offset minus the column
-        side's, for masking self-pairs; None when the sides hold no
-        self-pairs."""
+                   bases=None, nv=None, diag_off=None, col0: int = 0,
+                   span: Optional[int] = None):
+        """A block's (G, ti, tj) counters at rung ``mode``, or one part's
+        (G, ti, columns) window of a block ``span`` columns wide from its
+        column ``col0`` on: themselves under "none", their narrow lanes or
+        wide words under "narrow" and "wide"; else (lanes, cb[, exc_idx,
+        exc_val]) packed against ``bases`` = (rb, cb, cc) on the part's
+        device: rb of the block's rows, cb of its whole column side (its
+        columns are columns j0.. of it); a window's rel4 sidecar is the
+        whole block's segments' (``packing.merge_rel4_sidecars``).  ``nv``
+        = (valid rows, valid columns) of the sides: the rel4 pack zeroes
+        padding cells so they cannot flood the exception sidecar.
+        ``diag_off`` (sweeps over one source): the row side's offset minus
+        the column side's, for masking self-pairs; None when the sides
+        hold no self-pairs."""
         RUNG_BLOCKS[mode] += 1
         if mode == "none":
             return c
@@ -858,54 +1154,59 @@ class _BlockEngine:
         cb = cb_all[:, j0 : j0 + tj]
         if mode == "rel4":
             lanes, exc_idx, exc_val = packing.pack_rel4(
-                c, rb, cb, cc, i0, j0, nv, diag_off)
+                c, rb, cb, cc, i0, j0, nv, diag_off, col0,
+                tj if span is None else span)
             return lanes, cb, exc_idx, exc_val
         return packing.pack_rel(c, rb, cb, cc, i0, j0, diag_off), cb
 
     def dispatch_stream(self, padded: np.ndarray,
                         send_dense) -> Tuple[torch.Tensor, object]:
-        """One stream group's codes on the device: diff-encoded when the
-        batch is low-diversity, else by ``send_dense()`` (the group's
-        pinned dense send).  Returns the
-        codes and the reference row of the group's baselines.  The diffs
-        are weighed against the dense bytes of the group's own rows (the
-        JAX engine pads a group to its full size first).
+        """One stream group's codes on the device (on every part): diff
+        encoded when the batch is low-diversity, else by ``send_dense()``
+        (the group's pinned dense send, to every part).  Returns the codes
+        and the reference row of the group's baselines.  The diffs are
+        weighed against the dense bytes of the group's own rows (the JAX
+        engine pads a group to its full size first).
 
         When the current reference cannot compress the batch, it is
         retargeted at the batch's own per-column mode (a stream from
         another lineage than the loaded set, or one that drifted); after
         RETARGET_FAIL_LIMIT consecutive candidates that fail too, probing
-        stops.  The retarget swaps ``diff_up`` (and, when rel packing is
-        on, ``rel_ref``) under the lock, after an unlocked probe; each
-        group keeps the uploader it was encoded with, so its codes and
-        its baselines always share one reference."""
+        stops.  The retarget swaps the uploaders of every part (and, when
+        rel packing is on, ``rel_ref``) under the lock, after an unlocked
+        probe; each group keeps the uploaders it was encoded with, so its
+        codes and its baselines always share one reference."""
         bn = padded.shape[0]
-        up = self.diff_up
-        enc = up.encode(padded, n_real=bn) if up is not None else None
-        if enc is None and up is not None:
+        ups = self._ups
+        enc = ups[0].encode(padded, n_real=bn) if ups is not None else None
+        if enc is None and ups is not None:
             with self._retarget_lock:
                 probe = self._retarget_fail_streak < RETARGET_FAIL_LIMIT
             if probe:
-                refp = np.zeros(up.l_pad, dtype=np.uint8)
+                refp = np.zeros(ups[0].l_pad, dtype=np.uint8)
                 refp[:] = sampled_mode_row(padded)
                 refp[self.width:] = 0  # keep pad columns zero
-                cand = DiffUploader(refp, self.device)
-                enc2 = cand.encode(padded, n_real=bn)
+                cands = self._uploaders(DiffUploader(refp, self.device))
+                enc2 = cands[0].encode(padded, n_real=bn)
                 if enc2 is not None:
-                    cand.ref_dev()  # upload before publishing
+                    for part, cand in zip(self.parts, cands):
+                        with part.ctx():
+                            cand.ref_dev()  # upload before publishing
                 with self._retarget_lock:
                     if enc2 is not None:
                         self._retarget_fail_streak = 0
-                        self.diff_up = cand  # later groups start here
+                        self._ups = cands  # later groups start here
                         if self.rel_ref is not None:
-                            self.rel_ref = cand.ref_dev()
+                            self.rel_ref = cands[0].ref_dev()
                     else:
                         self._retarget_fail_streak += 1
                 if enc2 is not None:
-                    up, enc = cand, enc2
+                    ups, enc = cands, enc2
         if enc is not None:
-            return up.upload_encoded(enc, bn), up.ref_dev()
-        return send_dense(), up.ref_dev() if up is not None else self.rel_ref
+            return (self._register(self._upload(ups, enc, bn)),
+                    ups[0].ref_dev())
+        return (self._register(send_dense()),
+                ups[0].ref_dev() if ups is not None else self.rel_ref)
 
     def mode_for(self, cols: int) -> str:
         """The rung of a dispatch whose blocks have ``cols`` columns: rel4
@@ -924,6 +1225,7 @@ class _BlockEngine:
     def _rel4_usable(self) -> bool:
         return (
             self.rel_ref is not None
+            and self._rel4_ok
             and self._rel4_overflow_streak < NARROW_STICKY_LIMIT
         )
 
@@ -933,7 +1235,8 @@ class _BlockEngine:
         rung's bytes) -> (saturations) -> rel -> (saturations) ->
         narrow/wide (packed widths) or none (>= 2^16 sites, where 16-bit
         lanes can't hold the counters).  Without a reference row the
-        ladder is the historical narrow -> (saturations) -> wide."""
+        ladder is the historical narrow -> (saturations) -> wide; on a
+        split engine whose parts do not divide tj / 2 it starts at rel."""
         if self._rel4_usable:
             return "rel4"
         if self._rel_usable:
@@ -978,17 +1281,20 @@ class _BlockEngine:
         self._prepared[id(handle)] = handle
 
     def release(self, handle: torch.Tensor) -> None:
-        """Free a prepared matrix's memory now rather than when its last
-        reference goes (the handle is empty afterwards), with its
-        baselines and its feature caches."""
+        """Free a prepared matrix's memory on every part now rather than
+        when its last reference goes (the handle is empty afterwards),
+        with its baselines and its feature caches."""
         self._prepared.pop(id(handle), None)
         for side in ("row", "col"):
             self._bases.pop((id(handle), side), None)
-        _free(handle)
-        for cache in (self._gcache, self._fcache):
-            entry = cache.pop(id(handle), None)
-            if entry is not None and entry[0] is handle:
-                _free(entry[1])
+        reps = self.reps(handle)
+        self._reps.pop(id(handle), None)
+        for rep in reps:
+            _free(rep)
+            for cache in (self._gcache, self._fcache):
+                entry = cache.pop(id(rep), None)
+                if entry is not None and entry[0] is rep:
+                    _free(entry[1])
 
 
 def _free(tensor: torch.Tensor) -> None:
@@ -1004,20 +1310,22 @@ class _Strip:
     """The dispatches of one strip: every column block of rows i0.. of
     ``m1`` against ``m2`` (or of a stream group, or of a staged part of
     one).  The first call counts each block with K1 and keeps the (G, ti,
-    tj) int32 counters on the device; a later call (a refetch at a lower
-    rung, after a saturation) packs the kept counters again and launches
-    no K1.  ``release`` drops them once the strip is finished.
+    tj) int32 counters on the device (on a split engine each part its
+    columns, on its device); a later call (a refetch at a lower rung,
+    after a saturation) packs the kept counters again and launches no K1.
+    ``release`` drops them once the strip is finished.
 
     A call packs every block at ``mode`` (the engine's ladder by default)
-    and concatenates them on the device along columns: one (P, ti, span)
-    strip of int32 counters, narrow lanes or wide words, or under rel
-    packing (lanes, bundle): lanes concatenated along columns, and one
-    sidecar bundle of the column baselines (concatenated), the
+    and concatenates them on the (first) device along columns: one (P,
+    ti, span) strip of int32 counters, narrow lanes or wide words, or
+    under rel packing (lanes, bundle): lanes concatenated along columns,
+    and one sidecar bundle of the column baselines (concatenated), the
     strip-constant row baselines with the self-counter, and under rel4
     the blocks' sidecars stacked to (B, CAP) with block-local indices (the
-    host maps them by tj).  A strip costs two device-to-host copies.
-    ``nv`` and ``diag_off`` are ``_BlockEngine.pack_block``'s; ``ref`` is
-    the reference row of the baselines (the engine's by default)."""
+    host maps them by tj; a split block's parts' sidecars merged).  A
+    strip costs two device-to-host copies.  ``nv`` and ``diag_off`` are
+    ``_BlockEngine.pack_block``'s; ``ref`` is the reference row of the
+    baselines (the engine's by default)."""
 
     def __init__(self, eng: _BlockEngine, m1, m2, i0: int, col_starts,
                  ti: int, tj: int, nv=None, diag_off=None,
@@ -1026,7 +1334,7 @@ class _Strip:
         self.i0, self.col_starts, self.ti, self.tj = i0, col_starts, ti, tj
         self.nv = nv if nv is not None else (m1.shape[0], m2.shape[0])
         self.diag_off, self.ref = diag_off, ref
-        self._kept: Optional[List[torch.Tensor]] = None
+        self._kept: Optional[List[list]] = None
         self._rb = self._bases = None
 
     def __call__(self, mode: Optional[str] = None):
@@ -1041,25 +1349,47 @@ class _Strip:
                 self.tj, ref if rel else None)
         if rel and self._bases is None:
             # a stream group's codes are not prepared, so the engine does
-            # not keep their baseline: the strip does
-            self._bases = eng.baselines(self.m1, self.m2, self.ref, self.i0,
-                                        self.ti, self._rb)
-        bases = self._bases
-        handles = [eng.pack_block(c, mode, self.i0, j0, bases, self.nv,
-                                  self.diag_off)
-                   for c, j0 in zip(self._kept, self.col_starts)]
+            # not keep their baseline: the strip does, on every part
+            bases = eng.baselines(self.m1, self.m2, self.ref, self.i0,
+                                  self.ti, self._rb)
+            self._bases = [tuple(eng.to_part(t, 0, d) for t in bases)
+                           for d in range(eng.k)]
+        bounds = eng.bounds(self.tj)
+        handles = []  # (part, pack) in column order
+        for parts, j0 in zip(self._kept, self.col_starts):
+            for (d, c0, _), c in zip(bounds, parts):
+                with eng.parts[d].ctx():
+                    handles.append((d, eng.pack_block(
+                        c, mode, self.i0, j0 + c0,
+                        self._bases[d] if rel else None, self.nv,
+                        self.diag_off, c0, self.tj)))
+
+        def first(d, t):
+            return eng.to_part(t, d, 0)
+
         if mode not in ("rel4", "rel"):
-            return (torch.cat(handles, dim=-1) if len(handles) > 1
-                    else handles[0])
-        lanes = torch.cat([h[0] for h in handles], dim=-1)
-        cb = torch.cat([h[1] for h in handles], dim=-1)
-        rb, _, cc = bases
+            outs = [first(d, h) for d, h in handles]
+            return torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
+        lanes = torch.cat([first(d, h[0]) for d, h in handles], dim=-1)
+        rb, cb_all, cc = self._bases[0]
+        cb = torch.cat([cb_all[:, j0 : j0 + self.tj]
+                        for j0 in self.col_starts], dim=-1)
         rb_cc = torch.cat([rb, cc[:, None]], dim=1)
-        if mode == "rel4":
-            return lanes, packing.bundle_sidecars(
-                cb, rb_cc, torch.stack([h[2] for h in handles]),
-                torch.stack([h[3] for h in handles]))
-        return lanes, packing.bundle_sidecars(cb, rb_cc)
+        if mode != "rel4":
+            return lanes, packing.bundle_sidecars(cb, rb_cc)
+        exc = [(first(d, h[2]), first(d, h[3])) for d, h in handles]
+        if len(bounds) == 1:
+            exc_idx = torch.stack([e[0] for e in exc])
+            exc_val = torch.stack([e[1] for e in exc])
+        else:
+            # (parts, blocks, CAP): each block's parts' windowed sidecars
+            b = len(self.col_starts)
+            exc_idx, exc_val = packing.merge_rel4_sidecars(
+                torch.stack([e[0] for e in exc]).view(b, len(bounds), -1)
+                .transpose(0, 1),
+                torch.stack([e[1] for e in exc]).view(b, len(bounds), -1)
+                .transpose(0, 1))
+        return lanes, packing.bundle_sidecars(cb, rb_cc, exc_idx, exc_val)
 
     def release(self) -> None:
         """Drop the kept counters and baselines."""
@@ -1429,8 +1759,13 @@ def _resolve_auto_tiles(setup: Setup) -> None:
         setup.tile_j = _auto_tile(n2, device)
 
 
-def _choose_tiles(n1: int, n2: int, setup: Setup,
-                  device: torch.device) -> Tuple[int, int]:
+def _choose_tiles(n1: int, n2: int, setup: Setup, device: torch.device,
+                  ndev: int = 1) -> Tuple[int, int]:
+    """(ti, tj) of a loaded sweep.  On ``ndev`` devices tj is rounded up to
+    a multiple of lcm(2 ndev, ti), with the JAX engine's note: its blocks'
+    columns then split over the devices, rel4's halved columns too, and
+    every block start stays on the strip grid that ``prepare`` pads
+    for."""
     if setup.tile_i == 0:
         setup.tile_i = _cap_tile_ram(
             _auto_tile(n1, device), n2, setup.measure,
@@ -1446,6 +1781,15 @@ def _choose_tiles(n1: int, n2: int, setup: Setup,
     while ti > 8 and ti * max(n2, 1) >= (1 << 31):
         ti //= 2
     tj = min(setup.tile_j, _pow2_at_least(n2))
+    mult = math.lcm(2 * ndev, ti)
+    if ndev > 1 and tj % mult:
+        adj = -(-tj // mult) * mult
+        print(
+            f"[distance-tpu] note: tile_j {tj} -> {adj}"
+            f" (multiple of lcm(2 x {ndev} devices, tile_i {ti}))",
+            file=sys.stderr,
+        )
+        tj = adj
     return ti, tj
 
 
@@ -1516,8 +1860,10 @@ def _sweep_load(setup: Setup) -> None:
     pruned = _prune_invariant_columns(sources)
     if pruned is not None:
         sources, same_offset, width = pruned
-    device = device_of(setup.backend)
-    ti, tj = _choose_tiles(n1, n2, setup, device)
+    devices = devices_of(setup.backend)
+    device = devices[0]
+    ti, tj = _choose_tiles(n1, n2, setup, device, len(devices))
+    split = len(_split_devices(devices, tj)) > 1
     # (rows, max_block) of each prepared matrix.  The rectangle prepares
     # file1 for strips and file2 for blocks, both at the engine's strip
     # stride ti (as the JAX engine does, engine.py:3006-3016).
@@ -1533,7 +1879,8 @@ def _sweep_load(setup: Setup) -> None:
     # JAX engine's predicates): it never sends a sweep out of core
     cplan = _cached_plan_for(setup.measure)
     cache_g = cplan is not None and _cache_fits(
-        cplan, rows[-1], width, ti, tj, footprint, budget)
+        cplan, _g_rows(rows[-1], tj, split), width, ti, tj, footprint,
+        budget)
     if budget is not None and footprint > budget:
         print(
             f"[distance-tpu] out-of-core {'' if square else 'rectangle '}"
@@ -1541,10 +1888,10 @@ def _sweep_load(setup: Setup) -> None:
             f" {budget / 1e9:.2f} GB device budget",
             file=sys.stderr,
         )
-        _sweep_blocked(setup, sources, width, same_offset, device, ti, tj,
+        _sweep_blocked(setup, sources, width, same_offset, devices, ti, tj,
                        budget)
         return
-    eng = _BlockEngine(setup.measure, device, ti, width, rel=True)
+    eng = _BlockEngine(setup.measure, devices, ti, width, rel=True, tj=tj)
     with phase_timer("diff-ref"):
         diff_ref = eng.diff_ref_for(sources[0])
     with phase_timer("prepare-upload"):
@@ -1701,27 +2048,29 @@ def _x_cache_rows(cache: Optional[CounterPlan], group: int, width: int,
 
 def _layout_footprint(group: int, rows: int, n_y: int, width: int,
                       counters_per_pair: int, ti: int, tj: int,
-                      cache: Optional[CounterPlan] = None) -> int:
+                      cache: Optional[CounterPlan] = None,
+                      split: bool = False) -> int:
     """Device bytes of an out-of-core sweep against ``n_y`` columns in X
     groups of ``group`` rows and super-rows of ``rows``: ``_blocked_footprint``
     of one of each (a super-row prepared as ``max(ti, tj)`` rows more,
     every super-row of at least ``tj`` rows keeping a baseline of its
     prepared rows), and with ``cache`` the cached-feature path's bytes
     (``_cache_bytes``: the X group's f cache when it has one, the
-    super-row's g cache)."""
+    super-row's g cache, in whole blocks on a ``split`` engine)."""
     pad = max(ti, tj)
     kept = n_y + -(-n_y // tj) * pad
     fp = _blocked_footprint(group, rows + pad, width, counters_per_pair, ti,
                             tj, kept)
     if cache is not None:
         fp += _cache_bytes(cache, _x_cache_rows(cache, group, width, ti)
-                           + rows + pad, width, ti, tj)
+                           + _g_rows(rows + pad, tj, split), width, ti, tj)
     return fp
 
 
 def _blocked_layout(n_x: int, n_y: int, width: int, counters_per_pair: int,
                     ti: int, tj: int, budget: int,
-                    cache: Optional[CounterPlan] = None) -> Tuple[int, int]:
+                    cache: Optional[CounterPlan] = None,
+                    split: bool = False) -> Tuple[int, int]:
     """(X-group rows, Y super-row rows) of an out-of-core sweep of ``n_x``
     rows against ``n_y`` columns.
 
@@ -1739,7 +2088,7 @@ def _blocked_layout(n_x: int, n_y: int, width: int, counters_per_pair: int,
     l_pad row bytes), an X group keeps an f cache when it fits half of
     FEATCACHE_BUDGET (``_BlockEngine.prepare``), every super-row a g cache
     within FEATCACHE_BUDGET, and the layout counts them
-    (``_cache_bytes``)."""
+    (``_cache_bytes``; a ``split`` engine's g caches in whole blocks)."""
     l_pad = _padded_shape(1, width, 1, 1)[1]
     r = cache.total_channels if cache is not None else 0
     host_cap = HOST_BUF_BUDGET // 2 // max(1, n_y * counters_per_pair * 4)
@@ -1750,7 +2099,7 @@ def _blocked_layout(n_x: int, n_y: int, width: int, counters_per_pair: int,
 
     def footprint(rows: int) -> int:
         return _layout_footprint(group, rows, n_y, width, counters_per_pair,
-                                 ti, tj, cache)
+                                 ti, tj, cache, split)
 
     per_tj = footprint(tj) - footprint(0)
     rows = max(0, budget - footprint(0)) // per_tj * tj
@@ -1842,8 +2191,8 @@ class _StagedSide:
 
 
 def _sweep_blocked(setup: Setup, sources: List[np.ndarray], width: int,
-                   same_offset: int, device: torch.device, ti: int, tj: int,
-                   budget: int) -> None:
+                   same_offset: int, devices: List[torch.device], ti: int,
+                   tj: int, budget: int) -> None:
     """Out-of-core square or rectangle sweep (the JAX engine's
     ``_sweep_square_blocked`` and ``_sweep_rectangle_blocked``).
 
@@ -1863,14 +2212,15 @@ def _sweep_blocked(setup: Setup, sources: List[np.ndarray], width: int,
     aln1, aln2 = setup.loaded[0], setup.loaded[-1]
     n1, n2 = aln1.n, aln2.n
     src1, src2 = sources[0], sources[-1]
-    eng = _BlockEngine(setup.measure, device, ti, width, rel=True)
+    eng = _BlockEngine(setup.measure, devices, ti, width, rel=True, tj=tj)
     plan = eng.plan
     g = len(plan.counters)
+    split = eng.k > 1
     cache = _staged_cache(_cached_plan_for(setup.measure), width, ti, tj)
     group_rows, sr_rows = _blocked_layout(n1, n2, width, g, ti, tj, budget,
-                                          cache)
+                                          cache, split)
     if cache is not None and _layout_footprint(
-            group_rows, sr_rows, n2, width, g, ti, tj, cache) > budget:
+            group_rows, sr_rows, n2, width, g, ti, tj, cache, split) > budget:
         # the least layout with the caches passes the budget: K1
         cache = None
         group_rows, sr_rows = _blocked_layout(n1, n2, width, g, ti, tj,
@@ -2353,50 +2703,57 @@ class _GroupUploads:
     again after the next groups have refilled the buffer.
 
     Buffers are zeroed once; a group overwrites the rows it sends, and
-    the site columns past the loaded width stay code 0.
+    the site columns past the loaded width stay code 0.  On a split
+    engine (``parts``) one buffer is copied to every part, by a side
+    stream of each card, and each part's stream waits for its copy.
     """
 
-    def __init__(self, rows: int, width: int, device: torch.device) -> None:
-        self.device = device
-        cuda = device.type == "cuda"
+    def __init__(self, rows: int, width: int, parts: List[_Part]) -> None:
+        self.parts = parts
+        cuda = parts[0].device.type == "cuda"
         self._bufs = [
             torch.zeros((rows, width), dtype=torch.uint8, pin_memory=cuda)
             for _ in range(2 if cuda else 1)
         ]
-        self._copied: List[Optional[torch.cuda.Event]] = [None] * len(
-            self._bufs
-        )
+        self._copied: List[list] = [[] for _ in self._bufs]
         self._k = 0
-        self._side = torch.cuda.Stream(device) if cuda else None
+        self._sides = ({p.device: torch.cuda.Stream(p.device) for p in parts}
+                       if cuda else None)
 
     def take(self) -> np.ndarray:
-        """The next host buffer, once the copy that last read it is done."""
-        copied = self._copied[self._k]
-        if copied is not None:
+        """The next host buffer, once the copies that last read it are
+        done."""
+        for copied in self._copied[self._k]:
             copied.synchronize()
         return self._bufs[self._k].numpy()
 
-    def send(self, rows: int) -> torch.Tensor:
-        """The first ``rows`` rows of the buffer ``take`` returned, on the
-        device, ordered before any later work of the current stream."""
+    def send(self, rows: int) -> List[torch.Tensor]:
+        """The first ``rows`` rows of the buffer ``take`` returned, on
+        every part's device, ordered before any later work of its
+        stream."""
         k = self._k
         self._k = (k + 1) % len(self._bufs)
         host = self._bufs[k][:rows]
-        if self._side is None:
-            return host.clone()
-        compute = torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(self._side):
-            # allocated on the side stream, which writes it first
-            codes = torch.empty(host.shape, dtype=torch.uint8,
-                                device=self.device)
-            codes.copy_(host, non_blocking=True)
-            copied = torch.cuda.Event()
-            copied.record(self._side)
-        compute.wait_event(copied)
-        # its memory is not reused before the compute stream is done
-        codes.record_stream(compute)
-        self._copied[k] = copied
-        return codes
+        if self._sides is None:
+            return [host.clone() for _ in self.parts]
+        out, events = [], []
+        for part in self.parts:
+            side = self._sides[part.device]
+            compute = part.current()
+            with torch.cuda.stream(side):
+                # allocated on the side stream, which writes it first
+                codes = torch.empty(host.shape, dtype=torch.uint8,
+                                    device=part.device)
+                codes.copy_(host, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(side)
+            compute.wait_event(copied)
+            # its memory is not reused before the compute stream is done
+            codes.record_stream(compute)
+            out.append(codes)
+            events.append(copied)
+        self._copied[k] = events
+        return out
 
 
 def _run_stream(setup: Setup, split: Optional[_StreamSplit],
@@ -2464,11 +2821,13 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
         unit_index.save()
     plan = get_plan(setup.measure)
     width_dev = int(split.keep.sum()) if split is not None else width
-    device = device_of(setup.backend)
     l_pad = _padded_shape(n1, width_dev, 1, 1)[1]
     # one launch covers every loaded row (of a super-row, when staged), so
-    # they need no strip padding
-    eng = _BlockEngine(setup.measure, device, 1, width_dev, rel=True)
+    # they need no strip padding; a group's records split over the
+    # devices when they divide the group size (the JAX engine's
+    # _device_mesh(rows_pad))
+    eng = _BlockEngine(setup.measure, devices_of(setup.backend), 1,
+                       width_dev, rel=True, tj=grows)
     mat_loaded = (
         np.ascontiguousarray(aln.matrix[:, split.keep])
         if split is not None else aln.matrix
@@ -2505,7 +2864,7 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
         preparer = ThreadPoolExecutor(1)
         prep_fut = preparer.submit(prepare)
         preparer.shutdown(wait=False)
-    uploads = _GroupUploads(grows, l_pad, device)
+    uploads = _GroupUploads(grows, l_pad, eng.parts)
 
     pending: List[tuple] = []
     emitter = _AsyncEmitter()

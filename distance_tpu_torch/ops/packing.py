@@ -183,39 +183,82 @@ def pack_rel_torch(c: torch.Tensor, rb: torch.Tensor, cb: torch.Tensor,
 
 
 def pack_rel4_torch(c: torch.Tensor, rb: torch.Tensor, cb: torch.Tensor,
-                    cc: torch.Tensor, mask: Optional[torch.Tensor] = None
+                    cc: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                    col0: int = 0, n_whole: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of rel4: (G, m, n) int32 counters (n even) -> lanes
     (G, m, n/2) int8, two's-complement nibbles two a byte along columns
     (the even column in the low nibble), and the exception sidecar
     exc_idx, exc_val (REL4_EXC_CAP,) int32: the first outlier of each
     segment, then the last of each that holds two or more (-1 and 0 in
-    unused slots)."""
+    unused slots).
+
+    ``c`` may be the window of columns ``col0`` .. ``col0 + n`` of a block
+    ``n_whole`` columns wide (one device's part of a split block): the
+    segments and the sidecar's flat indices are then the whole (G, m,
+    n_whole) block's, so that ``merge_rel4_sidecars`` of the parts gives
+    the whole block's sidecar."""
     res = _residual(c, rb, cb, cc, mask)
     sat = res.abs() > 7
     nib = (torch.where(sat, REL4_SAT, res) & 0xF).to(torch.uint8)
     lanes = (nib[..., 0::2] | (nib[..., 1::2] << 4)).view(torch.int8)
-    n_flat = res.numel()
+    g, m, n = res.shape
+    n_whole = n if n_whole is None else n_whole
+    _check_window(n, col0, n_whole)
     exc_idx = torch.full((REL4_EXC_CAP,), -1, dtype=torch.int32,
                          device=c.device)
     exc_val = torch.zeros(REL4_EXC_CAP, dtype=torch.int32, device=c.device)
-    if not n_flat:
+    out = torch.nonzero(sat.reshape(-1)).squeeze(1)
+    if not out.numel():
         return lanes, exc_idx, exc_val
-    seg_len = -(-n_flat // REL4_SEGMENTS)
-    flat_sat = torch.zeros(REL4_SEGMENTS * seg_len, dtype=torch.uint8,
-                           device=c.device)
-    flat_sat[:n_flat] = sat.reshape(-1)
-    flat_sat = flat_sat.reshape(REL4_SEGMENTS, seg_len)
-    count = flat_sat.sum(dim=1, dtype=torch.int64)
-    first = flat_sat.argmax(dim=1)
-    last = seg_len - 1 - flat_sat.flip(1).argmax(dim=1)
-    base = torch.arange(REL4_SEGMENTS, device=c.device) * seg_len
-    idx = torch.cat([torch.where(count >= 1, base + first, -1),
-                     torch.where(count >= 2, base + last, -1)])
-    flat_res = res.reshape(-1)
-    exc_idx[:] = idx
-    exc_val[:] = torch.where(idx >= 0, flat_res[idx.clamp(0, n_flat - 1)], 0)
+    seg_len = -(-(g * m * n_whole) // REL4_SEGMENTS)
+    # the outliers' flat indices in the whole block, ascending
+    flat = out // n * n_whole + col0 + out % n
+    vals = res.reshape(-1)[out]
+    segs, count = torch.unique_consecutive(flat // seg_len,
+                                           return_counts=True)
+    end = torch.cumsum(count, 0)
+    first = end - count
+    exc_idx[segs] = flat[first].to(torch.int32)
+    exc_val[segs] = vals[first]
+    two = count >= 2
+    exc_idx[REL4_SEGMENTS + segs[two]] = flat[end[two] - 1].to(torch.int32)
+    exc_val[REL4_SEGMENTS + segs[two]] = vals[end[two] - 1]
     return lanes, exc_idx, exc_val
+
+
+def _check_window(n: int, col0: int, n_whole: int) -> None:
+    if col0 < 0 or n_whole < n or col0 > n_whole - n:
+        raise ValueError(f"columns {col0} .. {col0 + n} are no window of a"
+                         f" block {n_whole} columns wide")
+
+
+def merge_rel4_sidecars(exc_idx: torch.Tensor, exc_val: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whole block's rel4 sidecar from its parts' (torch glue): the
+    parts' windowed sidecars stacked on the first axis, (k, ..., CAP)
+    int32 each, merged segment by segment into (..., CAP).  A segment's
+    first outlier is the least of its parts' firsts, and its last the
+    greatest of its parts' lasts (a part's last is its second slot, or its
+    first where the second is empty), kept only where the parts hold two
+    or more outliers in all; each value comes from the part whose index
+    won."""
+    s = REL4_SEGMENTS
+    i1, i2 = exc_idx[..., :s], exc_idx[..., s:]
+    v1, v2 = exc_val[..., :s], exc_val[..., s:]
+    has1 = i1 >= 0
+    first, at_first = torch.where(has1, i1, torch.iinfo(torch.int32).max
+                                  ).min(dim=0)
+    last_i = torch.where(i2 >= 0, i2, i1)
+    last, at_last = last_i.max(dim=0)
+    one = has1.any(dim=0)
+    two = (has1.sum(dim=0) >= 2) | (i2 >= 0).any(dim=0)
+    val1 = torch.gather(v1, 0, at_first[None])[0]
+    val2 = torch.gather(torch.where(i2 >= 0, v2, v1), 0, at_last[None])[0]
+    return (torch.cat([torch.where(one, first, -1),
+                       torch.where(two, last, -1)], dim=-1),
+            torch.cat([torch.where(one, val1, 0), torch.where(two, val2, 0)],
+                      dim=-1))
 
 
 def _check(c, rb, cb, cc) -> None:
@@ -245,8 +288,8 @@ def _kernel_lib() -> ctypes.CDLL:
         lib = _build.load("packing")
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.dt_pack_rel4_launch.argtypes = [
-            vp, vp, ll, vp, ll, vp, ll, ll, ll, ll, ll, ll, ll, i, ll,
-            vp, vp, vp,
+            vp, vp, ll, vp, ll, vp, ll, ll, ll, ll, ll, ll, ll, i, ll, ll,
+            ll, vp, vp, vp,
         ]
         lib.dt_pack_rel4_launch.restype = ctypes.c_int
         lib.dt_pack_rel_launch.argtypes = [
@@ -358,10 +401,12 @@ def _launch_rel(entry: str, c, rb, cb, cc, shape, *args):
 def pack_rel4_cuda(c: torch.Tensor, rb: torch.Tensor, cb: torch.Tensor,
                    cc: torch.Tensor, i0: int = 0, j0: int = 0,
                    nv: Optional[Tuple[int, int]] = None,
-                   diag_off: Optional[int] = None
+                   diag_off: Optional[int] = None, col0: int = 0,
+                   n_whole: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the rel4 kernel on the current stream of the counters'
-    device: ``pack_rel4_torch`` of the cells ``block_mask`` names.  One
+    device: ``pack_rel4_torch`` of the cells ``block_mask`` names, ``c``
+    the window at ``col0`` of a block ``n_whole`` columns wide.  One
     launch; the sidecar is one (2, REL4_EXC_CAP) allocation, exc_idx and
     exc_val its rows."""
     global LAUNCHES_REL4
@@ -369,10 +414,15 @@ def pack_rel4_cuda(c: torch.Tensor, rb: torch.Tensor, cb: torch.Tensor,
     g, m, n = c.shape
     if n % 2:
         raise ValueError(f"rel4 packs columns two a byte: {n} is odd")
+    n_whole = n if n_whole is None else n_whole
+    _check_window(n, col0, n_whole)
+    if g * m * n_whole > MAX_CELLS:
+        raise ValueError(f"the pack kernel takes blocks of fewer than 2^31"
+                         f" cells, got {(g, m, n_whole)}")
     nv1, nv2 = nv if nv is not None else (i0 + m, j0 + n)
     lanes, exc = _launch_rel(
         "dt_pack_rel4_launch", c, rb, cb, cc, (g, m, n // 2), i0, j0, nv1,
-        nv2, int(diag_off is not None), diag_off or 0)
+        nv2, int(diag_off is not None), diag_off or 0, col0, n_whole)
     LAUNCHES_REL4 += 1
     return lanes, exc[0], exc[1]
 
@@ -393,18 +443,21 @@ def pack_rel_cuda(c: torch.Tensor, rb: torch.Tensor, cb: torch.Tensor,
 def pack_rel4(c: torch.Tensor, rb: torch.Tensor, cb: torch.Tensor,
               cc: torch.Tensor, i0: int = 0, j0: int = 0,
               nv: Optional[Tuple[int, int]] = None,
-              diag_off: Optional[int] = None
+              diag_off: Optional[int] = None, col0: int = 0,
+              n_whole: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """rel4 lanes and sidecar of a block whose rows are records i0.. and
-    columns j0.. of their sides, masked as ``block_mask`` says: the plain
+    columns j0.. of their sides, masked as ``block_mask`` says, or of the
+    window at ``col0`` of a block ``n_whole`` columns wide: the plain
     version for CPU tensors, the kernel for CUDA tensors."""
     if c.device.type != "cpu":
-        return pack_rel4_cuda(c, rb, cb, cc, i0, j0, nv, diag_off)
+        return pack_rel4_cuda(c, rb, cb, cc, i0, j0, nv, diag_off, col0,
+                              n_whole)
     _check(c, rb, cb, cc)
     if c.shape[2] % 2:
         raise ValueError(f"rel4 packs columns two a byte: {c.shape[2]} is odd")
     mask = block_mask(c.shape[1], c.shape[2], i0, j0, nv, diag_off)
-    return pack_rel4_torch(c, rb, cb, cc, mask)
+    return pack_rel4_torch(c, rb, cb, cc, mask, col0, n_whole)
 
 
 def pack_rel(c: torch.Tensor, rb: torch.Tensor, cb: torch.Tensor,

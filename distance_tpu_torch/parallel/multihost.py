@@ -7,9 +7,9 @@ as one command that spawns all of its own workers (reference/src/lib.rs:
 single-command use across *processes and hosts*:
 
 * ``--launch N`` — spawn N local worker processes, each computing the
-  k-th of N balanced shards (engine ``--shard k/N``) on the same card,
-  each with its 1/N share of the engine's auto device budget, and merge
-  their part files into the final output as workers finish (the
+  k-th of N balanced shards (engine ``--shard k/N``) on card k mod the
+  card count, each with its share of that card's auto device budget, and
+  merge their part files into the final output as workers finish (the
   reference's ``gather_write`` reorder buffer, lifted to process
   granularity).
 * ``--num-hosts N --host-id K [--coordinator ADDR]`` — multi-host runs
@@ -44,8 +44,9 @@ from typing import List, Optional, Tuple
 from distance_tpu_torch.fastaio import DistanceError
 
 # Set by ``launch`` in its workers' environment only, never by a user:
-# the number of workers that share the card, each of which takes that
-# share of the engine's auto device budget (``engine._device_budget``).
+# "k/N" for worker k of N, which takes card k mod the card count
+# (``engine.devices_of``) and its share of the auto device budget of that
+# card, 1 over the workers on it (``engine._card_share``).
 CARD_SHARE_ENV = "DISTANCE_TPU_TORCH_CARD_SHARE"
 # Seconds the --coordinator rendezvous waits for every host (JAX's
 # jax.distributed.initialize waits as long): a missing peer fails the
@@ -210,8 +211,9 @@ def launch(args) -> int:
 
     Returns the process exit code.  Workers inherit stdio for stderr;
     each writes ``<output>.partK`` (or a temp dir when printing to
-    stdout).  They share one card, so each is told (``CARD_SHARE_ENV``)
-    to take 1/N of the auto device budget.  Load-mode parts are appended
+    stdout).  Each is told its index (``CARD_SHARE_ENV``), so that worker
+    k takes card k mod the card count and its share of that card's auto
+    device budget.  Load-mode parts are appended
     to the final output as soon as their turn arrives (ReorderBuffer over
     shard indices), so the merge overlaps the stragglers.
     """
@@ -243,9 +245,9 @@ def launch(args) -> int:
             except OSError:
                 pass
 
-    env = dict(os.environ, **{CARD_SHARE_ENV: str(n)})
     procs = [
-        subprocess.Popen(_worker_argv(args, k, n, part_paths[k]), env=env)
+        subprocess.Popen(_worker_argv(args, k, n, part_paths[k]),
+                         env=dict(os.environ, **{CARD_SHARE_ENV: f"{k}/{n}"}))
         for k in range(n)
     ]
 

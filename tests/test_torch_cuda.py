@@ -32,10 +32,14 @@ pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
-def dev():
+def dev(monkeypatch):
+    """The first card; the engine's cuda runs on it alone, as on a host of
+    one card (the launch counts below are one device's)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    return torch.device("cuda", 0)
+    card = torch.device("cuda", 0)
+    split_devices(monkeypatch, [card])
+    return card
 
 
 def random_codes(rng, rows: int, width: int) -> np.ndarray:
@@ -930,3 +934,106 @@ def test_cached_wrappers_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="channels"):
         cached.contract_cuda(fx[:3], fx[:3], plan)
     assert (cached.LAUNCHES_FEATURES, cached.LAUNCHES_CONTRACT) == before
+
+
+# -- the split engine: K2's windows and the engine on several devices --------
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("shape", [(2, 33, 64), (4, 129, 264), (1, 100, 200),
+                                   (2, 2048, 2048), (1, 2000, 8000)])
+def test_windowed_rel4_kernel_matches_plain(dev, shape, k):
+    """K2 rel4 on each part of a block split over k devices (the window of
+    its columns, with the block's width) against its plain version, with
+    the self-pairs and padding masked; the parts' lanes joined and their
+    sidecars merged equal the whole block's launch."""
+    rng = np.random.default_rng(sum(shape) + k)
+    g, m, n = shape
+    w = n // k
+    c = torch.from_numpy(outlier_counters(rng, g, m, n)).to(dev)
+    rb = torch.from_numpy(rng.integers(-3, 4, (g, m)).astype(np.int32)).to(dev)
+    cb = torch.from_numpy(rng.integers(-3, 4, (g, n)).astype(np.int32)).to(dev)
+    cc = torch.from_numpy(rng.integers(-3, 4, g).astype(np.int32)).to(dev)
+    nv = (m - 1, n - 3)
+    whole = packing.pack_rel4_cuda(c, rb, cb, cc, 3, 1, nv, 2)
+    parts = []
+    for d in range(k):
+        cs, cbs = c[:, :, d * w:(d + 1) * w].contiguous(), cb[:, d * w:]
+        got = packing.pack_rel4_cuda(cs, rb, cbs[:, :w], cc, 3, 1 + d * w,
+                                     nv, 2, d * w, n)
+        torch.cuda.synchronize()
+        mask = packing.block_mask(m, w, 3, 1 + d * w, nv, 2, dev)
+        want = packing.pack_rel4_torch(cs, rb, cbs[:, :w], cc, mask, d * w,
+                                       n)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), d
+        parts.append(got)
+    idx, val = packing.merge_rel4_sidecars(
+        torch.stack([p[1] for p in parts]), torch.stack([p[2] for p in parts]))
+    assert torch.equal(torch.cat([p[0] for p in parts], dim=-1), whole[0])
+    assert torch.equal(idx, whole[1]) and torch.equal(val, whole[2])
+
+
+def split_devices(monkeypatch, devices):
+    """The engine's cuda runs on ``devices``; torch runs on the CPU."""
+    real = engine.devices_of
+    monkeypatch.setattr(engine, "devices_of", lambda backend: list(devices)
+                        if backend == "cuda" else real(backend))
+
+
+@pytest.mark.parametrize("budget", [0, 30000])
+@pytest.mark.parametrize("mode", ["square", "rectangle", "stream"])
+@pytest.mark.parametrize("measure", ["raw", "tn93"])
+def test_split_engine_on_card_equals_torch(dev, tmp_path, monkeypatch,
+                                           measure, mode, budget):
+    """The engine on [cuda:0, cuda:0] (two logical devices, each on its
+    own stream), in core and out of core: the plain version's bytes, with
+    twice the one-device run's counter-kernel blocks."""
+    rng = np.random.default_rng(28)
+    mat = random_codes(rng, 100, 300)
+    a, b = tmp_path / "a.fasta", tmp_path / "b.fasta"
+    write_fasta(a, mat[:60])
+    write_fasta(b, mat[60:])
+    args = {"square": [str(a)], "rectangle": [str(a), str(b)],
+            "stream": [str(a), "-s", str(b), "-b", "4"]}[mode]
+    if budget:
+        monkeypatch.setattr(engine, "DEVICE_BUDGET",
+                            5000 if mode == "stream" else budget)
+        monkeypatch.setattr(engine, "HOST_BUF_BUDGET", 20000)
+    monkeypatch.setattr(engine, "TILE_I", 16)
+    monkeypatch.setattr(engine, "TILE_J", 16)
+    monkeypatch.setattr(engine, "STREAM_GROUP", 8)
+    outs, blocks = {}, {}
+    for name, devices in (("one", [dev]), ("two", [dev, dev])):
+        split_devices(monkeypatch, devices)
+        outs[name] = tmp_path / f"{name}.tsv"
+        before = engine.K1_BLOCKS + engine.K6_BLOCKS
+        assert cli.main(args + ["-m", measure, "--backend", "cuda", "-o",
+                                str(outs[name])]) == 0
+        blocks[name] = engine.K1_BLOCKS + engine.K6_BLOCKS - before
+    torch_out = tmp_path / "torch.tsv"
+    assert cli.main(args + ["-m", measure, "--backend", "torch", "-o",
+                            str(torch_out)]) == 0
+    assert outs["one"].read_bytes() == torch_out.read_bytes()
+    assert outs["two"].read_bytes() == torch_out.read_bytes()
+    assert blocks["two"] == 2 * blocks["one"] > 0
+
+
+def test_split_engine_on_two_cards_equals_torch(tmp_path):
+    """A lone process on a host of two or more cards takes every card: the
+    plain version's bytes for the square, the rectangle and the stream."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    rng = np.random.default_rng(29)
+    mat = random_codes(rng, 300, 500)
+    a, b = tmp_path / "a.fasta", tmp_path / "b.fasta"
+    write_fasta(a, mat[:180])
+    write_fasta(b, mat[180:])
+    assert len(engine.devices_of("cuda")) == torch.cuda.device_count()
+    for args in ([str(a)], [str(a), str(b)], [str(a), "-s", str(b)]):
+        outs = []
+        for backend in ("cuda", "torch"):
+            out = tmp_path / f"{backend}.tsv"
+            assert cli.main(args + ["-m", "tn93", "--backend", backend, "-o",
+                                    str(out)]) == 0
+            outs.append(out.read_bytes())
+        assert outs[0] == outs[1], args

@@ -53,8 +53,10 @@ def test_device_of_maps_torchrun_local_rank_to_a_card(monkeypatch,
     ("0", "3", 2, None, 2),    # ranks 0 and 2 on card 0
     ("1", "3", 2, None, 1),    # rank 1 alone on card 1
     ("2", "8", 4, None, 2),
-    ("0", "2", 1, "3", 6),     # a --launch 3 under each of two ranks
-    (None, None, 1, "2", 2),   # a --launch 2 worker
+    ("0", "2", 1, "2/3", 6),   # a --launch 3 under each of two ranks
+    (None, None, 1, "1/2", 2),  # a --launch 2 worker
+    (None, None, 2, "1/3", 1),  # worker 1 of 3 alone on card 1
+    (None, None, 2, "2/3", 2),  # workers 0 and 2 on card 0
 ])
 def test_card_sharers_divide_the_auto_budget(monkeypatch, local_rank,
                                              local_world, cards, launch,

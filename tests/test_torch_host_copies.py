@@ -304,6 +304,7 @@ import distance_tpu_torch.cli
 import distance_tpu_torch.engine
 import distance_tpu_torch.ops.diffup
 import distance_tpu_torch.ops.packing
+import distance_tpu_torch.parallel.mesh
 assert "distance_tpu" not in sys.modules
 argv = sys.argv[1:]
 while argv:

@@ -368,8 +368,9 @@ def test_worker_argv_always_names_the_backend(tmp_path):
 
 
 def test_launched_workers_share_the_card(tmp_path, fastas, monkeypatch):
-    """``--launch N`` tells each worker, and only its workers, to take 1/N
-    of the auto device budget; a nonzero DEVICE_BUDGET stays as set."""
+    """``--launch N`` tells each worker, and only its workers, its index
+    k/N: on one card each takes 1/N of the auto device budget; a nonzero
+    DEVICE_BUDGET stays as set."""
     launched = []
 
     class Worker:
@@ -383,12 +384,13 @@ def test_launched_workers_share_the_card(tmp_path, fastas, monkeypatch):
     monkeypatch.setattr(multihost.subprocess, "Popen", Worker)
     a, _b = write_inputs(tmp_path, fastas)
     assert port([a, "--launch", "3", "-o", str(tmp_path / "o.tsv")]) == 0
-    assert [env[multihost.CARD_SHARE_ENV] for _, env in launched] == ["3"] * 3
+    assert [env[multihost.CARD_SHARE_ENV] for _, env in launched] == [
+        "0/3", "1/3", "2/3"]
     assert multihost.CARD_SHARE_ENV not in os.environ
     monkeypatch.setattr(port_engine, "_card_memory",
                         lambda device: (60_000, 90_000))
     assert port_engine._device_budget(CUDA) == 30_000
-    monkeypatch.setenv(multihost.CARD_SHARE_ENV, "3")
+    monkeypatch.setenv(multihost.CARD_SHARE_ENV, "1/3")
     assert port_engine._device_budget(CUDA) == 10_000
     assert port_engine._device_budget(CUDA, of_total=True) == 15_000
     monkeypatch.setattr(port_engine, "DEVICE_BUDGET", 12345)

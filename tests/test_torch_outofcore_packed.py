@@ -303,8 +303,8 @@ def staged_side(monkeypatch, host_budget):
                     24, 0)
     hits = rng.random(src.shape) < 0.01
     src[hits] = rng.choice(ALL_CODES, int(hits.sum()))
-    eng = port_engine._BlockEngine("raw", torch.device("cpu"), 8, 300,
-                                   rel=True)
+    eng = port_engine._BlockEngine("raw", [torch.device("cpu")], 8, 300,
+                                   rel=True, tj=8)
     side = port_engine._StagedSide(eng, src, 8, eng.diff_ref_for(src))
     return eng, side, src
 

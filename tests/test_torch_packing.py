@@ -290,7 +290,8 @@ def test_dispatch_strip_equals_jax(measure, mode, diff, monkeypatch):
     src2 = src1 if mode == "square" else low_diversity(rng, n2, width)
     n2 = src2.shape[0]
     jeng = jax_engine._BlockEngine(measure, "xla", ti, tj, width)
-    peng = port_engine._BlockEngine(measure, CPU, ti, width, rel=True)
+    peng = port_engine._BlockEngine(measure, [CPU], ti, width, rel=True,
+                                    tj=tj)
     dref = jeng.diff_ref_for(src1)
     pref = peng.diff_ref_for(src1)
     if diff == "on":
@@ -449,7 +450,8 @@ def ladder_pair(width):
     # tile_j 16: the JAX rel4 rung's halved lane axis must divide the
     # 8-device mesh of the tests
     return (jax_engine._BlockEngine("raw", "xla", 8, 16, width=width),
-            port_engine._BlockEngine("raw", CPU, 8, width, rel=True))
+            port_engine._BlockEngine("raw", [CPU], 8, width, rel=True,
+                                     tj=16))
 
 
 def test_sticky_escalation_ladder_equals_jax():

@@ -190,7 +190,7 @@ def test_rectangle_prepared_rows_hold_every_block(ti, tj):
 @pytest.mark.parametrize("ti, tj", [(8, 32), (32, 8)])
 def test_rectangle_footprint_counts_both_prepared_matrices(ti, tj):
     rng = np.random.default_rng(45)
-    eng = port_engine._BlockEngine("raw", torch.device("cpu"), ti)
+    eng = port_engine._BlockEngine("raw", [torch.device("cpu")], ti, tj=tj)
     mats = [eng.prepare(rng.integers(0, 9, (n, 70), dtype=np.uint8), mb)
             for n, mb in ((21, ti), (53, tj))]
     strips = (port_engine.STRIP_LOOKAHEAD + 1) * 2 * ti * mats[1].shape[0] * 4

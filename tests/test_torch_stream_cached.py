@@ -77,7 +77,8 @@ def group_inputs(seed):
 
 def cached_group(measure, loaded, rel):
     """An engine with the loaded rows prepared with their f cache."""
-    eng = port_engine._BlockEngine(measure, CPU, 1, WIDTH, rel=rel)
+    eng = port_engine._BlockEngine(measure, [CPU], 1, WIDTH, rel=rel,
+                                   tj=BN)
     m1 = eng.prepare(loaded[:, :WIDTH], 1, cache_f=True,
                      diff_ref=loaded[0, :WIDTH] if rel else None)
     return eng, m1
@@ -154,7 +155,7 @@ def test_stream_never_builds_the_loaded_sides_features_whole():
     one temporary (as ``fx_strip`` would for a strip), and a group is
     never given g features against it."""
     loaded, group = group_inputs(83)
-    eng = port_engine._BlockEngine("raw", CPU, 1, WIDTH)
+    eng = port_engine._BlockEngine("raw", [CPU], 1, WIDTH, tj=BN)
     m1 = eng.prepare(loaded[:, :WIDTH], 1)
     codes = torch.from_numpy(group)
     with pytest.raises(ValueError, match="f cache"):
