@@ -8,8 +8,8 @@ Run from the root of a checkout.  It builds the kernels from
 the diff rebuild, K4 the narrow/wide packs, K5 the features and K6 their
 contraction, the cached-feature path that the engine's measure set,
 ``engine.CACHED_MEASURES``, sends the square's, the rectangle's and the
-stream's blocks through where their caches fit), holds each against its
-plain
+stream's blocks through where their caches fit, K7 the tn93 base count
+and K8 the dry run's float32 estimate), holds each against its plain
 PyTorch version, drives the port's CLI on SARS-CoV-2-scale synthetic
 alignments made from a seed (29904 sites) in its three modes, in and out
 of core, with diff-encoded uploads and the pack ladder on, checks the
@@ -72,7 +72,11 @@ output, and times the kernels beside their plain versions.  Phases:
    baselines, the stream's 2000-row f cache against its groups' g
    features of 8000 and 384 rows and its baselines, phase 12's staged
    stream parts, ``STREAM_CACHED_LAUNCHES``) and a g cache past 2^31
-   bytes;
+   bytes.  K7 equal to its plain version at the card tests' edges
+   (``tests/test_torch_cuda.py::K7_EDGES``) and at phase 14's uploads of
+   the bench alignment; K8 bit for bit (NaN cells alike) at ``K8_SHAPES``
+   for the six measures and at the dry run's stage-1 counters
+   (``phase_count_and_estimate_vs_plain``);
 3. the square path: the CLI on the 8192 x 29904 alignment, ``-m raw
    --backend cuda``; line count, 1200 random rows against the host
    oracle, each kernel's launch count in that run (10 blocks at rel4; 3
@@ -206,20 +210,36 @@ output, and times the kernels beside their plain versions.  Phases:
    the out-of-core square's blocks at each of their positions and masks,
    and K4 at those parts' shape.
 
-Phases 2-12 run the engine on the first card alone
-(``engine_devices``), their subprocesses with ``CUDA_VISIBLE_DEVICES``
-set to it: on a host of several cards phase 13 is the only one that
-splits.
+14. the JAX package's last device functions and its fuzzer's lattice
+   (``phase_last_functions``): the tn93 square of phase 12 with
+   DISTANCE_TPU_BASECOUNT_DEVICE_MIN=0 (its tallies by K7, 8 uploads; the
+   sha256 of phase 12's host-count run), ``distance_tpu_torch.dryrun``'s
+   ``dryrun_multichip`` on two logical devices of the first card and on
+   every card (stage 1's estimate by K8, stage 2's split sweep against
+   ``--backend torch``), and ``fuzz_one(seed, "cuda")`` of
+   ``scripts/fuzz_differential_torch.py`` for ``FUZZ_SEEDS`` (each
+   configuration's knobs on the card against ``--backend torch``), its
+   time printed; then K7 timed at the square's 8192 x 29904 codes (a
+   launch, and ``engine._count_bases_device`` with its uploads) and K8
+   at 2048² for each measure, beside their byte bounds and plain
+   versions (``time_count_and_estimate``).
+
+Phases 2-12 and 14 run the engine on the first card alone
+(``engine_devices``; the dry run on its devices), their subprocesses
+with ``CUDA_VISIBLE_DEVICES``
+set to it: on a host of several cards phase 13 and phase 14's dry run
+on every card are the only ones that split.
 
 Every profiled run's split shows device time for each kernel it
 launched.  K3's launches on each path of phases 3-11 must be
 ``K3_LAUNCHES``.
 Any failed check raises, and the script exits non-zero without a result.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists the eight kernels (``counters``, ``pack_rel4``, ``pack_rel``,
+lists the ten kernels (``counters``, ``pack_rel4``, ``pack_rel``,
 ``pack_narrow``, ``pack_wide``, ``diff_rebuild``, ``features``,
-``contract``) with their launches per path (``multi_device`` for phase
-13's split runs), errors, times and bounds.
+``contract``, ``base_counts``, ``estimate``) with their launches per path
+(``multi_device`` for phase 13's split runs, phase 14's by its runs),
+errors, times and bounds.
 Without a CUDA device, or without the package beside it, it fails.
 
     python3 chip_smoke.py --measure
@@ -501,7 +521,8 @@ def phase_environment() -> str:
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    names = ("counters", "packing", "diffup", "features", "contract")
+    names = ("counters", "packing", "diffup", "features", "contract",
+             "basecount", "estimate")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc a source
         list(pool.map(_build.load, names))
     print(f"[1] kernels {', '.join(names)} built together and loaded in"
@@ -1343,16 +1364,18 @@ def truth_tables(dev) -> None:
 
 # The kernels of the port, by the names of the result line.
 KERNELS = ("counters", "pack_rel4", "pack_rel", "pack_narrow", "pack_wide",
-           "diff_rebuild", "features", "contract")
+           "diff_rebuild", "features", "contract", "base_counts", "estimate")
 
 
 def reset_counts() -> None:
     """Every kernel's launch count, the engine's baseline contractions, its
     blocks by rung of the pack ladder and its feature builds set to 0."""
     from distance_tpu_torch import engine
-    from distance_tpu_torch.ops import cached, counters, diffup, packing
+    from distance_tpu_torch.ops import (basecount, cached, counters, diffup,
+                                        estimate, packing)
 
     counters.LAUNCHES = packing.LAUNCHES_REL4 = packing.LAUNCHES_REL = 0
+    basecount.LAUNCHES = estimate.LAUNCHES = 0
     packing.LAUNCHES_NARROW = packing.LAUNCHES_WIDE = 0
     diffup.LAUNCHES = engine.BASELINES = engine.K1_BLOCKS = 0
     cached.LAUNCHES_FEATURES = cached.LAUNCHES_CONTRACT = 0
@@ -1371,7 +1394,8 @@ def read_counts() -> dict:
     ``blocks`` (counter blocks packed, by rung: first dispatches and
     refetches) and ``builds`` (K5 feature builds by kind)."""
     from distance_tpu_torch import engine
-    from distance_tpu_torch.ops import cached, counters, diffup, packing
+    from distance_tpu_torch.ops import (basecount, cached, counters, diffup,
+                                        estimate, packing)
 
     return {"counters": counters.LAUNCHES,
             "pack_rel4": packing.LAUNCHES_REL4,
@@ -1381,6 +1405,8 @@ def read_counts() -> dict:
             "diff_rebuild": diffup.LAUNCHES,
             "features": cached.LAUNCHES_FEATURES,
             "contract": cached.LAUNCHES_CONTRACT,
+            "base_counts": basecount.LAUNCHES,
+            "estimate": estimate.LAUNCHES,
             "baselines": engine.BASELINES,
             "k6_baselines": engine.K6_BASELINES,
             "k1_blocks": engine.K1_BLOCKS,
@@ -3057,6 +3083,7 @@ def phase_cached(shas: dict) -> dict:
                 check_packed_path(f"{tag} cached", counts, blocks, strips + 2)
                 check_cached(f"{tag} cached", counts, strips)
                 sha = in_core[mode, measure] = sha256(out)
+                shas[f"{mode}-{measure}"] = sha
                 with measure_set(()):
                     wall1, counts1 = run_cli(f"{tag} K1",
                                              inputs + ["-o", out], measure)
@@ -3321,6 +3348,15 @@ def check_mesh() -> None:
             torch.cuda.synchronize()
             check(torch.equal(got, want), f"[13] sharded_counters {measure}"
                                           f" {backend} != plain")
+    plan = get_plan("raw")
+    r, g = plan.total_channels, len(plan.counters)
+    step = lambda: mesh.sharded_counters(x, y, plan, grid)  # noqa: E731
+    ms = cuda_timed(step, 3)
+    bound, by = contract_bound_ms(x_rows, y_rows, L_BENCH, r, g, l_pad)
+    print(f"[13] sharded_counters raw on the grid (its four devices' K5 and"
+          f" K6 in turn, the partials' adds): {ms:.4f} ms"
+          f" ({bound / ms:.3f} of the bound of the whole {x_rows} x {y_rows}"
+          f" block, {bound:.4f} ms, {by}) ({gpu_line()})")
     print(f"[13] parallel.mesh.sharded_counters on a (2, 2) grid of"
           f" {grid} (y rows over dp, sites over sp, int32 partials summed)"
           f" == the plain version and K1 on one device, {x_rows} x {y_rows} x {L_BENCH}, six"
@@ -3380,6 +3416,12 @@ def time_split_parts() -> dict:
     bound_stream = contract_bound_ms(N_STREAM[0], SPLIT_GROUP // 2, L_BENCH,
                                      r, g, l_pad)[0]
     del fl, gg
+    # a part's g cache on two devices: its half of every block's columns
+    rows_part = N_BENCH // 2
+    build = lambda: cached.features(codes[:rows_part], cplan, "g")  # noqa: E731
+    build()
+    out["k5_part_ms"] = cuda_timed(build, 10)
+    bound_k5 = (1.0 + r) * rows_part * l_pad / PEAK_BYTES * 1e3
     c = cached.contract(fx, gy[:, :half], cplan)
     rb = torch.zeros((g, BLOCK), dtype=torch.int32, device=dev)
     cb = torch.zeros((g, half), dtype=torch.int32, device=dev)
@@ -3389,7 +3431,8 @@ def time_split_parts() -> dict:
     bound_k2 = (4.0 * g * BLOCK * half + g * BLOCK * half / 2) / PEAK_BYTES * 1e3
     out.update(k2_part_ms=ring["ms"], k2_part_call_ms=ring["call_ms"],
                bounds={"k6_block": bound_block, "k6_part": bound_part,
-                       "k6_stream_part": bound_stream, "k2_part": bound_k2})
+                       "k6_stream_part": bound_stream, "k2_part": bound_k2,
+                       "k5_part": bound_k5})
     print(f"[13] K6 raw at the split square's part ({BLOCK}, {half}):"
           f" {out['k6_part_ms']:.4f} ms ({bound_part / out['k6_part_ms']:.3f}"
           f" of its bound {bound_part:.4f} ms), the whole {BLOCK}² block"
@@ -3402,7 +3445,10 @@ def time_split_parts() -> dict:
           f" window of its block, cold {out['k2_part_ms']:.4f} ms"
           f" ({bound_k2 / out['k2_part_ms']:.3f} of its bound"
           f" {bound_k2:.5f} ms, bytes), a call {out['k2_part_call_ms']:.4f}"
-          f" ms ({gpu_line()})")
+          f" ms; K5 raw of a part's g cache ({rows_part} rows: its half of"
+          f" every block's columns) {out['k5_part_ms']:.4f} ms"
+          f" ({bound_k5 / out['k5_part_ms']:.3f} of its bound"
+          f" {bound_k5:.4f} ms, bytes) ({gpu_line()})")
     return out
 
 
@@ -3605,11 +3651,263 @@ K3_LAUNCHES = {"square": 1, "square-dense": 0, "rectangle": 2, "stream": 4,
                "stream_shards": 6, "ladder": 0}
 
 
+def k8_mismatch(got, want) -> float:
+    """How far K8's output is from its plain version's: inf where a NaN
+    cell differs, else the largest absolute difference of the other
+    cells, 0 when their float32 bits are equal."""
+    import torch
+
+    nan = want.isnan()
+    if not torch.equal(got.isnan(), nan):
+        return float("inf")
+    g, w = got[~nan], want[~nan]
+    if torch.equal(g.view(torch.int32), w.view(torch.int32)):
+        return 0.0
+    return float((g.double() - w.double()).abs().nan_to_num(
+        nan=float("inf")).max())
+
+
+def phase_count_and_estimate_vs_plain(bench: np.ndarray) -> tuple:
+    """K7 equal to its plain version on the card at the card tests' edges
+    (``tests/test_torch_cuda.py::K7_EDGES``: widths 0, 1, 15-17, 4097 and
+    29904, 0 and 1 rows, row slices at a stride past their width and off
+    any boundary) and at phase 14's launches (the bench alignment in
+    uploads of ``engine.H2D_CHUNK_BYTES`` rows); K8 bit for bit, NaN cells
+    alike, at the card tests' shapes (``K8_SHAPES``: small and large
+    counts, so that 0 / 0, jc69's p = 0.75 and k80's p = 0.5 occur), six
+    measures, and at the dry run's launches (the k80 counters of its
+    stage-1 inputs on one to four devices).  Returns K7's largest absolute
+    difference and ``k8_mismatch``'s largest (0 and 0)."""
+    import torch
+
+    from distance_tpu_torch import dryrun, engine
+    from distance_tpu_torch.measures import MEASURES
+    from distance_tpu_torch.ops import basecount, estimate
+    from distance_tpu_torch.ops.counters import counters_cuda
+    from distance_tpu_torch.ops.features import get_plan
+    from distance_tpu_torch.ops.plan import plan_to_torch
+
+    card = card_tests()
+    dev = torch.device("cuda", 0)
+    rows_per = engine.H2D_CHUNK_BYTES // bench.shape[1]
+    cases = [card.k7_input(dev, *case, seed=sum(case))
+             for case in card.K7_EDGES]
+    cases += [torch.from_numpy(bench[r0 : r0 + rows_per]).to(dev)
+              for r0 in range(0, bench.shape[0], rows_per)]
+    err7 = 0
+    for codes in cases:
+        got = basecount.base_counts_cuda(codes)
+        torch.cuda.synchronize()
+        want = basecount.base_counts_torch(codes)
+        check(got.shape == want.shape, f"[2] K7 shape {tuple(got.shape)}")
+        if got.numel():
+            err7 = max(err7, int((got.long() - want.long()).abs().max()))
+    check(err7 == 0, f"[2] K7 != plain: max |kernel - plain| = {err7}")
+    print(f"[2] K7 == plain exactly at {len(card.K7_EDGES)} edges"
+          f" {card.K7_EDGES} and the {len(cases) - len(card.K7_EDGES)}"
+          f" uploads of the tn93 square ({rows_per} rows of"
+          f" {bench.shape[1]} sites each, the last ragged)")
+    err8 = 0.0
+    for measure in MEASURES:
+        for shape in card.K8_SHAPES:
+            c = card.k8_counters(dev, measure, *shape,
+                                 seed=shape[0] * 7 + shape[1])
+            got = estimate.estimate_cuda(c, measure)
+            torch.cuda.synchronize()
+            err8 = max(err8, k8_mismatch(got, estimate.estimate_torch(
+                c, measure)))
+    kplan = plan_to_torch(get_plan("k80"), dev)
+    for dp, sp in ((1, 1), (1, 2), (2, 2)):
+        x, y = (torch.from_numpy(a).to(dev) for a in dryrun._example_data(
+            m=16, n=16 * dp, width=256 * sp, seed=1))
+        c = counters_cuda(x, y, kplan)
+        got = estimate.estimate_cuda(c, "k80")
+        torch.cuda.synchronize()
+        err8 = max(err8, k8_mismatch(got, estimate.estimate_torch(c, "k80")))
+    check(err8 == 0, f"[2] K8 != plain: {err8}")
+    print(f"[2] K8 == plain bit for bit (NaN cells alike), six measures at"
+          f" {card.K8_SHAPES} and k80 at the dry run's stage-1 counters on"
+          f" (1, 1), (1, 2) and (2, 2) grids")
+    return err7, err8
+
+
+# Phase 14's seeds of the fuzzer's lattice.
+FUZZ_SEEDS = range(200)
+
+
+def load_fuzzer():
+    """``scripts/fuzz_differential_torch.py`` of this checkout."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "fuzz_differential_torch.py")
+    spec = importlib.util.spec_from_file_location("fuzz_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_last_functions(shas: dict) -> dict:
+    """The JAX package's last device functions, and its fuzzer's lattice:
+    the tn93 square of phase 12 with its base tallies counted by K7
+    (DISTANCE_TPU_BASECOUNT_DEVICE_MIN=0; the sha256 of phase 12's
+    host-count run), the dry run on two logical devices of the first card
+    and on every card (stage 1's estimate by K8), and ``fuzz_one(seed,
+    "cuda")`` for FUZZ_SEEDS (each configuration's knobs on the card
+    against --backend torch).  Returns the launches by path."""
+    import torch
+
+    from distance_tpu_torch import dryrun, engine
+
+    print("[14] K7 on the tn93 square, the dry run (K8) and the fuzzer's"
+          " lattice on the card")
+    t_phase = time.perf_counter()
+    launches = {}
+    first = torch.device("cuda", 0)
+    chunks = -(-N_BENCH // (engine.H2D_CHUNK_BYTES // L_BENCH))
+    with tempfile.TemporaryDirectory() as tmp, engine_devices([first]):
+        fasta = os.path.join(tmp, "bench.fasta")
+        write_fasta(fasta, make_alignment(N_BENCH, L_BENCH, SEED))
+        out = os.path.join(tmp, "square.tsv")
+        tag = "[14] square tn93, bases counted by K7"
+        os.environ["DISTANCE_TPU_BASECOUNT_DEVICE_MIN"] = "0"
+        try:
+            wall, counts = run_cli(tag, [fasta, "-o", out], "tn93")
+        finally:
+            del os.environ["DISTANCE_TPU_BASECOUNT_DEVICE_MIN"]
+        check(counts["base_counts"] == chunks,
+              f"{tag}: {counts['base_counts']} K7 launches, expected"
+              f" {chunks}")
+        check(sha256(out) == shas["square-tn93"],
+              f"{tag}: TSV differs from phase 12's host-count run")
+        launches["square-tn93-k7"] = counts
+        print(f"{tag}: wall {wall:.3f} s, {chunks} K7 launches (uploads of"
+              f" {engine.H2D_CHUNK_BYTES // L_BENCH} rows); sha256 equals"
+              f" phase 12's host-count run ({gpu_line()})")
+    cards = torch.cuda.device_count()
+    for tag, devices in (
+            ("dryrun", [first, first]),
+            ("dryrun-cards", [torch.device("cuda", c) for c in range(cards)])):
+        reset_counts()
+        t0 = time.perf_counter()
+        dryrun.dryrun_multichip(devices)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        check(counts["estimate"] == 1 and counts["features"] > 0
+              and counts["contract"] > 0,
+              f"[14] {tag}: launches {counts}")
+        launches[tag] = counts
+        print(f"[14] {tag} on {devices}: stage 1 (k80 sharded_step, K8 1"
+              f" launch) and stage 2 (the split tn93 sweep == --backend"
+              f" torch) passed in {wall:.3f} s; launches {counts}")
+    fuzz = load_fuzzer()
+    reset_counts()
+    t0 = time.perf_counter()
+    modes = {}
+    with engine_devices([first]):
+        for seed in FUZZ_SEEDS:
+            ok, cfg, detail = fuzz.fuzz_one(seed, "cuda")
+            check(ok, f"[14] fuzz seed {seed}: {detail}; config {cfg}")
+            modes[cfg["mode"]] = modes.get(cfg["mode"], 0) + 1
+    counts = read_counts()
+    launches["fuzz"] = counts
+    print(f"[14] fuzz: {len(FUZZ_SEEDS)} seeds of the lattice (seeds"
+          f" {FUZZ_SEEDS.start}-{FUZZ_SEEDS.stop - 1}; {modes}):"
+          f" --backend"
+          f" cuda under each configuration's knobs == --backend torch, in"
+          f" {time.perf_counter() - t0:.1f} s; launches {counts}")
+    print(f"[14] phase 14 passed in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def time_count_and_estimate(card: str) -> dict:
+    """K7 at the tn93 square's codes (8192 x 29904, more bytes than the L2
+    holds: every launch reads them from device memory), one launch, and
+    the engine's ``_count_bases_device`` with its uploads from the host;
+    K8 on the k80 counters of a 2048 x 2048 block of the bench alignment
+    (K1's), and of each measure, read from a ring of copies larger than
+    the L2; each beside its byte bound (K7: m L + 16 m bytes; K8: each
+    counter row it reads and the output, 4 bytes a cell each), its plain
+    version, and for K7 the four ``(codes == v).sum(1)`` calls."""
+    import torch
+
+    from distance_tpu_torch import engine
+    from distance_tpu_torch.measures import MEASURES
+    from distance_tpu_torch.ops import basecount, estimate
+    from distance_tpu_torch.ops.counters import counters_cuda
+    from distance_tpu_torch.ops.features import get_plan
+    from distance_tpu_torch.ops.plan import plan_to_torch
+
+    dev = torch.device("cuda", 0)
+    bench = make_alignment(N_BENCH, L_BENCH, SEED)
+    codes = torch.from_numpy(bench).to(dev)
+    m, width = codes.shape
+    bound7 = (m * width + 16.0 * m) / PEAK_BYTES * 1e3
+
+    def library():
+        return [(codes == v).sum(1) for v in basecount.BASES]
+
+    t = in_turns({"plain": (lambda: basecount.base_counts_torch(codes), 3),
+                  "kernel": (lambda: basecount.base_counts_cuda(codes), 50),
+                  "library": (library, 3)},
+                 ("plain", "kernel", "library", "library", "kernel", "plain"))
+    chunks = -(-m // (engine.H2D_CHUNK_BYTES // width))
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine._count_bases_device(bench, dev)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"[14] K7 at {m} x {width}: kernel {t['kernel']:.4f} ms"
+          f" ({bound7 / t['kernel']:.1%} of its bound {bound7:.4f} ms,"
+          f" bytes), plain {t['plain']:.4f} ms, the four (codes == v).sum(1)"
+          f" {t['library']:.4f} ms; with its uploads"
+          f" (engine._count_bases_device, {chunks} chunks)"
+          f" {min(walls):.3f} ms, best of 3 ({card})")
+    out = {"base_counts": dict(ms=t["kernel"], plain_ms=t["plain"],
+                               bound_ms=bound7, bound_by="bytes",
+                               library_ms=t["library"],
+                               with_h2d_ms=min(walls))}
+    del codes
+    l_pad = -(-L_BENCH // 128) * 128
+    rows = np.zeros((2 * BLOCK, l_pad), dtype=np.uint8)
+    rows[:, :L_BENCH] = bench[: 2 * BLOCK]
+    x = torch.from_numpy(rows[:BLOCK]).to(dev)
+    y = torch.from_numpy(rows[BLOCK:]).to(dev)
+    ring_of = 4
+    for measure in MEASURES:
+        c = counters_cuda(x, y, plan_to_torch(get_plan(measure), dev))
+        ring = [c.clone() for _ in range(ring_of)]
+        at = [0]
+
+        def turn(fn):
+            at[0] = (at[0] + 1) % ring_of
+            return fn(ring[at[0]], measure)
+
+        reads = len(estimate.FORMS[measure][1])
+        bound8 = (4.0 * reads + 4.0) * BLOCK * BLOCK / PEAK_BYTES * 1e3
+        t = in_turns({"plain": (lambda: turn(estimate.estimate_torch), 5),
+                      "kernel": (lambda: turn(estimate.estimate_cuda), 100)},
+                     ("plain", "kernel", "kernel", "plain"))
+        print(f"[14] K8 {measure} at {BLOCK}^2: kernel {t['kernel']:.4f} ms"
+              f" ({bound8 / t['kernel']:.1%} of its bound {bound8:.4f} ms,"
+              f" {reads} counter rows read), plain {t['plain']:.4f} ms"
+              f" ({card})")
+        if measure == "k80":
+            out["estimate"] = dict(ms=t["kernel"], plain_ms=t["plain"],
+                                   bound_ms=bound8, bound_by="bytes",
+                                   library_ms=None)
+        del ring, c
+    return out
+
+
 def one_device_phases() -> tuple:
     """Phases 2-12 (the engine on one device): the kernels against their
     plain versions, the main path in its modes, in and out of core, and
     the timings.  Returns (launches by path, sha256 by mode, times by
-    kernel, (K1's, K5/K6's, K2-K4's largest absolute difference))."""
+    kernel, (K1's, K5/K6's, K2-K4's, K7's and K8's largest absolute
+    difference))."""
     t0 = time.perf_counter()
     bench = make_alignment(N_BENCH, L_BENCH, SEED)
     print(f"[2] bench alignment {bench.shape} made in"
@@ -3617,6 +3915,7 @@ def one_device_phases() -> tuple:
     max_err = phase_kernel_vs_plain(bench)
     max_err_cached = phase_cached_vs_plain(bench)
     max_err_pack = phase_pack_and_rebuild(bench)
+    errs_last = phase_count_and_estimate_vs_plain(bench)
     launches, shas = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         (launches["square"], launches["square-dense"], shas["square"],
@@ -3643,7 +3942,8 @@ def one_device_phases() -> tuple:
     with tempfile.TemporaryDirectory() as tmp:
         launches["ladder"] = phase_ladder(tmp)
     launches.update(phase_cached(shas))
-    return launches, shas, times, (max_err, max_err_cached, max_err_pack)
+    return launches, shas, times, (max_err, max_err_cached, max_err_pack,
+                                   *errs_last)
 
 
 def main(argv: list) -> int:
@@ -3678,8 +3978,10 @@ def main(argv: list) -> int:
               f" {time.perf_counter() - t_start:.1f} s")
         print(card)
         return 0
-    max_err, max_err_cached, max_err_pack = errs
+    max_err, max_err_cached, max_err_pack, max_err_k7, max_err_k8 = errs
     launches.update(phase_multi_device(shas, launches["square-ooc"]))
+    launches.update(phase_last_functions(shas))
+    times.update(time_count_and_estimate(card))
     k3 = {path: c["diff_rebuild"] for path, c in launches.items()
           if path in K3_LAUNCHES}
     check(k3 == K3_LAUNCHES, f"K3 launches by path {k3}, expected"
@@ -3705,6 +4007,10 @@ def main(argv: list) -> int:
                      "distance_tpu/ops/features.py:320", max_err_cached),
         "contract": ("distance_tpu_torch/csrc/contract.cu",
                      "distance_tpu/ops/pairwise_xla.py:62", max_err_cached),
+        "base_counts": ("distance_tpu_torch/csrc/basecount.cu",
+                        "distance_tpu/ops/pairwise_xla.py:99", max_err_k7),
+        "estimate": ("distance_tpu_torch/csrc/estimate.cu",
+                     "distance_tpu/parallel/mesh.py:79", max_err_k8),
     }
     kernels = []
     for name in KERNELS:

@@ -87,6 +87,7 @@ from distance_tpu_torch.fastaio import (
     stream_fasta,
 )
 from distance_tpu_torch.finalize import finalize_block
+from distance_tpu_torch.ops import basecount
 from distance_tpu_torch.ops import cached as cached_ops
 from distance_tpu_torch.ops import counters as kernels
 from distance_tpu_torch.ops import packing
@@ -145,6 +146,14 @@ FEATCACHE_BUDGET = 8 << 30
 # chip_smoke.py measured K6's block plus its share of K5 faster than K1's
 # block at 2048 x 2048 x 29952.
 CACHED_MEASURES = frozenset({"n", "n_high", "raw", "jc69", "k80", "tn93"})
+# Count a tn93 run's base tallies on the device (K7, ``ops/basecount.py``)
+# for loaded matrices of at least this many bytes; the JAX CLI's default,
+# off: the host count is one native pass over the matrix, and the
+# device's needs a dense upload of its own beside the sweep's.
+BASE_COUNT_DEVICE_MIN_BYTES = 1 << 62
+# Bytes of codes a device base count uploads at once (the JAX engine's
+# H2D_CHUNK_BYTES), so that its device memory stays bounded.
+H2D_CHUNK_BYTES = 32 << 20
 
 # The JAX CLI's environment variables of the knobs above.  Each is read
 # when a run starts (``_env_knobs``), so that the workers of a --launch or
@@ -158,6 +167,7 @@ KNOB_ENV = {
     "NARROW_STICKY_LIMIT": "DISTANCE_TPU_NARROW_STICKY",
     "RETARGET_FAIL_LIMIT": "DISTANCE_TPU_RETARGET_LIMIT",
     "FEATCACHE_BUDGET": "DISTANCE_TPU_FEATCACHE_BUDGET",
+    "BASE_COUNT_DEVICE_MIN_BYTES": "DISTANCE_TPU_BASECOUNT_DEVICE_MIN",
 }
 
 BACKENDS = ("cuda", "torch")
@@ -251,9 +261,10 @@ def set_up(args) -> Setup:
         with phase_timer("consensus"):
             cons = consensus_fn(loaded)
     elif args.measure == "tn93":
-        with phase_timer("count_bases"):
+        backend = getattr(args, "backend", "cuda") or "cuda"
+        with phase_timer("count_bases"), _env_knobs():
             for aln in loaded:
-                aln.count_bases()
+                _count_bases_maybe_device(aln, backend)
 
     tracker = None
     input_fp = None
@@ -351,6 +362,29 @@ def _input_fingerprint(paths: Sequence[str]) -> List[dict]:
     return fps
 
 
+def _count_bases_maybe_device(aln: Alignment, backend: str) -> None:
+    """The alignment's tn93 base tallies: on the backend's device (K7 on a
+    card, the plain version on the CPU) for a matrix of at least
+    BASE_COUNT_DEVICE_MIN_BYTES, else by the host's native pass."""
+    if aln.matrix.nbytes >= BASE_COUNT_DEVICE_MIN_BYTES:
+        aln.base_counts = _count_bases_device(aln.matrix, device_of(backend))
+        return
+    aln.count_bases()
+
+
+def _count_bases_device(matrix: np.ndarray,
+                        device: torch.device) -> np.ndarray:
+    """(n, 4) int32 tallies of A, T, G and C of each row of ``matrix``,
+    counted on ``device`` in uploads of H2D_CHUNK_BYTES rows."""
+    rows_per = max(1, H2D_CHUNK_BYTES // max(1, matrix.shape[1]))
+    outs = [np.zeros((0, 4), np.int32)]
+    for r0 in range(0, matrix.shape[0], rows_per):
+        dev = to_device(np.ascontiguousarray(matrix[r0 : r0 + rows_per]),
+                        device)
+        outs.append(basecount.base_counts(dev).cpu().numpy())
+    return np.concatenate(outs)
+
+
 def run(setup: Setup) -> None:
     """Dispatch to the loaded or streamed sweep (lib.rs:490-498), with the
     knobs the environment sets and the run's card as the current one."""
@@ -367,9 +401,10 @@ def _run(setup: Setup) -> None:
     split = layout = None
     if setup.streamed is not None:
         aln = setup.loaded[0]
-        split = _StreamSplit(aln.matrix, get_plan(setup.measure))
-        if split.frac < PRUNE_MIN_FRACTION:
-            split = None
+        if not _os.environ.get("DISTANCE_TPU_NO_STREAM_SPLIT"):
+            split = _StreamSplit(aln.matrix, get_plan(setup.measure))
+            if split.frac < PRUNE_MIN_FRACTION:
+                split = None
         layout = _stream_layout(
             aln.n, int(split.keep.sum()) if split is not None else aln.width,
             setup.measure, device_of(setup.backend),
@@ -1765,7 +1800,11 @@ def _choose_tiles(n1: int, n2: int, setup: Setup, device: torch.device,
     a multiple of lcm(2 ndev, ti), with the JAX engine's note: its blocks'
     columns then split over the devices, rel4's halved columns too, and
     every block start stays on the strip grid that ``prepare`` pads
-    for."""
+    for.  On one device a tj that neither divides ti nor is a multiple of
+    it (6 against 8) is rounded up to a multiple of ti for the same
+    reason: a block starting off the grid would reach past the padded
+    rows (the JAX engine's one-device path shifts such a block's columns
+    instead)."""
     if setup.tile_i == 0:
         setup.tile_i = _cap_tile_ram(
             _auto_tile(n1, device), n2, setup.measure,
@@ -1781,12 +1820,15 @@ def _choose_tiles(n1: int, n2: int, setup: Setup, device: torch.device,
     while ti > 8 and ti * max(n2, 1) >= (1 << 31):
         ti //= 2
     tj = min(setup.tile_j, _pow2_at_least(n2))
-    mult = math.lcm(2 * ndev, ti)
-    if ndev > 1 and tj % mult:
+    if ndev > 1:
+        mult = math.lcm(2 * ndev, ti)
+        why = f"lcm(2 x {ndev} devices, tile_i {ti})"
+    else:
+        mult, why = (ti if ti % tj else 1), f"tile_i {ti}"
+    if tj % mult:
         adj = -(-tj // mult) * mult
         print(
-            f"[distance-tpu] note: tile_j {tj} -> {adj}"
-            f" (multiple of lcm(2 x {ndev} devices, tile_i {ti}))",
+            f"[distance-tpu] note: tile_j {tj} -> {adj} (multiple of {why})",
             file=sys.stderr,
         )
         tj = adj

@@ -9,20 +9,22 @@ over a grid row (the JAX ``psum`` over "sp") gives the totals of its y
 rows; the rows' totals join in canonical order.  One process drives every
 device of the grid, as the JAX function's single controller does: a
 partial reaches its row's first device by a copy, and the sum is an int32
-add there.  The JAX module's ``sharded_step`` (an f32 estimate for a dry
-run) is not ported.
+add there.  ``sharded_step`` follows the counters with the JAX module's
+float32 estimate (``ops/estimate.py``, K8 on the card) on the grid's first
+device; the dry run (``distance_tpu_torch/dryrun.py``) calls it.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Callable, List, Sequence
 
 import numpy as np
 import torch
 
 from distance_tpu_torch.ops import cached as cached_ops
 from distance_tpu_torch.ops import counters as kernels
-from distance_tpu_torch.ops.features import CounterPlan
+from distance_tpu_torch.ops import estimate as estimate_ops
+from distance_tpu_torch.ops.features import CounterPlan, get_plan
 from distance_tpu_torch.ops.plan import cached_plan_to_torch, plan_to_torch
 
 # Sites of an "sp" shard are a multiple of this (the padded site unit of
@@ -98,3 +100,18 @@ def sharded_counters(x, y, plan: CounterPlan,
         totals.append(total.to(mesh[0][0]))
     return torch.cat(totals, dim=2)
 
+
+def sharded_step(measure: str, mesh: List[List[torch.device]],
+                 backend: str = "cached") -> Callable:
+    """One sharded step (the JAX ``sharded_step``): a function of (x, y)
+    that gives ``sharded_counters`` of ``measure`` over ``mesh``, then
+    their (m, n) float32 estimate on the grid's first device (K8 there on
+    a card, its plain version on the CPU).  The exact float64 distances
+    stay the host finalizer's."""
+    plan = get_plan(measure)
+
+    def step(x, y) -> torch.Tensor:
+        return estimate_ops.estimate(
+            sharded_counters(x, y, plan, mesh, backend), measure)
+
+    return step

@@ -1037,3 +1037,137 @@ def test_split_engine_on_two_cards_equals_torch(tmp_path):
                                     str(out)]) == 0
             outs.append(out.read_bytes())
         assert outs[0] == outs[1], args
+
+
+# K7's edges: (rows, width, row stride, first column) of row slices of a
+# (rows, stride) code matrix: widths about the 16-byte word, 0 and 1 rows,
+# rows at a stride past their width and starting off any boundary, and
+# the tn93 square's upload chunk of the engine (H2D_CHUNK_BYTES rows of
+# 29904 sites).
+K7_EDGES = [(0, 16, 16, 0), (1, 0, 0, 0), (4, 0, 7, 3), (1, 1, 1, 0),
+            (3, 15, 15, 0), (3, 16, 16, 0), (3, 17, 17, 0),
+            (1, 29904, 29904, 0),
+            (7, 17, 40, 3), (7, 29, 40, 5), (9, 200, 333, 1),
+            (2, 4097, 4113, 15), ((32 << 20) // 29904, 29904, 29904, 0)]
+
+
+def k7_input(dev, rows, width, stride, col0, seed=0):
+    """A (rows, width) slice of a (rows, stride) matrix of every code and
+    0, on ``dev``."""
+    codes = np.concatenate([[0], ALL_CODES]).astype(np.uint8)
+    full = np.random.default_rng(seed).choice(codes, size=(rows, stride))
+    t = torch.from_numpy(full.astype(np.uint8)).to(dev)
+    return t[:, col0 : col0 + width]
+
+
+@pytest.mark.parametrize("case", K7_EDGES)
+def test_base_count_kernel_matches_plain(dev, case):
+    from distance_tpu_torch.ops import basecount
+
+    codes = k7_input(dev, *case, seed=sum(case))
+    before = basecount.LAUNCHES
+    got = basecount.base_counts_cuda(codes)
+    torch.cuda.synchronize()
+    assert basecount.LAUNCHES == before + (case[0] > 0)
+    assert got.dtype == torch.int32 and got.shape == (case[0], 4)
+    assert torch.equal(got, basecount.base_counts_torch(codes))
+
+
+def k8_counters(dev, measure, m, n, seed):
+    """(G, m, n) int32 counters of ``measure``: small counts, so that
+    zero sums, p = 0.75 (jc69) and p = 0.5 (k80) occur, and large ones."""
+    g = len(get_plan(measure).counters)
+    rng = np.random.default_rng(seed)
+    small = rng.integers(0, 5, size=(g, m, n))
+    large = rng.integers(0, 30000, size=(g, m, n))
+    pick = rng.random((1, m, n)) < 0.5
+    return torch.from_numpy(
+        np.where(pick, small, large).astype(np.int32)).to(dev)
+
+
+def assert_bit_equal(got, want):
+    """Equal float32 bits, NaN cells alike (whatever their payload)."""
+    nan = want.isnan()
+    assert torch.equal(got.isnan(), nan)
+    assert torch.equal(got.view(torch.int32)[~nan],
+                       want.view(torch.int32)[~nan])
+
+
+# K8's shapes: one cell, the dry run's (16, 16 dp) outputs, ragged, and
+# the timed 2048 x 2048; the counter rows of (16, 16), (16, 32) and
+# 2048 x 2048 start on 16-byte boundaries (the kernel's 16-byte loads),
+# those of (1, 1) and (129, 257) do not (its 4-byte ones).
+K8_SHAPES = [(1, 1), (16, 16), (16, 32), (129, 257), (2048, 2048)]
+
+
+@pytest.mark.parametrize("shape", K8_SHAPES)
+@pytest.mark.parametrize("measure", MEASURES)
+def test_estimate_kernel_matches_plain(dev, measure, shape):
+    from distance_tpu_torch.ops import estimate
+
+    c = k8_counters(dev, measure, *shape, seed=shape[0] * 7 + shape[1])
+    before = estimate.LAUNCHES
+    got = estimate.estimate_cuda(c, measure)
+    torch.cuda.synchronize()
+    assert estimate.LAUNCHES == before + 1
+    want = estimate.estimate_torch(c, measure)
+    assert got.dtype == torch.float32 and got.shape == shape
+    assert_bit_equal(got, want)
+    if measure in ("raw", "jc69", "k80", "tn93") and shape[0] >= 16:
+        assert want.isnan().any()
+    # a strided view of the counters is taken as its contiguous copy
+    assert_bit_equal(estimate.estimate(c.transpose(1, 2), measure),
+                     estimate.estimate_torch(c.transpose(1, 2), measure))
+
+
+def test_dryrun_on_two_logical_devices(dev):
+    """Both stages of the dry run on [cuda:0, cuda:0]: K5 + K6 on each
+    device, K8 on the first, the split sweep's bytes the plain ones."""
+    from distance_tpu_torch import dryrun
+    from distance_tpu_torch.ops import estimate
+
+    before = estimate.LAUNCHES
+    dryrun.dryrun_multichip([dev, dev])
+    assert estimate.LAUNCHES == before + 1
+    fn, args = dryrun.entry(dev)
+    got = fn(*args)
+    assert torch.equal(got.cpu(), fn(*(a.cpu() for a in args)))
+
+
+def test_tn93_device_base_count_on_card_equals_host(dev, tmp_path,
+                                                    monkeypatch):
+    """DISTANCE_TPU_BASECOUNT_DEVICE_MIN=0 counts the loaded rows by K7 (in
+    uploads of a few rows), with the host count's bytes."""
+    from distance_tpu_torch.ops import basecount
+
+    rng = np.random.default_rng(30)
+    a = tmp_path / "a.fasta"
+    write_fasta(a, random_codes(rng, 77, 333))
+    outs = {}
+    for name, env in (("host", None), ("device", "0")):
+        if env is not None:
+            monkeypatch.setenv("DISTANCE_TPU_BASECOUNT_DEVICE_MIN", env)
+            monkeypatch.setattr(engine, "H2D_CHUNK_BYTES", 333 * 10)
+        before = basecount.LAUNCHES
+        out = tmp_path / f"{name}.tsv"
+        assert cli.main([str(a), "-m", "tn93", "-o", str(out)]) == 0
+        outs[name] = out.read_bytes()
+        assert basecount.LAUNCHES == before + (8 if env else 0)
+    assert outs["host"] == outs["device"]
+
+
+def test_fuzz_lattice_on_card_equals_torch(dev):
+    """Twenty seeds of the fuzzer's lattice: --backend cuda under each
+    configuration's knobs against --backend torch (phase 14 of
+    chip_smoke.py runs 200)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / (
+        "fuzz_differential_torch.py")
+    spec = importlib.util.spec_from_file_location("fuzz_torch", path)
+    fuzz = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fuzz)
+    for seed in range(20):
+        ok, cfg, detail = fuzz.fuzz_one(seed, "cuda")
+        assert ok, (detail, cfg)

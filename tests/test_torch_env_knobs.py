@@ -100,7 +100,8 @@ def test_knob_defaults_are_the_jax_clis():
             for name in port_engine.KNOB_ENV} == {
         "DEVICE_BUDGET": 0, "HOST_BUF_BUDGET": 4 << 30, "STREAM_GROUP": 0,
         "STRIP_LOOKAHEAD": 6, "STREAM_PENDING": 3, "NARROW_STICKY_LIMIT": 2,
-        "RETARGET_FAIL_LIMIT": 3, "FEATCACHE_BUDGET": 8 << 30}
+        "RETARGET_FAIL_LIMIT": 3, "FEATCACHE_BUDGET": 8 << 30,
+        "BASE_COUNT_DEVICE_MIN_BYTES": 1 << 62}
 
 
 @pytest.fixture
@@ -194,3 +195,48 @@ def test_stream_group_from_the_environment_is_a_resume_unit(tmp_path,
     monkeypatch.setenv("DISTANCE_TPU_STREAM_GROUP", "4")
     assert port_cli.main(args) == 0
     assert out.read_bytes() == numpy_tsv(tmp_path, [a, "-s", b, "-m", "raw"])
+
+
+@pytest.mark.parametrize("measure", ["raw", "tn93", "n"])
+def test_no_stream_split_turns_the_split_off(monkeypatch, measure):
+    """DISTANCE_TPU_NO_STREAM_SPLIT (the JAX stream's switch) keeps every
+    loaded column on the device: no ``_StreamSplit`` is built, and the
+    bytes are the split run's and the numpy path's."""
+    from tests.test_golden import run_engine
+    from tests.test_stream_split import low_diversity_fastas
+
+    f1, f2 = low_diversity_fastas(seed=11)
+    want = run_engine(measure, f1, stream=f2, backend="numpy")[0]
+    built = []
+    real = port_engine._StreamSplit
+
+    class Spy(real):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            built.append(self.frac)
+
+    monkeypatch.setattr(port_engine, "_StreamSplit", Spy)
+    monkeypatch.delenv("DISTANCE_TPU_NO_STREAM_SPLIT", raising=False)
+    with_split = port_tsv_of(measure, f1, f2)
+    assert len(built) == 1 and built[0] >= port_engine.PRUNE_MIN_FRACTION
+    monkeypatch.setenv("DISTANCE_TPU_NO_STREAM_SPLIT", "1")
+    without = port_tsv_of(measure, f1, f2)
+    assert len(built) == 1
+    assert with_split == without == want
+
+
+def port_tsv_of(measure, f1, f2):
+    import io
+
+    from distance_tpu_torch.fastaio import consensus, load_fastas
+    from distance_tpu_torch.writer import TsvWriter
+
+    loaded = load_fastas([io.BytesIO(f1)])
+    if measure == "tn93":
+        loaded[0].count_bases()
+    out = io.BytesIO()
+    port_engine.run(port_engine.Setup(
+        loaded=loaded, streamed=io.BytesIO(f2), writer=TsvWriter(out),
+        measure=measure, n_threads=1, batchsize=3, backend="torch",
+        consensus=consensus(loaded) if measure == "n" else None))
+    return out.getvalue()

@@ -9,6 +9,7 @@ repairs listed in ``SANCTIONED``, and check that the port runs with jax
 unimportable.
 """
 
+import ast
 import inspect
 import json
 import os
@@ -295,6 +296,65 @@ def test_multihost_constant_is_verbatim(name):
     assert getattr(port_multihost, name) == getattr(jax_multihost, name)
 
 
+def function_source(path: Path, name: str) -> str:
+    """The source text of the top-level function ``name`` of ``path``,
+    read with ast (importing the JAX fuzzer would set ``XLA_FLAGS``)."""
+    text = path.read_text()
+    node = next(n for n in ast.parse(text).body
+                if isinstance(n, ast.FunctionDef) and n.name == name)
+    return ast.get_source_segment(text, node)
+
+
+# Functions the port's scripts and modules copy from files outside the
+# JAX package: (original file, copy, name).
+COPIED_FUNCTIONS = [
+    ("scripts/fuzz_differential.py", "scripts/fuzz_differential_torch.py",
+     "one_config"),
+    ("tests/conftest.py", "scripts/fuzz_differential_torch.py",
+     "make_fasta"),
+    ("tests/conftest.py", "scripts/fuzz_differential_torch.py",
+     "random_seqs"),
+    ("__graft_entry__.py", "distance_tpu_torch/dryrun.py", "_example_data"),
+]
+
+
+@pytest.mark.parametrize("original, copy, name", COPIED_FUNCTIONS,
+                         ids=[c[2] for c in COPIED_FUNCTIONS])
+def test_copied_function_is_verbatim(original, copy, name):
+    assert function_source(ROOT / copy, name) == ported(
+        function_source(ROOT / original, name))
+
+
+@pytest.mark.parametrize("name", ["BASE_COUNT_DEVICE_MIN_BYTES",
+                                  "H2D_CHUNK_BYTES"])
+def test_base_count_constant_is_the_jax_engines(name):
+    assert getattr(port_engine, name) == getattr(jax_engine, name)
+
+
+@pytest.mark.parametrize("chunk", [2000, 32 << 20])
+def test_count_bases_device_equals_jax(monkeypatch, chunk):
+    """The port's ``_count_bases_device`` (on the CPU) and
+    ``_count_bases_maybe_device`` give the JAX engine's tallies, chunked
+    alike."""
+    from distance_tpu.fastaio import Alignment as JaxAlignment
+    from distance_tpu_torch.encoding import ALL_CODES
+    from distance_tpu_torch.fastaio import Alignment
+
+    mat = np.random.default_rng(chunk).choice(
+        ALL_CODES, size=(41, 333)).astype(np.uint8)
+    for mod in (jax_engine, port_engine):
+        monkeypatch.setattr(mod, "H2D_CHUNK_BYTES", chunk)
+        monkeypatch.setattr(mod, "BASE_COUNT_DEVICE_MIN_BYTES", 0)
+    want = jax_engine._count_bases_device(mat)
+    np.testing.assert_array_equal(
+        port_engine._count_bases_device(mat, torch.device("cpu")), want)
+    jax_aln = JaxAlignment(ids=[], descriptions=[], matrix=mat)
+    jax_engine._count_bases_maybe_device(jax_aln, "xla")
+    aln = Alignment(ids=[], descriptions=[], matrix=mat)
+    port_engine._count_bases_maybe_device(aln, "torch")
+    np.testing.assert_array_equal(aln.base_counts, jax_aln.base_counts)
+
+
 # Runs each command line (separated by "::") through the port's CLI with
 # jax unimportable, stopping at the first that fails.
 _NO_JAX_RUN = """
@@ -305,6 +365,9 @@ import distance_tpu_torch.engine
 import distance_tpu_torch.ops.diffup
 import distance_tpu_torch.ops.packing
 import distance_tpu_torch.parallel.mesh
+import distance_tpu_torch.dryrun
+import distance_tpu_torch.ops.basecount
+import distance_tpu_torch.ops.estimate
 assert "distance_tpu" not in sys.modules
 argv = sys.argv[1:]
 while argv:
@@ -380,3 +443,25 @@ def test_port_runs_without_jax(tmp_path, measure, mode):
         want = oracle_tsv(measure, *alns, stream_ids=(
             alns[1].ids if mode.startswith("stream") else None))
     assert out.read_bytes() == want
+
+
+@pytest.mark.parametrize("command", ["dryrun", "fuzzer"])
+def test_dryrun_and_fuzzer_run_without_jax(tmp_path, command):
+    """The dry run and the port's fuzzer import and pass on the CPU with
+    jax and the JAX package unimportable."""
+    shadow = tmp_path / "shadow"
+    for name in ("jax", "distance_tpu"):
+        (shadow / name).mkdir(parents=True)
+        (shadow / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is not on a GPU host')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(shadow),
+                                                       str(ROOT)]))
+    argv = {"dryrun": ["-m", "distance_tpu_torch.dryrun", "--cpu",
+                       "--devices", "2"],
+            "fuzzer": [str(ROOT / "scripts" / "fuzz_differential_torch.py"),
+                       "--backend", "torch", "--iters", "2"]}[command]
+    proc = subprocess.run([sys.executable, *argv], capture_output=True,
+                          text=True, env=env, cwd=tmp_path, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert ("dryrun ok on 2 devices" if command == "dryrun"
+            else "PASS: 2 random configs") in proc.stdout
