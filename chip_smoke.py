@@ -75,7 +75,11 @@ output, and times the kernels beside their plain versions.  Phases:
    bytes.  K7 equal to its plain version at the card tests' edges
    (``tests/test_torch_cuda.py::K7_EDGES``) and at phase 14's uploads of
    the bench alignment; K8 bit for bit (NaN cells alike) at ``K8_SHAPES``
-   for the six measures and at the dry run's stage-1 counters
+   for the six measures, as the whole-block call and over 1, 2 and 4
+   site partials in each of ``K8_LAYOUTS`` (fresh tensors, inputs or
+   inputs and output a cell past a 16-byte boundary, partials whose
+   offsets differ, a window at col0 = 1 of a wider output whose other
+   cells stay as they were), and at the dry run's stage-1 counters
    (``phase_count_and_estimate_vs_plain``);
 3. the square path: the CLI on the 8192 x 29904 alignment, ``-m raw
    --backend cuda``; line count, 1200 random rows against the host
@@ -215,14 +219,20 @@ output, and times the kernels beside their plain versions.  Phases:
    DISTANCE_TPU_BASECOUNT_DEVICE_MIN=0 (its tallies by K7, 8 uploads; the
    sha256 of phase 12's host-count run), ``distance_tpu_torch.dryrun``'s
    ``dryrun_multichip`` on two logical devices of the first card and on
-   every card (stage 1's estimate by K8, stage 2's split sweep against
-   ``--backend torch``), and ``fuzz_one(seed, "cuda")`` of
-   ``scripts/fuzz_differential_torch.py`` for ``FUZZ_SEEDS`` (each
-   configuration's knobs on the card against ``--backend torch``), its
-   time printed; then K7 timed at the square's 8192 x 29904 codes (a
-   launch, and ``engine._count_bases_device`` with its uploads) and K8
-   at 2048² for each measure, beside their byte bounds and plain
-   versions (``time_count_and_estimate``).
+   every card (stage 1's sharded step: one K8 a grid row over the row's
+   partials, with ``sharded_counters`` made to raise, so no (G, m, n)
+   total; stage 2's split sweep against ``--backend torch``), and
+   ``fuzz_one(seed, "cuda")`` of ``scripts/fuzz_differential_torch.py``
+   for ``FUZZ_SEEDS`` (each configuration's knobs on the card against
+   ``--backend torch``), its time printed; then K7 timed at the square's
+   8192 x 29904 codes (a launch, and ``engine._count_bases_device`` with
+   its uploads) beside its byte bound and plain version
+   (``time_count_and_estimate``), and K8 (``time_k8``) at 2048² for each
+   measure read cold from a ring (the profiler's kernel time, a CUDA
+   graph's launch, a call) beside its byte bound, its plain version and,
+   for n and n_high, ``counters[0].to(torch.float32)``; and the k80 step
+   on a (1, 2) grid after its partials, fused (one K8 over both) and
+   unfused (the total's zeros, adds, cat, then K8), each piece apart.
 
 Phases 2-12 and 14 run the engine on the first card alone
 (``engine_devices``; the dry run on its devices), their subprocesses
@@ -260,6 +270,12 @@ measures that last part alone, and
 times K3 alone as phase 5 does, summing every kernel its calls launch.
 Copied into another checkout and run there, it times that checkout's
 K3, so that two versions compare in one call.
+
+    python3 chip_smoke.py --measure-k8
+
+times K8 alone as phase 14 does (``time_k8``); copied into another
+checkout it times that checkout's K8 and unfused step (and the fused
+step where that checkout has one).
 """
 
 from __future__ import annotations
@@ -1866,16 +1882,23 @@ def phase_cached_timing(bench: np.ndarray):
         # K5: the square's g cache and a strip's f features
         k5 = {}
         for tag, c, side in (("g cache", codes, "g"), ("f strip", x, "f")):
+            # the plain version's one indexing call, its LUT on the card
+            # and its int64 codes made outside the timed window
+            lut, index = cached._side_lut(plan, side), c.long()
             k5[tag] = in_turns({
                 "plain": (lambda: cached.features_torch(c, plan, side), 1),
                 "kernel": (lambda: cached.features_cuda(c, plan, side), 10),
-            }, ("plain", "kernel", "kernel", "plain"))
+                "library": (lambda: lut[:, index], 5),
+            }, ("plain", "kernel", "library", "library", "kernel", "plain"))
+            del lut, index
             k5_bound = (1 + r) * c.shape[0] * l_pad / PEAK_BYTES * 1e3
             k5[tag]["bound"] = k5_bound
             print(f"[5] K5 {measure} {tag} {c.shape[0]} x {l_pad}: kernel"
                   f" {k5[tag]['kernel']:.4f} ms, bound {k5_bound:.4f} ms"
                   f" (bytes) = {k5_bound / k5[tag]['kernel']:.4f} of the"
-                  f" bound; plain {k5[tag]['plain']:.4f} ms ({card})")
+                  f" bound; plain {k5[tag]['plain']:.4f} ms; its indexing"
+                  f" call lut[:, codes] on int64 codes"
+                  f" {k5[tag]['library']:.4f} ms ({card})")
         # the stream's first group: K6 of the 2000 loaded rows' f cache
         # against the 8000-record group's g features, beside K1 at the same
         # shape, and K5 at both
@@ -1920,7 +1943,9 @@ def phase_cached_timing(bench: np.ndarray):
             out["features"] = dict(
                 ms=k5["g cache"]["kernel"], plain_ms=k5["g cache"]["plain"],
                 bound_ms=k5["g cache"]["bound"], bound_by="bytes",
-                library_ms=None, strip_ms=k5["f strip"]["kernel"],
+                library_ms=k5["g cache"]["library"],
+                strip_ms=k5["f strip"]["kernel"],
+                strip_library_ms=k5["f strip"]["library"],
                 strip_bound_ms=k5["f strip"]["bound"],
                 stream_group_ms=sms["group"],
                 stream_group_bound_ms=k5_stream["group"],
@@ -1958,20 +1983,25 @@ def in_turns(fns: dict, order: tuple) -> dict:
 # from device memory (a 2 x 2048 x 2048 block is 33.5 MB: launched again
 # on the same tensor it would be read from L2).
 RING_BYTES = 150_000_000
+# Seconds of calls a profiled ring runs before its counted rounds.
+PROFILE_PREROLL_S = 0.05
 
 
-def cold_ring_ms(fn, c, kernel, reps: int, call_bytes: int = 0) -> dict:
+def cold_ring_ms(fn, c, kernel, reps: int, call_bytes: int = 0,
+                 repeats: int = 1, copies: bool = False) -> dict:
     """``fn`` of each entry of a ring of copies of ``c`` (a tensor, or a
     tuple of tensors that ``fn`` takes), ``reps`` times round, timed three
     ways in ms: ``ms``, the device time of a call's kernels (those whose
     names hold ``kernel``, a name or a tuple of names; None: every kernel
-    the calls launch), each kernel's mean duration in a torch.profiler
-    trace, summed over the kernels (``seen`` of each kernel's launches are
-    in the trace, ``names`` its kernels); ``graph_ms``, a call of the
-    ring's calls captured in a CUDA graph and replayed back to back, by
-    CUDA events; ``call_ms``, a call by CUDA events (the wrapper included).
-    The ring holds RING_BYTES or more: of ``c``, or ``call_bytes`` a call
-    (the bytes a call reads and writes) where given."""
+    the calls launch; with ``copies`` the device copies too), each
+    kernel's mean duration in a torch.profiler trace (over the rounds of
+    its PROFILE_PREROLL_S too) times ``repeats`` (its launches a call),
+    summed over the kernels (``seen`` of each kernel's launches are in the
+    trace, ``names`` its kernels); ``graph_ms``, a call of the ring's calls
+    captured in a CUDA graph and replayed back to back, by CUDA events;
+    ``call_ms``, a call by CUDA events (the wrapper included).  The ring
+    holds RING_BYTES or more: of ``c``, or ``call_bytes`` a call (the bytes
+    a call reads and writes) where given."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1990,8 +2020,18 @@ def cold_ring_ms(fn, c, kernel, reps: int, call_bytes: int = 0) -> dict:
     graph.replay()
     out["graph_ms"] = cuda_timed(graph.replay, reps) / len(ring)
     del graph
+    rounds = reps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # late in a long process the trace can miss a profile's first
+        # milliseconds of launches: rounds before the counted ones, for
+        # PROFILE_PREROLL_S at least, are timed with them
+        t_end = time.perf_counter() + PROFILE_PREROLL_S
+        while time.perf_counter() < t_end:
+            for t in ring:
+                fn(*t)
+            torch.cuda.synchronize()
+            rounds += 1
         for _ in range(reps):
             for t in ring:
                 fn(*t)
@@ -2005,14 +2045,16 @@ def cold_ring_ms(fn, c, kernel, reps: int, call_bytes: int = 0) -> dict:
     durs = {}
     for ev in events:
         name = ev.get("name", "")
-        if ev.get("cat") == "kernel" and (
+        if ev.get("cat") in (("kernel", "gpu_memcpy") if copies
+                             else ("kernel",)) and (
                 wanted is None or any(k in name for k in wanted)):
             durs.setdefault(name, []).append(ev["dur"])
-    launched = reps * len(ring)
+    launched = rounds * len(ring) * repeats
     check(bool(durs) and all(0 < len(d) <= launched for d in durs.values()),
           f"the profiler's trace holds {[len(d) for d in durs.values()]}"
-          f" launches of {kernel} of {launched} calls")
-    out.update(ms=sum(float(np.mean(d)) for d in durs.values()) / 1e3,
+          f" launches of {kernel} of {launched} launches")
+    out.update(ms=sum(float(np.mean(d)) for d in durs.values()) * repeats
+               / 1e3,
                seen=min(len(d) for d in durs.values()), launched=launched,
                names=sorted(durs))
     return out
@@ -3708,14 +3750,34 @@ def phase_count_and_estimate_vs_plain(bench: np.ndarray) -> tuple:
           f" uploads of the tn93 square ({rows_per} rows of"
           f" {bench.shape[1]} sites each, the last ragged)")
     err8 = 0.0
+    launches = estimate.LAUNCHES
+    calls = 0
     for measure in MEASURES:
         for shape in card.K8_SHAPES:
-            c = card.k8_counters(dev, measure, *shape,
-                                 seed=shape[0] * 7 + shape[1])
+            seed = shape[0] * 7 + shape[1]
+            c = card.k8_counters(dev, measure, *shape, seed=seed)
             got = estimate.estimate_cuda(c, measure)
             torch.cuda.synchronize()
             err8 = max(err8, k8_mismatch(got, estimate.estimate_torch(
                 c, measure)))
+            calls += 1
+            for sp in card.K8_SP:
+                for layout in card.K8_LAYOUTS:
+                    parts, out, col0, before = card.k8_case(c, sp, layout,
+                                                            seed + sp)
+                    got = estimate.estimate_partials_cuda(parts, measure,
+                                                          out, col0)
+                    torch.cuda.synchronize()
+                    calls += 1
+                    want = estimate.estimate_partials_torch(parts, measure)
+                    err8 = max(err8, k8_mismatch(
+                        got[:, col0 : col0 + shape[1]], want))
+                    check(card.check_k8_case(got, before, col0, want),
+                          f"[2] K8 {measure} {shape} sp {sp} {layout}: !="
+                          f" plain, or a cell outside the window moved")
+    check(estimate.LAUNCHES == launches + calls,
+          f"[2] K8: {estimate.LAUNCHES - launches} launches of {calls}"
+          f" calls")
     kplan = plan_to_torch(get_plan("k80"), dev)
     for dp, sp in ((1, 1), (1, 2), (2, 2)):
         x, y = (torch.from_numpy(a).to(dev) for a in dryrun._example_data(
@@ -3726,8 +3788,10 @@ def phase_count_and_estimate_vs_plain(bench: np.ndarray) -> tuple:
         err8 = max(err8, k8_mismatch(got, estimate.estimate_torch(c, "k80")))
     check(err8 == 0, f"[2] K8 != plain: {err8}")
     print(f"[2] K8 == plain bit for bit (NaN cells alike), six measures at"
-          f" {card.K8_SHAPES} and k80 at the dry run's stage-1 counters on"
-          f" (1, 1), (1, 2) and (2, 2) grids")
+          f" {card.K8_SHAPES}: the whole-block call, and over"
+          f" {card.K8_SP} partials in each of {card.K8_LAYOUTS} (one launch"
+          f" a call, cells outside the window untouched); k80 at the dry"
+          f" run's stage-1 counters on (1, 1), (1, 2) and (2, 2) grids")
     return err7, err8
 
 
@@ -3758,6 +3822,7 @@ def phase_last_functions(shas: dict) -> dict:
     import torch
 
     from distance_tpu_torch import dryrun, engine
+    from distance_tpu_torch.parallel import mesh
 
     print("[14] K7 on the tn93 square, the dry run (K8) and the fuzzer's"
           " lattice on the card")
@@ -3785,21 +3850,33 @@ def phase_last_functions(shas: dict) -> dict:
               f" {engine.H2D_CHUNK_BYTES // L_BENCH} rows); sha256 equals"
               f" phase 12's host-count run ({gpu_line()})")
     cards = torch.cuda.device_count()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("sharded_step built the (G, m, n) total")
+
     for tag, devices in (
             ("dryrun", [first, first]),
             ("dryrun-cards", [torch.device("cuda", c) for c in range(cards)])):
+        grid_rows = len(dryrun.stage1_mesh(devices))
         reset_counts()
         t0 = time.perf_counter()
-        dryrun.dryrun_multichip(devices)
+        real = mesh.sharded_counters
+        mesh.sharded_counters = refuse
+        try:
+            dryrun.dryrun_multichip(devices)
+        finally:
+            mesh.sharded_counters = real
         wall = time.perf_counter() - t0
         counts = read_counts()
-        check(counts["estimate"] == 1 and counts["features"] > 0
+        check(counts["estimate"] == grid_rows and counts["features"] > 0
               and counts["contract"] > 0,
-              f"[14] {tag}: launches {counts}")
+              f"[14] {tag}: launches {counts}, expected {grid_rows} K8")
         launches[tag] = counts
-        print(f"[14] {tag} on {devices}: stage 1 (k80 sharded_step, K8 1"
-              f" launch) and stage 2 (the split tn93 sweep == --backend"
-              f" torch) passed in {wall:.3f} s; launches {counts}")
+        print(f"[14] {tag} on {devices}: stage 1 (k80 sharded_step, K8"
+              f" {grid_rows} launch a grid row, no (G, m, n) total:"
+              f" sharded_counters refused) and stage 2 (the split tn93 sweep"
+              f" == --backend torch) passed in {wall:.3f} s; launches"
+              f" {counts}")
     fuzz = load_fuzzer()
     reset_counts()
     t0 = time.perf_counter()
@@ -3823,20 +3900,13 @@ def phase_last_functions(shas: dict) -> dict:
 def time_count_and_estimate(card: str) -> dict:
     """K7 at the tn93 square's codes (8192 x 29904, more bytes than the L2
     holds: every launch reads them from device memory), one launch, and
-    the engine's ``_count_bases_device`` with its uploads from the host;
-    K8 on the k80 counters of a 2048 x 2048 block of the bench alignment
-    (K1's), and of each measure, read from a ring of copies larger than
-    the L2; each beside its byte bound (K7: m L + 16 m bytes; K8: each
-    counter row it reads and the output, 4 bytes a cell each), its plain
-    version, and for K7 the four ``(codes == v).sum(1)`` calls."""
+    the engine's ``_count_bases_device`` with its uploads from the host,
+    beside its byte bound (m L + 16 m bytes), its plain version and the
+    four ``(codes == v).sum(1)`` calls; then K8 (``time_k8``)."""
     import torch
 
     from distance_tpu_torch import engine
-    from distance_tpu_torch.measures import MEASURES
-    from distance_tpu_torch.ops import basecount, estimate
-    from distance_tpu_torch.ops.counters import counters_cuda
-    from distance_tpu_torch.ops.features import get_plan
-    from distance_tpu_torch.ops.plan import plan_to_torch
+    from distance_tpu_torch.ops import basecount
 
     dev = torch.device("cuda", 0)
     bench = make_alignment(N_BENCH, L_BENCH, SEED)
@@ -3870,35 +3940,163 @@ def time_count_and_estimate(card: str) -> dict:
                                library_ms=t["library"],
                                with_h2d_ms=min(walls))}
     del codes
+    out.update(time_k8(card))
+    return out
+
+
+# K8's kernel, by the name the profiler gives it.
+K8_KERNEL = "estimate_kernel"
+
+
+def k8_bound_ms(cells: int, in_bytes: float) -> float:
+    """K8's byte bound: ``in_bytes`` a cell read, 4 written."""
+    return (in_bytes + 4.0) * cells / PEAK_BYTES * 1e3
+
+
+def time_k8(card: str) -> dict:
+    """K8 on the counters of a 2048 x 2048 block of the bench alignment
+    (K1's) for each measure, read cold from a ring of copies larger than
+    the L2 (``cold_ring_ms``: the profiler's kernel time, a CUDA graph's
+    launch and a call by CUDA events), beside its byte bound (each counter
+    row it reads and the output, 4 B a cell each), its plain version and,
+    for n and n_high, ``counters[0].to(torch.float32)``, the one PyTorch
+    call that computes it; then the k80 step on a (1, 2) grid of one card
+    after its partials (K1 on each half of the sites): the fused step (one
+    K8 over both partials into the output) against the unfused one (the
+    total's zeros, two adds, the join's cat, then K8 on the total), each
+    piece timed apart.  Times the tree's own kernel: copied into another
+    checkout (``--measure-k8``) it times that checkout's K8, without the
+    fused step where its ``ops/estimate.py`` has none.  Returns the
+    numbers of k80 for the result line, with every measure's."""
+    import torch
+
+    from distance_tpu_torch.measures import MEASURES
+    from distance_tpu_torch.ops import estimate
+    from distance_tpu_torch.ops.counters import counters_cuda
+    from distance_tpu_torch.ops.features import get_plan
+    from distance_tpu_torch.ops.plan import plan_to_torch
+    from distance_tpu_torch.parallel.mesh import site_shards
+
+    dev = torch.device("cuda", 0)
+    bench = make_alignment(2 * BLOCK, L_BENCH, SEED)
     l_pad = -(-L_BENCH // 128) * 128
     rows = np.zeros((2 * BLOCK, l_pad), dtype=np.uint8)
-    rows[:, :L_BENCH] = bench[: 2 * BLOCK]
+    rows[:, :L_BENCH] = bench
     x = torch.from_numpy(rows[:BLOCK]).to(dev)
     y = torch.from_numpy(rows[BLOCK:]).to(dev)
-    ring_of = 4
+    cells = BLOCK * BLOCK
+    by_measure = {}
     for measure in MEASURES:
-        c = counters_cuda(x, y, plan_to_torch(get_plan(measure), dev))
-        ring = [c.clone() for _ in range(ring_of)]
-        at = [0]
-
-        def turn(fn):
-            at[0] = (at[0] + 1) % ring_of
-            return fn(ring[at[0]], measure)
-
+        plan = plan_to_torch(get_plan(measure), dev)
+        c = counters_cuda(x, y, plan)
         reads = len(estimate.FORMS[measure][1])
-        bound8 = (4.0 * reads + 4.0) * BLOCK * BLOCK / PEAK_BYTES * 1e3
-        t = in_turns({"plain": (lambda: turn(estimate.estimate_torch), 5),
-                      "kernel": (lambda: turn(estimate.estimate_cuda), 100)},
-                     ("plain", "kernel", "kernel", "plain"))
-        print(f"[14] K8 {measure} at {BLOCK}^2: kernel {t['kernel']:.4f} ms"
-              f" ({bound8 / t['kernel']:.1%} of its bound {bound8:.4f} ms,"
-              f" {reads} counter rows read), plain {t['plain']:.4f} ms"
+        bound = k8_bound_ms(cells, 4.0 * reads)
+        plain = lambda: estimate.estimate_torch(c, measure)  # noqa: E731
+        plain()
+        plain_ms = cuda_timed(plain, 5)
+        t = cold_ring_ms(lambda t: estimate.estimate_cuda(t, measure), c,
+                         K8_KERNEL, 20, call_bytes=(4 * reads + 4) * cells)
+        lib = None
+        if measure in ("n", "n_high"):
+            lib = cold_ring_ms(lambda t: t[0].to(torch.float32), c, None,
+                               20, call_bytes=8 * cells)
+        by_measure[measure] = dict(
+            ms=t["ms"], graph_ms=t["graph_ms"], call_ms=t["call_ms"],
+            plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+            library_ms=None if lib is None else lib["ms"],
+            library_graph_ms=None if lib is None else lib["graph_ms"],
+            library_call_ms=None if lib is None else lib["call_ms"])
+        yard = ("no one PyTorch call computes it" if lib is None else
+                f"counters[0].to(torch.float32) {lib['ms']:.4f} ms by the"
+                f" profiler, graph {lib['graph_ms']:.4f}, a call"
+                f" {lib['call_ms']:.4f}")
+        print(f"[14] K8 {measure} at {BLOCK}^2, {reads} counter rows read"
+              f" cold: kernel {t['ms']:.4f} ms by the profiler"
+              f" ({t['seen']} of {t['launched']} launches in its trace) ="
+              f" {bound / t['ms']:.1%} of its bound {bound:.4f} ms (bytes);"
+              f" graph {t['graph_ms']:.4f} ms a launch"
+              f" ({bound / t['graph_ms']:.1%}); a call {t['call_ms']:.4f} ms"
+              f" by CUDA events ({bound / t['call_ms']:.1%}); plain"
+              f" {plain_ms:.4f} ms; {yard} ({card})")
+        del c
+    out = {"estimate": dict(by_measure["k80"], by_measure=by_measure)}
+    # the k80 step on a (1, 2) grid of [cuda:0, cuda:0], after its partials
+    plan = plan_to_torch(get_plan("k80"), dev)
+    parts = tuple(counters_cuda(x[:, s0:s1].contiguous(),
+                                y[:, s0:s1].contiguous(), plan)
+                  for s0, s1 in site_shards(l_pad, 2))
+    g = parts[0].shape[0]
+
+    def zeros(*_):
+        return torch.zeros((g, BLOCK, BLOCK), dtype=torch.int32, device=dev)
+
+    def adds(p0, p1, total):
+        # the sums grow (and wrap) from call to call: only the time counts
+        total += p0.to(dev)
+        total += p1.to(dev)
+
+    def unfused(p0, p1):
+        t = zeros()
+        t += p0.to(dev)
+        t += p1.to(dev)
+        return estimate.estimate_cuda(torch.cat([t.to(dev)], dim=2), "k80")
+
+    step_bytes = {"zeros": 4 * g, "adds": 2 * 12 * g, "cat": 8 * g,
+                  "K8": 4 * g + 4}
+    pieces = {
+        "zeros": cold_ring_ms(zeros, parts, None, 20,
+                              call_bytes=4 * g * cells),
+        # each add reads the total and a partial and writes the total
+        "adds": cold_ring_ms(adds, (*parts, torch.zeros_like(parts[0])),
+                             None, 20, repeats=2),
+        "cat": cold_ring_ms(lambda p0, p1: torch.cat([p0], dim=2), parts,
+                            None, 20, copies=True),
+        "K8": cold_ring_ms(lambda p0, p1: estimate.estimate_cuda(p0, "k80"),
+                           parts, K8_KERNEL, 20),
+    }
+    whole = cold_ring_ms(unfused, parts, K8_KERNEL, 20)
+    want = estimate.estimate_cuda(parts[0] + parts[1], "k80")
+    unfused_bound = sum(step_bytes.values()) * cells / PEAK_BYTES * 1e3
+    step = {"unfused_bound_ms": unfused_bound,
+            "unfused_graph_ms": whole["graph_ms"],
+            "unfused_call_ms": whole["call_ms"],
+            "unfused_kernels_ms": sum(p["ms"] for p in pieces.values()),
+            **{f"unfused_{k}_ms": p["ms"] for k, p in pieces.items()}}
+    print(f"[14] k80 step on a (1, 2) grid at {BLOCK}^2 after its partials,"
+          f" unfused: zeros {pieces['zeros']['ms']:.4f}, adds"
+          f" {pieces['adds']['ms']:.4f}, cat {pieces['cat']['ms']:.4f}, K8"
+          f" on the total {pieces['K8']['ms']:.4f} ms by the profiler (sum"
+          f" {step['unfused_kernels_ms']:.4f} ms, bound"
+          f" {unfused_bound:.4f} ms: 124 B a cell); the whole in a CUDA graph"
+          f" {whole['graph_ms']:.4f} ms, a call {whole['call_ms']:.4f} ms"
+          f" ({card})")
+    if hasattr(estimate, "estimate_partials_cuda"):
+        fused_out = torch.empty((BLOCK, BLOCK), dtype=torch.float32,
+                                device=dev)
+
+        def fused(p0, p1):
+            return estimate.estimate_partials_cuda([p0, p1], "k80")
+
+        got = fused(*parts)
+        torch.cuda.synchronize()
+        check(k8_mismatch(got, want) == 0
+              and k8_mismatch(estimate.estimate_partials_cuda(
+                  list(parts), "k80", fused_out), want) == 0,
+              "[14] the fused k80 step != K8 of the summed partials")
+        t = cold_ring_ms(fused, parts, K8_KERNEL, 20,
+                         call_bytes=(12 * 2 + 4) * cells)
+        fbound = k8_bound_ms(cells, 12.0 * 2)
+        step.update(fused_ms=t["ms"], fused_graph_ms=t["graph_ms"],
+                    fused_call_ms=t["call_ms"], fused_bound_ms=fbound)
+        print(f"[14] k80 step on a (1, 2) grid at {BLOCK}^2 after its"
+              f" partials, fused (one K8 over both partials): kernel"
+              f" {t['ms']:.4f} ms by the profiler = {fbound / t['ms']:.1%}"
+              f" of its bound {fbound:.4f} ms (28 B a cell); graph"
+              f" {t['graph_ms']:.4f} ms, a call {t['call_ms']:.4f} ms;"
+              f" against the unfused step's graph"
+              f" {whole['graph_ms']:.4f} ms: {whole['graph_ms'] / t['graph_ms']:.2f}x"
               f" ({card})")
-        if measure == "k80":
-            out["estimate"] = dict(ms=t["kernel"], plain_ms=t["plain"],
-                                   bound_ms=bound8, bound_by="bytes",
-                                   library_ms=None)
-        del ring, c
+    out["estimate"]["step"] = step
     return out
 
 
@@ -3947,9 +4145,10 @@ def one_device_phases() -> tuple:
 
 
 def main(argv: list) -> int:
-    if argv not in ([], ["--measure"], ["--measure-ooc"], ["--measure-k3"]):
+    if argv not in ([], ["--measure"], ["--measure-ooc"], ["--measure-k3"],
+                    ["--measure-k8"]):
         print("usage: chip_smoke.py [--measure | --measure-ooc |"
-              " --measure-k3]", file=sys.stderr)
+              " --measure-k3 | --measure-k8]", file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "distance_tpu_torch")):
@@ -3969,6 +4168,8 @@ def main(argv: list) -> int:
         if argv == ["--measure-k3"]:
             time_k3(k3_uploads(make_alignment(N_BENCH, L_BENCH, SEED)), None,
                     card)
+        elif argv == ["--measure-k8"]:
+            time_k8(card)
         elif argv:
             measure_mode() if argv == ["--measure"] else measure_out_of_core()
         else:

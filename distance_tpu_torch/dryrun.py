@@ -80,14 +80,20 @@ def _sync(devices: Sequence[torch.device]) -> None:
             torch.cuda.synchronize(dev)
 
 
+def stage1_mesh(devices: Sequence[torch.device]) -> List[List[torch.device]]:
+    """Stage 1's (dp, sp) grid of ``devices``: sp = 2 when their count is
+    even, else 1."""
+    devices = list(devices)
+    even = len(devices) % 2 == 0 and len(devices) >= 2
+    return make_mesh(devices, sp=2 if even else 1)
+
+
 def dryrun_multichip(devices: Sequence[torch.device]) -> None:
     """Both stages over ``devices``; raises AssertionError where a result
     is not the expected one."""
     devices = list(devices)
-    n_devices = len(devices)
-    sp = 2 if n_devices % 2 == 0 and n_devices >= 2 else 1
-    mesh = make_mesh(devices, sp=sp)
-    dp = n_devices // sp
+    mesh = stage1_mesh(devices)
+    dp, sp = len(mesh), len(mesh[0])
 
     m = 16
     rows_per_dp = 16

@@ -9,9 +9,10 @@ over a grid row (the JAX ``psum`` over "sp") gives the totals of its y
 rows; the rows' totals join in canonical order.  One process drives every
 device of the grid, as the JAX function's single controller does: a
 partial reaches its row's first device by a copy, and the sum is an int32
-add there.  ``sharded_step`` follows the counters with the JAX module's
-float32 estimate (``ops/estimate.py``, K8 on the card) on the grid's first
-device; the dry run (``distance_tpu_torch/dryrun.py``) calls it.
+add there.  ``sharded_step`` is the JAX module's step: the same partials,
+summed with the float32 estimate in one pass (``ops/estimate.py``, K8 on
+the card) on each row's first device, without the (G, m, n) total; the
+dry run (``distance_tpu_torch/dryrun.py``) calls it.
 """
 
 from __future__ import annotations
@@ -60,6 +61,40 @@ def _on(a, device: torch.device) -> torch.Tensor:
     return t.to(device).contiguous()
 
 
+def _row_partials(x, y, plan: CounterPlan, row: List[torch.device],
+                  r: int, rows: int, shards: List[tuple], backend: str):
+    """Grid row r's int32 site partials, (device, (G, m, rows) counters)
+    of each of its devices that has sites: x's and y rows r rows .. (r +
+    1) rows' codes of the device's sites, counted there by K5 and K6
+    (``cached``) or by K1 (``k1``), or their plain versions on the CPU."""
+    for dev, (s0, s1) in zip(row, shards):
+        if s0 == s1:
+            continue  # no sites, nothing to add
+        xs = _on(x[:, s0:s1], dev)
+        ys = _on(y[r * rows : (r + 1) * rows, s0:s1], dev)
+        if backend == "cached":
+            cplan = cached_plan_to_torch(plan, dev)
+            part = cached_ops.contract(
+                cached_ops.features(xs, cplan, "f"),
+                cached_ops.features(ys, cplan, "g"), cplan)
+        else:
+            part = kernels.counters(xs, ys, plan_to_torch(plan, dev))
+        yield dev, part
+
+
+def _grid_rows(y, mesh: List[List[torch.device]], backend: str) -> tuple:
+    """(rows a grid row, the site shards); raises on what the grid does
+    not take."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}: expected one of"
+                         f" {BACKENDS}")
+    dp, sp = len(mesh), len(mesh[0])
+    n, width = y.shape
+    if n % dp:
+        raise ValueError(f"{n} y rows do not divide over dp {dp}")
+    return n // dp, site_shards(width, sp)
+
+
 def sharded_counters(x, y, plan: CounterPlan,
                      mesh: List[List[torch.device]],
                      backend: str = "cached") -> torch.Tensor:
@@ -71,31 +106,13 @@ def sharded_counters(x, y, plan: CounterPlan,
     function's default ``counters_xla``) or by K1 (``k1``, for its
     ``pallas``), or their plain versions on the CPU; a row's partials are
     summed on its first device, and the rows joined along y."""
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}: expected one of"
-                         f" {BACKENDS}")
-    dp, sp = len(mesh), len(mesh[0])
-    n, width = y.shape
-    if n % dp:
-        raise ValueError(f"{n} y rows do not divide over dp {dp}")
-    rows = n // dp
-    shards = site_shards(width, sp)
+    rows, shards = _grid_rows(y, mesh, backend)
     totals = []
     for r, row in enumerate(mesh):
         total = torch.zeros((len(plan.counters), x.shape[0], rows),
                             dtype=torch.int32, device=row[0])
-        for dev, (s0, s1) in zip(row, shards):
-            if s0 == s1:
-                continue  # no sites, nothing to add
-            xs = _on(x[:, s0:s1], dev)
-            ys = _on(y[r * rows : (r + 1) * rows, s0:s1], dev)
-            if backend == "cached":
-                cplan = cached_plan_to_torch(plan, dev)
-                part = cached_ops.contract(
-                    cached_ops.features(xs, cplan, "f"),
-                    cached_ops.features(ys, cplan, "g"), cplan)
-            else:
-                part = kernels.counters(xs, ys, plan_to_torch(plan, dev))
+        for _, part in _row_partials(x, y, plan, row, r, rows, shards,
+                                     backend):
             total += part.to(row[0])
         totals.append(total.to(mesh[0][0]))
     return torch.cat(totals, dim=2)
@@ -104,14 +121,36 @@ def sharded_counters(x, y, plan: CounterPlan,
 def sharded_step(measure: str, mesh: List[List[torch.device]],
                  backend: str = "cached") -> Callable:
     """One sharded step (the JAX ``sharded_step``): a function of (x, y)
-    that gives ``sharded_counters`` of ``measure`` over ``mesh``, then
-    their (m, n) float32 estimate on the grid's first device (K8 there on
-    a card, its plain version on the CPU).  The exact float64 distances
-    stay the host finalizer's."""
+    that gives the (m, n) float32 estimate of ``measure``'s counters of
+    every (x, y) pair on the grid's first device, with the partials of
+    ``sharded_counters`` (``_row_partials``) and no (G, m, n) total: each
+    grid row's partials reach its first device (the rows the form reads,
+    as the JAX ``psum`` moves them), where one K8 (its plain version on
+    the CPU) sums them and writes the estimate of the row's y window;
+    straight into the output where that device holds it, else into an
+    (m, rows) float32 copied there.  The exact float64 distances stay the
+    host finalizer's."""
     plan = get_plan(measure)
+    n_rows = len(estimate_ops.FORMS[measure][1])
 
     def step(x, y) -> torch.Tensor:
-        return estimate_ops.estimate(
-            sharded_counters(x, y, plan, mesh, backend), measure)
+        rows, shards = _grid_rows(y, mesh, backend)
+        m = x.shape[0]
+        out = torch.empty((m, y.shape[0]), dtype=torch.float32,
+                          device=mesh[0][0])
+        for r, row in enumerate(mesh):
+            parts = [part if dev == row[0] else
+                     estimate_ops.form_rows(part, measure, row[0])
+                     for dev, part in _row_partials(x, y, plan, row, r, rows,
+                                                    shards, backend)]
+            if not parts:  # no sites: every counter 0
+                parts = [torch.zeros((n_rows, m, rows), dtype=torch.int32,
+                                     device=row[0])]
+            if row[0] == out.device:
+                estimate_ops.estimate_partials(parts, measure, out, r * rows)
+            else:
+                out[:, r * rows : (r + 1) * rows].copy_(
+                    estimate_ops.estimate_partials(parts, measure))
+        return out
 
     return step

@@ -1120,6 +1120,91 @@ def test_estimate_kernel_matches_plain(dev, measure, shape):
                      estimate.estimate_torch(c.transpose(1, 2), measure))
 
 
+# How the partials and the output of a K8 launch lie: fresh tensors;
+# inputs a cell past a 16-byte boundary, the output on one (quads loaded
+# whole, stored as cells); both a cell past (a head of three cells, quads,
+# a tail); partial 0 a cell past and the others not (every cell with
+# 4-byte loads); a window at col0 = 1 of an output 5 columns wider.
+K8_LAYOUTS = ["aligned", "offset-in", "offset-both", "mixed", "window"]
+K8_SP = [1, 2, 4]
+
+
+def offset_copy(t, cells: int = 1):
+    """A contiguous copy of ``t`` that starts ``cells`` cells past its
+    buffer's start."""
+    buf = torch.empty(t.numel() + cells, dtype=t.dtype, device=t.device)
+    view = buf[cells:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def k8_case(total, sp, layout, seed):
+    """(partials, out, col0, the output's cells before the launch) of one
+    K8 launch: ``sp`` partials on ``total``'s device whose int32 sum is
+    ``total`` (G, m, n), drawn on the card from ``seed``, laid out as
+    ``layout`` says; out None for a new output."""
+    dev = total.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    left = total.long()
+    parts = []
+    for _ in range(sp - 1):
+        u = torch.rand(left.shape, generator=gen, device=dev)
+        part = torch.minimum((u * (left + 1)).floor().long(), left)
+        parts.append(part.int())
+        left = left - part
+    parts.append(left.int())
+    out, col0 = None, 0
+    if layout in ("offset-in", "offset-both"):
+        parts = [offset_copy(p) for p in parts]
+    elif layout == "mixed":
+        parts[0] = offset_copy(parts[0])
+    m, n = total.shape[1:]
+    if layout == "offset-both":
+        out = offset_copy(torch.full((m, n), 7.0, device=dev))
+    elif layout == "window":
+        out = torch.randn((m, n + 5), generator=gen, device=dev)
+        col0 = 1
+    return parts, out, col0, None if out is None else out.clone()
+
+
+def check_k8_case(got, before, col0, want) -> bool:
+    """Whether K8's output ``got`` holds ``want`` bit for bit (NaN cells
+    alike) in its window and ``before`` outside it."""
+    window = got[:, col0 : col0 + want.shape[1]]
+    nan = want.isnan()
+    if not (torch.equal(window.isnan(), nan) and torch.equal(
+            window[~nan].view(torch.int32), want[~nan].view(torch.int32))):
+        return False
+    if before is None:
+        return got.shape == want.shape
+    outside = torch.ones_like(got, dtype=torch.bool)
+    outside[:, col0 : col0 + want.shape[1]] = False
+    return torch.equal(got[outside], before[outside])
+
+
+@pytest.mark.parametrize("shape", K8_SHAPES)
+@pytest.mark.parametrize("measure", MEASURES)
+def test_estimate_partials_kernel_matches_plain(dev, measure, shape):
+    """K8 over ``K8_SP`` partials in each of ``K8_LAYOUTS``: bit for bit
+    the plain version's (the estimate of their sum), NaN cells alike, the
+    cells outside a window untouched, one launch a call."""
+    from distance_tpu_torch.ops import estimate
+
+    seed = shape[0] * 7 + shape[1]
+    total = k8_counters(dev, measure, *shape, seed=seed)
+    for sp in K8_SP:
+        for layout in K8_LAYOUTS:
+            parts, out, col0, before = k8_case(total, sp, layout, seed + sp)
+            launches = estimate.LAUNCHES
+            got = estimate.estimate_partials_cuda(parts, measure, out, col0)
+            torch.cuda.synchronize()
+            assert estimate.LAUNCHES == launches + 1
+            assert out is None or got is out
+            assert torch.equal(sum(p.long() for p in parts), total.long())
+            want = estimate.estimate_partials_torch(parts, measure)
+            assert check_k8_case(got, before, col0, want), (sp, layout)
+
+
 def test_dryrun_on_two_logical_devices(dev):
     """Both stages of the dry run on [cuda:0, cuda:0]: K5 + K6 on each
     device, K8 on the first, the split sweep's bytes the plain ones."""
@@ -1132,6 +1217,36 @@ def test_dryrun_on_two_logical_devices(dev):
     fn, args = dryrun.entry(dev)
     got = fn(*args)
     assert torch.equal(got.cpu(), fn(*(a.cpu() for a in args)))
+
+
+@pytest.mark.parametrize("dp, sp", [(1, 2), (2, 2), (3, 1)])
+@pytest.mark.parametrize("measure", ["k80", "tn93"])
+def test_sharded_step_on_card_one_k8_a_grid_row(dev, monkeypatch, measure,
+                                                dp, sp):
+    """The sharded step on a (dp, sp) grid of logical devices of the card,
+    with ``sharded_counters`` made to raise: one K8 a grid row (windows
+    of 18 columns, off any 16-byte boundary past the first), bit for bit
+    the plain estimate of K1's counters."""
+    from distance_tpu_torch import dryrun
+    from distance_tpu_torch.ops import estimate
+    from distance_tpu_torch.parallel import mesh
+
+    x, y = dryrun._example_data(m=16, n=18 * dp, width=256 * sp, seed=dp)
+    plan = plan_to_torch(get_plan(measure), dev)
+    want = estimate.estimate_torch(kernels.counters_cuda(
+        torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev), plan),
+        measure)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("sharded_step built the (G, m, n) total")
+
+    monkeypatch.setattr(mesh, "sharded_counters", refuse)
+    before = estimate.LAUNCHES
+    got = mesh.sharded_step(measure, mesh.make_mesh([dev] * (dp * sp),
+                                                    sp=sp))(x, y)
+    torch.cuda.synchronize()
+    assert estimate.LAUNCHES == before + dp
+    assert check_k8_case(got, None, 0, want)
 
 
 def test_tn93_device_base_count_on_card_equals_host(dev, tmp_path,
