@@ -284,11 +284,13 @@ def main(argv=None) -> int:
             return multihost.launch(args)
 
         from distance_tpu_torch.engine import device_of, run, set_up
+        from distance_tpu_torch.utils import timing
 
         ctx = multihost.resolve_multihost(args)
         try:
-            device_of(args.backend)  # no CUDA device: fail before any input
-            run(set_up(args))
+            with timing.job():
+                device_of(args.backend)  # no CUDA device: fail before input
+                run(set_up(args))
         except BrokenPipeError:
             raise  # silent exit 0, never a multihost failure signal
         except BaseException as e:

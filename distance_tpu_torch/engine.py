@@ -64,6 +64,7 @@ import contextlib
 import math
 import os as _os
 import sys
+import time
 from dataclasses import dataclass
 from typing import BinaryIO, Dict, List, Optional, Sequence, Tuple
 
@@ -100,6 +101,7 @@ from distance_tpu_torch.ops.diffup import (
 from distance_tpu_torch.ops.features import CounterPlan, get_plan
 from distance_tpu_torch.ops.plan import cached_plan_to_torch, plan_to_torch
 from distance_tpu_torch.parallel.multihost import CARD_SHARE_ENV, UnitIndex
+from distance_tpu_torch.utils import timing
 from distance_tpu_torch.utils.timing import phase_timer
 from distance_tpu_torch.writer import TsvWriter
 
@@ -252,6 +254,7 @@ def set_up(args) -> Setup:
         streamed = sys.stdin.buffer if args.stream == "-" else open(args.stream, "rb")
 
     with phase_timer("load+encode"):
+        _load_native()
         loaded = load_fastas(handles)
 
     cons = None
@@ -337,6 +340,21 @@ def set_up(args) -> Setup:
     )
 
 
+_native_loaded = False
+
+
+def _load_native() -> None:
+    """The native host library's first load in this process (its build,
+    if the source is newer) under the span ``lib-load``."""
+    global _native_loaded
+    if not _native_loaded:
+        from distance_tpu_torch._native import get_lib
+
+        with phase_timer("lib-load"):
+            get_lib()
+        _native_loaded = True
+
+
 def _input_fingerprint(paths: Sequence[str]) -> List[dict]:
     """Cheap input identity for resume safety: per-file size plus a hash
     of the first and last 64 KiB (content-based; mtime alone is too
@@ -388,7 +406,9 @@ def _count_bases_device(matrix: np.ndarray,
 def run(setup: Setup) -> None:
     """Dispatch to the loaded or streamed sweep (lib.rs:490-498), with the
     knobs the environment sets and the run's card as the current one."""
-    device = device_of(setup.backend)
+    devices = devices_of(setup.backend)
+    _start_cards(devices)
+    device = devices[0]
     with _env_knobs(), (torch.cuda.device(device) if device.type == "cuda"
                         else contextlib.nullcontext()):
         _run(setup)
@@ -402,7 +422,8 @@ def _run(setup: Setup) -> None:
     if setup.streamed is not None:
         aln = setup.loaded[0]
         if not _os.environ.get("DISTANCE_TPU_NO_STREAM_SPLIT"):
-            split = _StreamSplit(aln.matrix, get_plan(setup.measure))
+            with phase_timer("prune"):
+                split = _StreamSplit(aln.matrix, get_plan(setup.measure))
             if split.frac < PRUNE_MIN_FRACTION:
                 split = None
         layout = _stream_layout(
@@ -444,12 +465,6 @@ def _run(setup: Setup) -> None:
             setup.writer.flush()
         except Exception:
             pass
-        from distance_tpu_torch.utils import timing
-
-        if timing.enabled():
-            for name, secs in sorted(timing.totals().items()):
-                print(f"[distance-tpu] total {name}: {secs:.3f} s",
-                      file=sys.stderr)
 
 
 def _resume_skip(setup: Setup) -> int:
@@ -471,6 +486,10 @@ def _progress_mark(setup: Setup, units_done: int) -> None:
     setup.progress.record(units_done, offset)
 
 
+# Whether this process has looked for CUDA cards yet.
+_cuda_probed = False
+
+
 def devices_of(backend: str) -> List[torch.device]:
     """The devices a backend runs on: ``torch`` the CPU; ``cuda`` every
     card of the host for a lone process (the JAX engine's
@@ -478,14 +497,20 @@ def devices_of(backend: str) -> List[torch.device]:
     (cuda:(LOCAL_RANK mod the card count)) or for worker k of a ``--launch
     N`` (cuda:(k mod the card count)).  An engine splits its blocks over
     them (``_BlockEngine``).  ``cuda`` without a CUDA device is an error,
-    not a CPU run."""
+    not a CPU run.  The process's first look for cards initialises
+    CUDA: the span ``cuda-init``."""
+    global _cuda_probed
     if backend == "torch":
         return [torch.device("cpu")]
     if backend != "cuda":
         raise DistanceError(
             f"unknown backend {backend!r}: expected one of {BACKENDS}"
         )
-    if not torch.cuda.is_available():
+    with (contextlib.nullcontext() if _cuda_probed
+          else phase_timer("cuda-init")):
+        present = torch.cuda.is_available()
+    _cuda_probed = True
+    if not present:
         raise DistanceError(
             "--backend cuda needs a CUDA device and none is available"
             " (--backend torch runs the plain version on the CPU)"
@@ -504,6 +529,22 @@ def device_of(backend: str) -> torch.device:
     a run, and where its baselines are made and its strips leave for the
     host."""
     return devices_of(backend)[0]
+
+
+# The CUDA cards whose context this process has made.
+_STARTED: set = set()
+
+
+def _start_cards(devices: Sequence[torch.device]) -> None:
+    """Make each CUDA card's context, once a process, under the span
+    ``cuda-init``, rather than leave it to the run's first allocation."""
+    cards = [d for d in devices if d.type == "cuda" and d not in _STARTED]
+    if not cards:
+        return
+    with phase_timer("cuda-init"):
+        for card in cards:
+            torch.cuda.synchronize(card)
+            _STARTED.add(card)
 
 
 def _local_rank() -> int:
@@ -1466,8 +1507,11 @@ def _fetch_strip(eng: _BlockEngine, handle: _AsyncFetch, valid_rows: int,
     dispatches it again at a lower rung after a saturation, from its kept
     counters, which are released here."""
     try:
-        return _finish_fetched(eng, handle.result(), valid_rows, valid_cols,
-                               redispatch)
+        with phase_timer("fetch-wait"):
+            arr = handle.result()
+        with phase_timer("finish"):
+            return _finish_fetched(eng, arr, valid_rows, valid_cols,
+                                   redispatch)
     finally:
         redispatch.release()
 
@@ -1673,12 +1717,14 @@ class _AsyncEmitter:
         self._q: "_queue.Queue" = _queue.Queue(maxsize=depth)
         self._err: Optional[BaseException] = None
         self._done = threading.Event()
-        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="emitter")
         self._thread.start()
 
     def _run(self) -> None:
         while True:
-            fn = self._q.get()
+            with phase_timer("emit-idle"):
+                fn = self._q.get()
             if fn is None:
                 self._done.set()
                 return
@@ -1695,12 +1741,14 @@ class _AsyncEmitter:
         # execute (round-2 review finding).
         if self._err is not None:
             raise self._err
-        self._q.put(fn)
+        with phase_timer("emit-submit-wait"):
+            self._q.put(fn)
 
     def finish(self) -> None:
-        self._q.put(None)
-        self._done.wait()
-        self._thread.join()
+        with phase_timer("emit-drain"):
+            self._q.put(None)
+            self._done.wait()
+            self._thread.join()
         if self._err is not None:
             raise self._err
 
@@ -1899,7 +1947,8 @@ def _sweep_load(setup: Setup) -> None:
     sources = [a.matrix for a in setup.loaded]
     width = aln1.width
     same_offset = 0
-    pruned = _prune_invariant_columns(sources)
+    with phase_timer("prune"):
+        pruned = _prune_invariant_columns(sources)
     if pruned is not None:
         sources, same_offset, width = pruned
     devices = devices_of(setup.backend)
@@ -1961,10 +2010,12 @@ def _sweep_load(setup: Setup) -> None:
         for ordinal, i0 in enumerate(strip_starts[a:b]):
             if ordinal < done:
                 continue
-            strip = _Strip(eng, m1, m2, i0,
-                           list(range(i0 if square else 0, n2, tj)), ti, tj,
-                           (n1, n2), diag_off)
-            yield ordinal, i0, strip, _AsyncFetch(strip())
+            with phase_timer("dispatch"):
+                strip = _Strip(eng, m1, m2, i0,
+                               list(range(i0 if square else 0, n2, tj)), ti,
+                               tj, (n1, n2), diag_off)
+                handle = _AsyncFetch(strip())
+            yield ordinal, i0, strip, handle
 
     def emit(item):
         ordinal, i0, strip, handle = item
@@ -2303,10 +2354,12 @@ def _sweep_blocked(setup: Setup, sources: List[np.ndarray], width: int,
                         continue
                     if q0 <= abs_i0:
                         lo = (abs_i0 - q0) // tj * tj
-                strip = _Strip(eng, dev_x, dev_y, i0_loc,
-                               list(range(lo, q1 - q0, tj)), ti, tj, nv,
-                               diag_off)
-                yield i0_loc, lo, _AsyncFetch(strip()), strip
+                with phase_timer("dispatch"):
+                    strip = _Strip(eng, dev_x, dev_y, i0_loc,
+                                   list(range(lo, q1 - q0, tj)), ti, tj, nv,
+                                   diag_off)
+                    handle = _AsyncFetch(strip())
+                yield i0_loc, lo, handle, strip
 
         def fill(item):
             i0_loc, lo, handle, strip = item
@@ -2549,6 +2602,35 @@ def _threaded_iter(it, maxsize: int = 64):
         if isinstance(item, BaseException):
             raise item
         yield item
+
+
+def _produced(batches):
+    """The stream's batches, each read, parsed and encoded on the thread
+    that pulls them, as the phase ``stream-produce``: a span a batch
+    while spans are recorded, else one total a job, added as the batches
+    run out (at the default ``-b 1`` a timer a record would cost the
+    thread that paces the stream microseconds a record)."""
+    it = iter(batches)
+    if timing.recording():
+        while True:
+            with phase_timer("stream-produce"):
+                batch = next(it, None)
+            if batch is None:
+                return
+            yield batch
+    clock = time.perf_counter
+    spent, calls = 0.0, 0
+    try:
+        while True:
+            t0 = clock()
+            batch = next(it, None)
+            spent += clock() - t0
+            calls += 1
+            if batch is None:
+                return
+            yield batch
+    finally:
+        timing.add("stream-produce", spent, calls)
 
 
 def _stream_group_size(n1: int, width: int, measure: str,
@@ -3066,14 +3148,15 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
             # features against the loaded rows' f cache by K6, else K1),
             # the baselines and one pack; its counters stay on the device
             # for a refetch at a lower rung
-            if layout.cached:
-                eng.cache_group(codes, m1)
-            redispatch = _Strip(eng, m1, codes, 0, [0], n1, bn, (n1, bn),
-                                None, ref)
-            try:
-                fetch = _AsyncFetch(redispatch())
-            finally:
-                eng.drop_group(codes)
+            with phase_timer("dispatch"):
+                if layout.cached:
+                    eng.cache_group(codes, m1)
+                redispatch = _Strip(eng, m1, codes, 0, [0], n1, bn,
+                                    (n1, bn), None, ref)
+                try:
+                    fetch = _AsyncFetch(redispatch())
+                finally:
+                    eng.drop_group(codes)
         pending.append((this_global, this_local, ids2, bcounts, offs, bn,
                         fetch, redispatch))
         while len(pending) > layout.pending:
@@ -3081,10 +3164,10 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
 
     _SENTINEL = object()
     try:
-        it = _threaded_iter(stream_fasta(
+        it = _threaded_iter(_produced(stream_fasta(
             setup.streamed, width, setup.measure, setup.consensus,
             max(1, setup.batchsize),
-        ))
+        )))
         while True:
             with phase_timer("stream-parse-wait"):
                 batch = next(it, _SENTINEL)
@@ -3152,11 +3235,13 @@ def _dispatch_stream_staged(eng: _BlockEngine, lside: _StagedSide,
                     codes, ref = eng.dispatch_stream(padded, send_dense)
                 eng.adopt(codes)
                 if lside.cache_f:
-                    eng.cache_group(codes, m1)
+                    with phase_timer("dispatch"):
+                        eng.cache_group(codes, m1)
 
-            strip = _Strip(eng, m1, codes, 0, [0], q1 - q0, bn,
-                           (q1 - q0, bn), None, ref)
-            part = _AsyncFetch(strip())
+            with phase_timer("dispatch"):
+                strip = _Strip(eng, m1, codes, 0, [0], q1 - q0, bn,
+                               (q1 - q0, bn), None, ref)
+                part = _AsyncFetch(strip())
             with phase_timer("ooc-fetch-wait"):
                 buf[:, q0:q1] = _fetch_strip(eng, part, q1 - q0, bn, strip)
     finally:

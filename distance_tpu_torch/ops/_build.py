@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into ``_build/lib<name>.so`` beside the package (listed in
 ``.gitignore``), then loaded with ctypes.  A build is redone when the
 source is newer than the library.  A failed build raises with the
-compiler's output; nothing falls back.
+compiler's output; nothing falls back.  A library's first load in a
+process is the span ``lib-load``, and a build within it ``lib-build``.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import shutil
 import subprocess
 import threading
 from typing import Dict
+
+from distance_tpu_torch.utils.timing import phase_timer
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -56,7 +59,8 @@ def build(name: str) -> str:
     tmp = f"{so}.build.{os.getpid()}"
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        with phase_timer("lib-build"):
+            proc = subprocess.run(cmd, capture_output=True, text=True)
     except OSError as e:
         raise RuntimeError(f"cannot run nvcc for {src}: {e}") from None
     if proc.returncode != 0:
@@ -81,5 +85,6 @@ def load(name: str) -> ctypes.CDLL:
     with name_lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = _libs[name] = ctypes.CDLL(build(name))
+            with phase_timer("lib-load"):
+                lib = _libs[name] = ctypes.CDLL(build(name))
         return lib

@@ -349,11 +349,14 @@ def _format_rows(
                     return ctypes.string_at(buf, w)
             return None
 
+        from distance_tpu_torch.utils.timing import phase_timer
+
         starts = list(range(0, n, _FORMAT_CHUNK_ROWS))
-        if len(starts) > 1:
-            out = list(_format_pool().map(chunk, starts))
-        else:
-            out = [chunk(starts[0])]
+        with phase_timer("write:format"):
+            if len(starts) > 1:
+                out = list(_format_pool().map(chunk, starts))
+            else:
+                out = [chunk(starts[0])]
         if all(o is not None for o in out):
             return b"".join(out)
     # Python fallback

@@ -109,13 +109,44 @@ SANCTIONED_FUNCTIONS = {
     ],
 }
 
+# Repairs the port makes to copied engine helpers: name -> [(original
+# text, port's text)].  The ordered emitter's thread is named, and its
+# waits are phases: the sweep blocked on a full queue, the job's tail
+# waiting for the last writes, the emitter starved of work.
+SANCTIONED_HELPERS = {
+    "_AsyncEmitter": [
+        ('''        self._thread = threading.Thread(target=self._run, daemon=True)
+''', '''        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="emitter")
+'''),
+        ('''            fn = self._q.get()
+''', '''            with phase_timer("emit-idle"):
+                fn = self._q.get()
+'''),
+        ('''        self._q.put(fn)
+''', '''        with phase_timer("emit-submit-wait"):
+            self._q.put(fn)
+'''),
+        ('''        self._q.put(None)
+        self._done.wait()
+        self._thread.join()
+''', '''        with phase_timer("emit-drain"):
+            self._q.put(None)
+            self._done.wait()
+            self._thread.join()
+'''),
+    ],
+}
+
 # Repairs the port makes to a copy: file -> [(original text, port's
 # text)].  fastaio._assemble_rows took `off % width` at width 0
 # (ZeroDivisionError in the native stream path); the port returns the
 # empty rows first, as the pure-Python stream path does.  Its run
 # detection took any 1-D view starting on a row of the piece matrix for
 # that whole row; the port also asks for a full, unit-stride row.  And
-# _read_pieces yields (piece, records), not bytes.
+# _read_pieces yields (piece, records), not bytes.  The phase timers
+# also keep spans (start, end, thread, parent, job) when asked to, and
+# the writer's unkeyed formatting is a phase of its own.
 SANCTIONED = {
     "fastaio.py": [
         ("""    if n == 0:
@@ -152,6 +183,166 @@ SANCTIONED = {
          '    """Pieces of the stream, each cut at a record boundary so every\n'
          "    piece holds whole records, with the number of records each"
          " holds.\n"),
+    ],
+    "utils/timing.py": [
+        ('''phase occurrences).
+"""
+''', '''phase occurrences).
+
+``record_spans(True)`` also keeps each phase as a ``Span`` (start, end,
+thread, parent, job) until ``take_spans()`` hands them over; ``job()``
+numbers the jobs of a process and opens each one's root span.
+"""
+'''),
+        ('''import contextlib
+import os
+import sys
+import time
+from collections import defaultdict
+from typing import Dict, Iterator
+''', '''import contextlib
+import itertools
+import os
+import sys
+import threading
+import time
+from collections import defaultdict
+from typing import Dict, Iterator, List, NamedTuple, Optional
+'''),
+        ('''_COUNTS: Dict[str, int] = defaultdict(int)
+''', '''_COUNTS: Dict[str, int] = defaultdict(int)
+
+
+class Span(NamedTuple):
+    """One phase as it ran: ``t0`` and ``t1`` on ``time.perf_counter()``'s
+    clock; ``parent`` the ``id`` of the innermost span open on the same
+    thread, or for a thread's outermost span the root of the job it ran
+    in; ``job`` that job's ordinal (None outside a job)."""
+
+    id: int
+    name: str
+    thread: str
+    t0: float
+    t1: float
+    parent: Optional[int]
+    job: Optional[int]
+
+
+_recording = False
+_spans: List[Span] = []
+_span_ids = itertools.count()
+_job_ids = itertools.count()
+_job: Optional[int] = None  # the open job's ordinal
+_root: Optional[int] = None  # the open job's root span
+_open = threading.local()  # .ids: the thread's open, recorded spans
+'''),
+        ('''def phase_timer(name: str) -> Iterator[None]:
+    t0 = time.perf_counter()
+''', '''def phase_timer(name: str) -> Iterator[None]:
+    span = _enter() if _recording else None
+    t0 = time.perf_counter()
+'''),
+        ('''        _COUNTS[name] += 1
+        if enabled():
+''', '''        _COUNTS[name] += 1
+        if span is not None:
+            _leave(span, name, t0, t0 + dt)
+        if enabled():
+'''),
+        ('''
+
+def totals() -> Dict[str, float]:
+''', '''
+
+def _enter() -> tuple:
+    """A recorded span opens: (id, parent, job), its id pushed on the
+    thread's stack."""
+    ids = getattr(_open, "ids", None)
+    if ids is None:
+        ids = _open.ids = []
+    sid = next(_span_ids)
+    span = (sid, ids[-1] if ids else _root, _job)
+    ids.append(sid)
+    return span
+
+
+def _leave(span: tuple, name: str, t0: float, t1: float) -> None:
+    sid, parent, job = span
+    _open.ids.remove(sid)
+    _spans.append(Span(sid, name, threading.current_thread().name, t0, t1,
+                       parent, job))
+
+
+def totals() -> Dict[str, float]:
+'''),
+        ('''    _TOTALS.clear()
+    _COUNTS.clear()
+''', '''    _TOTALS.clear()
+    _COUNTS.clear()
+
+
+def record_spans(on: bool = True) -> None:
+    """Keep a ``Span`` of every phase that opens from now on (``on``), or
+    of none (off, the default); ``take_spans()`` hands them over."""
+    global _recording
+    _recording = bool(on)
+
+
+def take_spans() -> List[Span]:
+    """The spans kept since the last call, in the order they closed."""
+    global _spans
+    spans, _spans = _spans, []
+    return spans
+
+
+def recording() -> bool:
+    """Whether phases are kept as spans (``record_spans``)."""
+    return _recording
+
+
+def add(name: str, seconds: float, count: int) -> None:
+    """Adds ``count`` occurrences of phase ``name``, ``seconds`` in all,
+    timed by the caller, to the totals: a phase too short and frequent
+    for a timer each.  It keeps no span."""
+    _TOTALS[name] += seconds
+    _COUNTS[name] += count
+
+
+@contextlib.contextmanager
+def job() -> Iterator[int]:
+    """One job of the process: the next ordinal, which every span that
+    opens until the job ends carries, and, while spans are recorded, the
+    job's root span ``job``, the parent of each other thread's outermost
+    spans.  The root is no phase: it adds no total."""
+    global _job, _root
+    outer = _job, _root
+    _job = next(_job_ids)
+    span = _enter() if _recording else None
+    _root = None if span is None else span[0]
+    t0 = time.perf_counter()
+    try:
+        yield _job
+    finally:
+        if span is not None:
+            _leave(span, "job", t0, time.perf_counter())
+        _job, _root = outer
+'''),
+    ],
+    "writer.py": [
+        ('''        starts = list(range(0, n, _FORMAT_CHUNK_ROWS))
+        if len(starts) > 1:
+            out = list(_format_pool().map(chunk, starts))
+        else:
+            out = [chunk(starts[0])]
+''', '''        from distance_tpu_torch.utils.timing import phase_timer
+
+        starts = list(range(0, n, _FORMAT_CHUNK_ROWS))
+        with phase_timer("write:format"):
+            if len(starts) > 1:
+                out = list(_format_pool().map(chunk, starts))
+            else:
+                out = [chunk(starts[0])]
+'''),
     ],
 }
 
@@ -206,6 +397,9 @@ def test_emit_constant_is_verbatim(name):
 @pytest.mark.parametrize("name", ENGINE_HELPERS)
 def test_engine_helper_is_verbatim(name):
     want = ported(inspect.getsource(getattr(jax_engine, name)))
+    for old, new in SANCTIONED_HELPERS.get(name, []):
+        assert want.count(old) == 1
+        want = want.replace(old, new)
     assert inspect.getsource(getattr(port_engine, name)) == want
 
 

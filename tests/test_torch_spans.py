@@ -1,0 +1,178 @@
+"""The phase timers' spans (``utils/timing.py``): a job recorded through
+the port's CLI on the CPU backend gives one root span ``job`` and the
+sweep's spans, each with its job's ordinal and a parent that holds it;
+with recording off nothing is kept and the totals only gain the new
+phases' names."""
+
+import time
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+from distance_tpu_torch import cli  # noqa: E402
+from distance_tpu_torch.utils import timing  # noqa: E402
+from tests.conftest import make_fasta, random_seqs  # noqa: E402
+
+MODES = ["square", "rectangle", "stream"]
+SWEEP = {"dispatch", "fetch-wait", "finish", "emit-submit-wait",
+         "emit-drain"}
+# The phases each job had before spans: the new ones come beside them.
+OLD = {
+    "square": {"load+encode", "load-sweep", "diff-ref", "prepare-upload",
+               "gather", "keys", "finalize", "write", "write:io"},
+    "stream": {"load+encode", "stream-sweep", "stream-parse-wait",
+               "stream-prepare-upload", "stream-group-build",
+               "stream-upload", "stream-fetch-wait", "stream-gather", "keys",
+               "finalize", "stream-emit-wait", "write:io"},
+}
+OLD["rectangle"] = OLD["square"]
+NEW = {"emit-idle", "write:format", "prune"} | SWEEP
+# once a process, so only in the first job that loads them
+FIRST_USE = {"lib-load", "lib-build", "cuda-init"}
+
+
+def _argv(tmp_path, mode):
+    rng = np.random.default_rng(17)
+    a, b = tmp_path / "a.fasta", tmp_path / "b.fasta"
+    a.write_bytes(make_fasta(random_seqs(rng, 30, 200, amb_frac=0.2)))
+    b.write_bytes(make_fasta(
+        (f"t{i}", s.upper())
+        for i, (_, s) in enumerate(random_seqs(rng, 25, 200))))
+    extra = {"square": [], "rectangle": [str(b)],
+             "stream": ["-s", str(b), "-b", "4"]}[mode]
+    return [str(a), *extra, "-m", "raw", "--backend", "torch", "-o",
+            str(tmp_path / f"{mode}.tsv")]
+
+
+def _job(argv):
+    """One CLI job: (its spans, totals, perf_counter before and after)."""
+    timing.take_spans()
+    timing.reset()
+    t0 = time.perf_counter()
+    assert cli.main(argv) == 0
+    t1 = time.perf_counter()
+    return timing.take_spans(), timing.totals(), t0, t1
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Each mode run twice with recording on, then once with it off."""
+    out = {}
+    timing.record_spans(True)
+    try:
+        for mode in MODES:
+            argv = _argv(tmp_path_factory.mktemp(mode), mode)
+            out[mode] = [_job(argv), _job(argv)]
+    finally:
+        timing.record_spans(False)
+    for mode in MODES:
+        argv = _argv(tmp_path_factory.mktemp(mode + "-off"), mode)
+        out[mode].append(_job(argv))
+    return out
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_a_job_has_one_root(runs, mode):
+    spans = runs[mode][0][0]
+    roots = [s for s in spans if s.name == "job"]
+    assert len(roots) == 1
+    assert roots[0].parent is None and roots[0].thread == "MainThread"
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_spans_carry_their_job_and_lie_in_their_parent(runs, mode):
+    spans = runs[mode][0][0]
+    root, = (s for s in spans if s.name == "job")
+    by_id = {s.id: s for s in spans}
+    assert len(by_id) == len(spans)
+    for s in spans:
+        assert s.job == root.job
+        if s is root:
+            continue
+        parent = by_id[s.parent]
+        assert parent.t0 <= s.t0 <= s.t1 <= parent.t1, (s, parent)
+        # a thread's outermost span hangs from the job's root
+        assert parent.thread == s.thread or parent is root, (s, parent)
+    assert {s.thread for s in spans} >= {"MainThread", "emitter"}
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_the_sweep_spans_are_there(runs, mode):
+    spans = runs[mode][0][0]
+    names = {s.name for s in spans}
+    assert SWEEP <= names
+    assert ("stream-produce" in names) == (mode == "stream")
+    main = {s.name for s in spans if s.thread == "MainThread"}
+    assert SWEEP <= main
+    assert {s.name for s in spans if s.thread == "emitter"} >= {"emit-idle"}
+    produced = [s for s in spans if s.name == "stream-produce"]
+    assert all(s.thread != "MainThread" for s in produced)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_two_jobs_get_different_ordinals(runs, mode):
+    first, second = runs[mode][0][0], runs[mode][1][0]
+    assert len({s.job for s in first}) == len({s.job for s in second}) == 1
+    assert first[0].job < second[0].job
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_span_times_lie_within_the_job(runs, mode):
+    for spans, _, t0, t1 in runs[mode][:2]:
+        assert spans
+        assert all(t0 <= s.t0 <= s.t1 <= t1 for s in spans)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_recording_off_keeps_nothing_and_keeps_the_totals(runs, mode):
+    spans, totals, _, _ = runs[mode][2]
+    assert spans == [] and timing.take_spans() == []
+    new = NEW | ({"stream-produce"} if mode == "stream" else set())
+    assert set(totals) - FIRST_USE == OLD[mode] | new
+    # recording on runs the same phases; the job's root is no phase
+    assert set(runs[mode][1][1]) - FIRST_USE == set(totals) - FIRST_USE
+    assert {s.name for s in runs[mode][1][0]} == set(runs[mode][1][1]) | {
+        "job"}
+
+
+def _self_s(spans, root):
+    """The root's seconds less the union of its children on its thread."""
+    covered, end = 0.0, root.t0
+    for c in sorted((s for s in spans
+                     if s.parent == root.id and s.thread == root.thread),
+                    key=lambda s: s.t0):
+        a, b = max(c.t0, end), min(c.t1, root.t1)
+        if b > a:
+            covered, end = covered + b - a, b
+    return root.t1 - root.t0 - covered
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_sweep_self_time_is_under_the_root(runs, mode):
+    """What no span under the sweep's root names is part of the root, and
+    the sweep's spans all descend from the root."""
+    root_name = "stream-sweep" if mode == "stream" else "load-sweep"
+    for spans, *_ in runs[mode][:2]:
+        root, = (s for s in spans if s.name == root_name)
+        assert 0 <= _self_s(spans, root) < root.t1 - root.t0
+        by_id = {s.id: s for s in spans}
+        for s in spans:
+            if s.name in SWEEP:
+                p = by_id[s.parent]
+                while p is not root and p.name != "job":
+                    p = by_id[p.parent]
+                assert p is root, s
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_the_stream_producer_is_timed_with_recording_off(runs, mode):
+    """Off, the producer's batches add one ``stream-produce`` total a job
+    (no timer a batch), and the job's root adds none."""
+    _, totals, t0, t1 = runs[mode][2]
+    assert "job" not in totals
+    if mode == "stream":
+        assert 0 < totals["stream-produce"] < t1 - t0
+    else:
+        assert "stream-produce" not in totals
