@@ -26,19 +26,19 @@ output, and times the kernels beside their plain versions.  Phases:
    31/32/33 and 4095 sites), ragged shapes, the stream's narrow widths
    (1, 3 and 129 sites, copied into 16-site rows by the wrapper), an
    empty side, a 512 x 512 block of the bench alignment, and the
-   launches of the stream phase (2000 loaded rows against groups of 8000
-   and 384 rows), of phase 9 (square blocks of 1024 x 1024, rectangle
+   launches of the stream phase (2000 loaded rows against groups of 2000
+   and 384 rows, and the benchmark's of 2096), of phase 9 (square blocks of 1024 x 1024, rectangle
    blocks of 512 x 1024, loaded super-rows of 3072 and 2048 rows against
    groups of 2000 and 96, and 4,194,305 loaded rows of 64 sites against
    8 and against the 1-row reference) and of phase 10's staged shard
    (loaded super-rows of 1024 and 976 rows against a group of 8000), the
    rel baselines (8192 and 2000 rows against the 1-row reference row, it
-   against 8192 and 8000 rows, and itself), sites padded as the engine
+   against 8192 and 2096 rows, and itself), sites padded as the engine
    uploads them; and for raw and tn93 at 4,194,305 x 8 x 16, more x row
    tiles than one grid axis of 65535 blocks holds.  K2 (rel4 and rel)
    against its plain version, exactly: the square's 2048 x 2048 diagonal
    block with its self-pairs and padding masked and the stream's 2000 x
-   8000 group, six measures, counters with chosen outliers (segments
+   2096 group, six measures, counters with chosen outliers (segments
    holding 0, 1, 2, 3 and many), and for each measure's G (1-4) rel4's
    segment edges (``edge_counters``: segments of 7, 8 and 2 cells, a
    byte across two segments, every cell out, the last segment partial,
@@ -70,7 +70,8 @@ output, and times the kernels beside their plain versions.  Phases:
    launches (a 2048-row strip against 2048-row slices of the square's
    8192-row g cache, its baselines, phase 12's out-of-core blocks and
    baselines, the stream's 2000-row f cache against its groups' g
-   features of 8000 and 384 rows and its baselines, phase 12's staged
+   features of 2000, 384, 4000 (tn93), 2096 and 1712 rows and its
+   baselines, phase 12's staged
    stream parts, ``STREAM_CACHED_LAUNCHES``) and a g cache past 2^31
    bytes.  K7 equal to its plain version at the card tests' edges
    (``tests/test_torch_cuda.py::K7_EDGES``) and at phase 14's uploads of
@@ -101,13 +102,13 @@ output, and times the kernels beside their plain versions.  Phases:
    2048 x 29952 padded sites) for all six measures: equal, timed on the
    card in turns, beside the bound (2 m n L R int8 operations at 1,979
    TOP/s, L = 29904 real sites, R = the JAX plan's channels); K2 and K4
-   at raw on the 2048 x 2048 block and the 2000 x 8000 group, reading
+   at raw on the 2048 x 2048 block and the 2000 x 2096 group, reading
    their counters cold from a ring of copies larger than the L2
    (``cold_ring_ms``: the kernel's time by the profiler against its
    bound in bytes at 3.35 TB/s, and a call's by CUDA events), and K2's
    time a launch in phase 3's square run; K3 (``time_k3``) the same three
    ways, its inputs read cold, at the square's 8192 x 29952 upload, a
-   stream group of 8000 records and an out-of-core super-row of 1024
+   stream group of 2096 records and an out-of-core super-row of 1024
    (``k3_uploads``), beside its bound (bytes written and read at 3.35
    TB/s), its plain version and its yardstick (``expand().clone()`` and
    ``index_put_``), and its time a launch in phase 3's square run; the
@@ -118,16 +119,18 @@ output, and times the kernels beside their plain versions.  Phases:
    version and both yardsticks (``torch._int_mm`` a folded counter, and
    one ``torch._int_mm`` a channel with the planes and the mix in torch),
    and K5 at the square's 8192 x 29952 g cache and a 2048-row strip
-   beside its byte bound; then K6 at the stream's 2000 x 8000 group
+   beside its byte bound; then K6 at the stream's 2000 x 2096 group
    beside its bound and K1 at the same shape, and K5 at the group's
-   8000-row g features and the 2000-row f cache;
+   2096-row g features and the 2000-row f cache;
 6. the rectangle path: the CLI on 4096 x 8192 x 29904 (two files cut
    from one alignment), ``-m raw``; line count, 1200 random rows, launch
    count, and a ``torch.profiler`` split of a second run's device time
    into the kernel, H2D and D2H;
 7. the stream path: 2000 loaded x 16384 streamed x 29904 with ``-b
-   1000``, ``-m raw``: groups of 8000, 8000 and 384 records, so group
-   ends are ragged and a pinned buffer is refilled; line count, 1200
+   1000``, ``-m raw``: eight groups of 2000 records and one of 384 (the
+   in-core group holds whole batches up to 2096 records, the engine's
+   pairs cap at 2000 loaded, which the phase reads from the engine on
+   the card: 4194 at tn93), so group ends are ragged and a pinned buffer is refilled; line count, 1200
    random rows, one K6 launch per group against the loaded rows' f
    cache (K5 once), each group's g features (K5 once a group), the
    baselines through K6 (``check_stream_cached``: no K1), the TSV's
@@ -207,8 +210,8 @@ output, and times the kernels beside their plain versions.  Phases:
    version, six measures: K1 at the out-of-core square's parts (1024 x
    512 on two devices); K5 building each part's blocked g cache of the
    square and K6 of a strip against it at a nonzero offset, the loaded
-   rows against each part of a stream group (2000 x 4096 and 2000 x
-   3904) and the parts' column baselines; K2 rel4 (each part a window of
+   rows against each part of a stream group (2000 x 1048 and 2000 x
+   952, and 2000 x 384) and the parts' column baselines; K2 rel4 (each part a window of
    its block, the merged sidecars against the whole block's) and rel on
    the parts of the square's diagonal block, of a stream group and of
    the out-of-core square's blocks at each of their positions and masks,
@@ -299,9 +302,21 @@ SEED = 0
 N_RECT = (4096, 8192)
 N_STREAM = (2000, 16384)
 STREAM_BATCH = 1000
-# The groups the stream phase forms: whole -b batches, up to the engine's
-# cap of 8192 records a group (the card's budget allows more).
-STREAM_GROUPS = (8000, 8000, 384)
+# The in-core stream's group against N_STREAM[0] loaded records at raw:
+# about engine.STREAM_GROUP_PAIRS pairs (``engine._stream_pairs_cap``), the
+# group of the benchmark's stream cells (-b 1: 7 groups of 2096 records and
+# one of 1712).  The kernels are held against their plain versions, and
+# timed, at it.
+STREAM_GROUP_ROWS = 2096
+# The groups the stream phase forms: whole -b batches, up to
+# STREAM_GROUP_ROWS records a group; tn93's plan of four counters takes
+# twice the pairs (4194 records a group).
+STREAM_GROUPS = (2000,) * 8 + (384,)
+STREAM_GROUPS_TN93 = (4000,) * 4 + (384,)
+# A shard's groups (phase 10): whole -b batches up to the engine's cap of
+# 8192 records, the cut every shard makes whatever its card (a shard's
+# group takes no pairs cap).
+SHARD_GROUPS = (8000, 8000, 384)
 N_STREAM_LONG = 131072
 SAMPLES = 1200
 # (x rows, y rows, sites) of the kernel's long-x check: more row tiles of
@@ -344,9 +359,9 @@ OOC_SMALL_STREAM = (2_000_000, 200_000, (64, 64))
 # launch of LONG_STREAM[0] x rows.
 LONG_STREAM = (4_194_305, 8, 64)
 # Phase 10: the staged stream shard's (device budget, host budget, tiles),
-# and the launches they give at raw: group 1 of the phase 7 stream (8000
-# records) against loaded super-rows of 1024 and 976 rows, and the
-# baselines.
+# and the launches they give at raw: group 1 of the shards' cut
+# (SHARD_GROUPS, 8000 records) against loaded super-rows of 1024 and 976
+# rows, and the baselines.
 SHARD_STAGED = (600_000_000, 4 << 30, (1024, 1024))
 SHARD_STAGED_LAUNCHES = [(1024, 8000), (976, 8000)]
 SHARD_STAGED_BASELINES = [(1024, 1), (976, 1), (1, 8000), (1, 1)]
@@ -381,20 +396,27 @@ OOC_CACHED = (1_400_000_000, 1_200_000_000, (1024, 1024))
 # so 1000, 1000, 1000 and 1096, against 16 super-rows of 512 loaded rows,
 # each with its f cache (engine._stream_layout with the tn93 plan at
 # 29904 sites: 357,191,312 B with the caches; at a budget below that the
-# stream takes K1, in super-rows of 3072 or 3584 rows).  raw's group
+# stream takes K1, in super-rows of 3072 or 3584 rows).  In core the same
+# stream takes groups of 2000, 2000 and 96 records (STREAM_CACHED_IN_CORE:
+# tn93's pairs cap against 8192 loaded records falls below the floor of
+# engine.STREAM_GROUP_FLOOR, 2048).  raw's group
 # features, 18 B a site against tn93's 5, pass what the loaded codes
 # leave at these shapes: a raw stream staged at them takes K1.
 STREAM_CACHED = (400_000_000, 300_000_000, (512, 1024))
 STREAM_CACHED_GROUPS = (1000, 1000, 1000, 1096)
+STREAM_CACHED_IN_CORE = (2000, 2000, 96)
 STREAM_CACHED_ROWS = 512
 # The K6 launches of the cached stream, (x rows, y rows): the stream of
-# phase 7 (its 2000 loaded rows against groups of 8000 and 384, the
-# loaded rows' baseline and the groups' against the reference row, and
-# the reference row's own) and the parts of STREAM_CACHED's staged
+# phase 7 (its 2000 loaded rows against groups of 2000 and 384, and for
+# tn93 of 4000, the loaded rows' baseline and the groups' against the
+# reference row, and the reference row's own), the benchmark's (groups of
+# STREAM_GROUP_ROWS and 1712) and the parts of STREAM_CACHED's staged
 # stream (a 512-row super-row against each group, and their baselines).
-STREAM_CACHED_LAUNCHES = [(2000, 8000), (2000, 384), (2000, 1), (1, 8000),
-                          (1, 384), (1, 1), (512, 1000), (512, 1096),
-                          (512, 1), (1, 1000), (1, 1096)]
+STREAM_CACHED_LAUNCHES = [
+    (2000, 2000), (2000, 384), (2000, 4000), (2000, STREAM_GROUP_ROWS),
+    (2000, 1712), (2000, 1), (1, 2000), (1, 384), (1, 4000),
+    (1, STREAM_GROUP_ROWS), (1, 1712), (1, 1), (512, 1000), (512, 1096),
+    (512, 1), (1, 1000), (1, 1096)]
 # Strips of the in-core square (8192 records, auto tiles of 2048) and of
 # the rectangle (4096 x 8192): on the cached path each computes its rows'
 # baseline with one K6 launch.
@@ -402,10 +424,11 @@ SQUARE_STRIPS = 4
 RECT_STRIPS = 2
 # Phase 13: the logical devices of a split run on a host of one card (on
 # a host of several, every card), the group size of phase 7's stream (the
-# engine's cap; each device takes SPLIT_GROUP / devices of a group's
-# columns), and the (x rows, y rows) of the mesh's check.
+# engine's in-core group, the stream engine's column tile; each device
+# takes SPLIT_GROUP / devices of a group's columns), and the (x rows, y
+# rows) of the mesh's check.
 SPLIT_DEVICES = 2
-SPLIT_GROUP = 8192
+SPLIT_GROUP = STREAM_GROUP_ROWS
 MESH_SHAPE = (2000, 8000)
 
 
@@ -614,7 +637,7 @@ def phase_kernel_vs_plain(bench: np.ndarray) -> int:
     # the launches of the stream (phase 7) and of the out-of-core runs
     # (phase 9): bench rows as x, the last bench rows as y
     launches = [("stream", N_STREAM[0], rows) for rows in
-                sorted(set(STREAM_GROUPS))]
+                sorted(set(STREAM_GROUPS) | {STREAM_GROUP_ROWS})]
     launches += [(f"{mode}-ooc", m, n) for mode, shapes in OOC_LAUNCHES.items()
                  for m, n in shapes]
     launches += [("stream-shard-staged", m, n)
@@ -633,8 +656,8 @@ def phase_kernel_vs_plain(bench: np.ndarray) -> int:
         (f"rows {N_BENCH}x1x{l_pad}", padded(bench), ref),
         (f"cols 1x{N_BENCH}x{l_pad}", ref, padded(bench)),
         (f"rows {N_STREAM[0]}x1x{l_pad}", padded(bench[: N_STREAM[0]]), ref),
-        (f"cols 1x{STREAM_GROUPS[0]}x{l_pad}", ref,
-         padded(bench[-STREAM_GROUPS[0]:])),
+        (f"cols 1x{STREAM_GROUP_ROWS}x{l_pad}", ref,
+         padded(bench[-STREAM_GROUP_ROWS:])),
         (f"self 1x1x{l_pad}", ref, ref)]]
     # phase 9's long loaded side: every loaded row as x in one launch
     m, n, width = LONG_STREAM
@@ -947,7 +970,7 @@ def phase_pack_and_rebuild(bench: np.ndarray) -> int:
     """K2 (rel4 and rel packs), K3 (the diff rebuild) and K4 (narrow and
     wide packs) against their plain versions, exactly.  K2 and K4 on the
     main path's blocks (the square's 2048 x 2048 diagonal block, under K2
-    with its self-pairs and padding masked, and the stream's 2000 x 8000
+    with its self-pairs and padding masked, and the stream's 2000 x 2096
     group) for all six measures; K2 on counters with chosen outliers
     (segments with 0, 1, 2, 3 and many, odd rows, odd columns under rel);
     K4 at widths 1, 29904 and 65535 and on counters around the narrow
@@ -973,7 +996,7 @@ def phase_pack_and_rebuild(bench: np.ndarray) -> int:
     ref = torch.from_numpy(refp).to(dev)
     square = torch.from_numpy(rows[:BLOCK]).to(dev)
     loaded = torch.from_numpy(rows[: N_STREAM[0]]).to(dev)
-    group = torch.from_numpy(rows[-STREAM_GROUPS[0]:]).to(dev)
+    group = torch.from_numpy(rows[-STREAM_GROUP_ROWS:]).to(dev)
 
     def same(tag, got, want):
         for a, b in zip(got, want):
@@ -1003,13 +1026,13 @@ def phase_pack_and_rebuild(bench: np.ndarray) -> int:
              *bench_baselines(square, square, ref, plan),
              nv=(BLOCK - 48, BLOCK - 100), diag_off=0)
         c, rb, cb, cc = bench_baselines(loaded, group, ref, plan)
-        both(f"{measure} stream {N_STREAM[0]}x{STREAM_GROUPS[0]}", c, rb, cb,
-             cc, nv=(N_STREAM[0], STREAM_GROUPS[0]))
+        both(f"{measure} stream {N_STREAM[0]}x{STREAM_GROUP_ROWS}", c, rb,
+             cb, cc, nv=(N_STREAM[0], STREAM_GROUP_ROWS))
         res = c - rb[:, :, None] - cb[:, None, :] + cc[:, None, None]
         outliers += int((res.abs() > 7).sum())
     print(f"[2] K2 == plain (rel4 and rel) on the square's {BLOCK} x {BLOCK}"
           f" diagonal block (self-pairs and padding masked) and the stream's"
-          f" {N_STREAM[0]} x {STREAM_GROUPS[0]} group, six measures;"
+          f" {N_STREAM[0]} x {STREAM_GROUP_ROWS} group, six measures;"
           f" {outliers} residuals of the stream groups outside [-7, 7]")
 
     def windows(tag, bounds, c, rb, cb, cc, i0=0, j0=0, nv=None,
@@ -1050,7 +1073,7 @@ def phase_pack_and_rebuild(bench: np.ndarray) -> int:
              (torch.cat([p[0] for p in parts], dim=-1), *merged), whole)
 
     k = len(split_devices())
-    cols = STREAM_GROUPS[0]
+    cols = STREAM_GROUPS[0]  # phase 13's stream group
     square_parts = part_bounds(BLOCK, BLOCK // k)
     stream_parts = part_bounds(cols, SPLIT_GROUP // k)
     for measure in MEASURES:
@@ -1059,7 +1082,7 @@ def phase_pack_and_rebuild(bench: np.ndarray) -> int:
                 square_parts, *bench_baselines(square, square, ref, plan),
                 nv=(BLOCK - 48, BLOCK - 100), diag_off=0)
         windows(f"{measure} stream {N_STREAM[0]}x{cols}", stream_parts,
-                *bench_baselines(loaded, group, ref, plan),
+                *bench_baselines(loaded, group[-cols:], ref, plan),
                 nv=(N_STREAM[0], cols))
     for parts in (2, 4):
         windows(f"outliers 2x{BLOCK}x{BLOCK} in {parts} parts",
@@ -1172,7 +1195,7 @@ def phase_pack_and_rebuild(bench: np.ndarray) -> int:
         block = counters_cuda(square, square, plan)
         for width in widths:
             lanes_equal(f"square {BLOCK}x{BLOCK}", measure, block, width)
-            lanes_equal(f"stream {N_STREAM[0]}x{STREAM_GROUPS[0]}", measure,
+            lanes_equal(f"stream {N_STREAM[0]}x{STREAM_GROUP_ROWS}", measure,
                         counters_cuda(loaded, group, plan), width)
             for k, (m, n) in enumerate([(2, 3), (33, 65), (BLOCK, BLOCK)]):
                 lanes_equal(f"chosen {m}x{n}", measure, chosen_lane_counters(
@@ -1181,7 +1204,7 @@ def phase_pack_and_rebuild(bench: np.ndarray) -> int:
         saturated += int((narrow.view(torch.uint8) == 255).any(0).sum())
     print(f"[2] K4 == plain (narrow and wide), six measures: the square's"
           f" {BLOCK} x {BLOCK} block and the stream's {N_STREAM[0]} x"
-          f" {STREAM_GROUPS[0]} group at widths {widths}, and chosen counters"
+          f" {STREAM_GROUP_ROWS} group at widths {widths}, and chosen counters"
           f" around 255 (2 x 3, 33 x 65, {BLOCK} x {BLOCK}); {saturated}"
           f" pairs of the square's blocks saturate a narrow lane at"
           f" {bench.shape[1]} sites (six measures together)")
@@ -1815,7 +1838,7 @@ def phase_cached_timing(bench: np.ndarray):
     K1, its bound, its plain version and the yardsticks; K5 at the
     square's 8192 x 29952 g cache and a 2048-row f strip beside its bound
     (the codes read once and the features written once at the memory
-    rate) and its plain version; then K6 at the stream's 2000 x 8000
+    rate) and its plain version; then K6 at the stream's 2000 x 2096
     group (the loaded rows' f cache against the group's g features)
     beside its bound and K1, and K5 at both.  Returns raw's numbers for
     the result line and the largest |kernel - plain|."""
@@ -1899,11 +1922,11 @@ def phase_cached_timing(bench: np.ndarray):
                   f" bound; plain {k5[tag]['plain']:.4f} ms; its indexing"
                   f" call lut[:, codes] on int64 codes"
                   f" {k5[tag]['library']:.4f} ms ({card})")
-        # the stream's first group: K6 of the 2000 loaded rows' f cache
-        # against the 8000-record group's g features, beside K1 at the same
-        # shape, and K5 at both
+        # the stream's group: K6 of the 2000 loaded rows' f cache against
+        # the in-core group's g features, beside K1 at the same shape, and
+        # K5 at both
         sx = codes[: N_STREAM[0]]
-        sy = codes[N_BENCH - STREAM_GROUPS[0]:]
+        sy = codes[N_BENCH - STREAM_GROUP_ROWS:]
         sfx = cached.features_cuda(sx, plan, "f")
         sgy = cached.features_cuda(sy, plan, "g")
         got = cached.contract_cuda(sfx, sgy, plan)
@@ -2064,7 +2087,7 @@ def phase_pack_timing(bench: np.ndarray, square_split: dict,
                       square_counts: dict) -> dict:
     """K2, K4 and K3 timed on the card beside their plain versions, at the
     main path's shapes: K2 and K4 at raw on the square's 2048 x 2048 block
-    and the stream's 2000 x 8000 group, K3 at ``k3_uploads`` (``time_k3``).
+    and the stream's 2000 x 2096 group, K3 at ``k3_uploads`` (``time_k3``).
     K2 and K4 read their counters cold (``cold_ring_ms``): the kernel's
     device time by the profiler, as a share of its bound, beside the time
     a call by CUDA events; and K2's and K3's time a launch inside the
@@ -2093,7 +2116,7 @@ def phase_pack_timing(bench: np.ndarray, square_split: dict,
               / max(1, square_counts[f"pack_{rung}"])
               for name, rung in (("pack_rel4", "rel4"), ("pack_rel", "rel"))}
     shapes = {"square block": (0, BLOCK, BLOCK, 2 * BLOCK),
-              "stream group": (0, N_STREAM[0], N_BENCH - STREAM_GROUPS[0],
+              "stream group": (0, N_STREAM[0], N_BENCH - STREAM_GROUP_ROWS,
                                N_BENCH)}
     for tag, (a, b, c0, c1) in shapes.items():
         x = torch.from_numpy(rows[a:b]).to(dev)
@@ -2159,9 +2182,9 @@ K3_SUPER_ROW = 1024
 def k3_uploads(bench: np.ndarray) -> dict:
     """The diff uploads K3 is timed at, on the card, {tag: (ref, idx,
     vals, rows)}, each encoded as the engine encodes it: the square's
-    8192 x 29952 (the bench alignment against its reference row), the
-    first 8000-record group of phase 7's stream alignment against the
-    loaded side's reference row, and an out-of-core super-row of
+    8192 x 29952 (the bench alignment against its reference row), a
+    STREAM_GROUP_ROWS-record group of phase 7's stream alignment against
+    the loaded side's reference row, and an out-of-core super-row of
     K3_SUPER_ROW bench records."""
     import torch
 
@@ -2186,7 +2209,7 @@ def k3_uploads(bench: np.ndarray) -> dict:
     n1 = N_STREAM[0]
     return {
         "square": upload(bench, ref_row),
-        "stream group": upload(stream[n1: n1 + STREAM_GROUPS[0]],
+        "stream group": upload(stream[n1: n1 + STREAM_GROUP_ROWS],
                                diffup.sampled_mode_row(stream[:n1])),
         "super-row": upload(bench[:K3_SUPER_ROW], ref_row),
     }
@@ -2266,7 +2289,7 @@ def time_glue(rows: np.ndarray, refp: np.ndarray, card: str) -> None:
     written once), and one in-core stream group as the port runs the JAX
     ``_jit_stream_fn`` (K3 rebuild of the group's diffs, then K1, the
     group's column baseline, K2 rel4 and the bundle, for 2000 loaded x
-    8000 records at raw; bound: K1's 2 n1 bn L R int8 operations at the
+    2096 records at raw; bound: K1's 2 n1 bn L R int8 operations at the
     peak int8 rate, which outweigh its bytes)."""
     import torch
 
@@ -2288,7 +2311,7 @@ def time_glue(rows: np.ndarray, refp: np.ndarray, card: str) -> None:
           f" {ms:.4f} ms, bound {bound:.5f} ms (bytes at {PEAK_BYTES:.3e}"
           f" B/s) = {bound / ms:.4f} of the bound ({card})")
 
-    n1, bn = N_STREAM[0], STREAM_GROUPS[0]
+    n1, bn = N_STREAM[0], STREAM_GROUP_ROWS
     width = L_BENCH
     eng = engine._BlockEngine("raw", [dev], 1, width, rel=True, tj=bn)
     m1 = eng.prepare(rows[:n1, :width], 1, diff_ref=refp[:width])
@@ -2454,8 +2477,18 @@ def phase_stream(tmp: str) -> tuple:
     from distance_tpu_torch import measures
     from distance_tpu_torch.writer import format_float
 
+    import torch
+
+    from distance_tpu_torch import engine
+
     n1, n2 = N_STREAM
     check(sum(STREAM_GROUPS) == n2, "STREAM_GROUPS do not cover the stream")
+    # the in-core group on this card at raw and at tn93
+    groups = {m: engine._stream_layout(n1, L_BENCH, m, torch.device(
+        "cuda", 0), 128).group for m in ("raw", "tn93")}
+    check(groups == {"raw": STREAM_GROUP_ROWS, "tn93": 4194},
+          f"[7] in-core stream groups {groups}, expected"
+          f" {STREAM_GROUP_ROWS} records at raw and 4194 at tn93")
     mat, ids1, ids2, f1, f2 = write_inputs(tmp, "[7]", n1, n2, SEED + 5, "s")
     args = [f1, "-s", f2, "-b", str(STREAM_BATCH),
             "-o", os.path.join(tmp, "stream.tsv")]
@@ -2914,7 +2947,7 @@ def phase_multiprocess(shas: dict) -> int:
                 for m, n in SHARD_STAGED_LAUNCHES + SHARD_STAGED_BASELINES}
         spans = sorted(set(seen["spans"]))
         blocks = c_staged["blocks"]
-        check(seen["groups"] == [STREAM_GROUPS[1]]
+        check(seen["groups"] == [SHARD_GROUPS[1]]
               and [q1 - q0 for q0, q1 in spans] == [m for m, _ in
                                                     SHARD_STAGED_LAUNCHES]
               and seen["launch_shapes"] == want
@@ -3189,9 +3222,10 @@ def phase_cached_stream(shas: dict) -> dict:
         *_, f1, f2 = write_inputs(tmp, "[12]", *N_STREAM, SEED + 5, "s")
         args = [f1, "-s", f2, "-b", str(STREAM_BATCH), "-o",
                 os.path.join(tmp, "stream.tsv")]
-        groups = len(STREAM_GROUPS)
         for measure in ("raw", "tn93"):
             tag = f"[12] stream {measure}"
+            groups = len(STREAM_GROUPS_TN93 if measure == "tn93"
+                         else STREAM_GROUPS)
             with measure_set({measure}):
                 wall, counts = run_cli(f"{tag} cached", args, measure)
             check_packed_path(f"{tag} cached", counts, groups, 2,
@@ -3222,9 +3256,10 @@ def phase_cached_stream(shas: dict) -> dict:
         tag = "[12] stream tn93 8192 loaded"
         with measure_set({"tn93"}):
             wall0, counts0 = run_cli(f"{tag} in core", args + [ref], "tn93")
-        # one group of all 4096 records
-        check_stream_cached(f"{tag} in core", counts0, 1)
-        check_launches(f"{tag} in core", counts0, 1)
+        # groups of STREAM_CACHED_IN_CORE
+        check_stream_cached(f"{tag} in core", counts0,
+                            len(STREAM_CACHED_IN_CORE))
+        check_launches(f"{tag} in core", counts0, len(STREAM_CACHED_IN_CORE))
         sha = sha256(ref)
         out = os.path.join(tmp, "staged.tsv")
         budget = STREAM_CACHED[0]
@@ -3409,7 +3444,7 @@ def time_split_parts() -> dict:
     """K6 at the split runs' part shapes, raw, by CUDA events beside the
     one-device block and their bounds: the square's (2048, 1024) part
     alone, the two parts of a 2048² block on two streams of one card, and
-    the stream's 2000 x 4096 part; K2 rel4 on a (2048, 1024) part (a
+    the stream's 2000 x 1048 part; K2 rel4 on a (2048, 1024) part (a
     window of its block) cold, as phase 5 times it, beside its bound."""
     import torch
 
@@ -3687,7 +3722,8 @@ def measure_out_of_core() -> None:
 # K3's launches on each path, as the diff uploads of these runs make them
 # (one a diff-encoded upload: the in-core X side, stream group or staged
 # super-row encoding; none where the uploads go dense).
-K3_LAUNCHES = {"square": 1, "square-dense": 0, "rectangle": 2, "stream": 4,
+K3_LAUNCHES = {"square": 1, "square-dense": 0, "rectangle": 2,
+               "stream": 1 + len(STREAM_GROUPS),
                "square-ooc": 8, "square-ooc-dense": 0, "rectangle-ooc": 10,
                "stream-staged": 19, "stream-long-loaded": 0,
                "stream_shards": 6, "ladder": 0}

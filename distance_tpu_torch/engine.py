@@ -115,7 +115,16 @@ STRIP_LOOKAHEAD = 6
 # a group never holds more than STREAM_GROUP_CAP records.
 STREAM_GROUP = 0
 STREAM_GROUP_CAP = 8192
-# Stream groups computed ahead of the one being fetched/emitted.
+# Pairs (loaded x streamed records) of an in-core, unsharded stream's auto
+# group for a plan of up to two counters (``_stream_pairs_cap``).  No
+# environment variable sets it.
+STREAM_GROUP_PAIRS = 1 << 22
+# The fewest records of an auto stream group that may run staged: a
+# staged group uploads the whole loaded side again.  An in-core group is
+# capped by pairs no lower, since the free memory may stage it.
+STREAM_GROUP_FLOOR = 2048
+# Most stream groups computed ahead of the one being fetched/emitted; a
+# group whose counters are back is emitted before then.
 STREAM_PENDING = 3
 # Device bytes a sweep may hold.  0 = auto: half the memory the card can
 # hand out when the sweep starts (half its total where a size must not
@@ -1493,6 +1502,11 @@ class _AsyncFetch:
         self._event = torch.cuda.Event()
         self._event.record()
 
+    def done(self) -> bool:
+        """Whether the copy is done, so that ``result()`` would not wait;
+        asks the device without blocking."""
+        return self._event is None or self._event.query()
+
     def result(self):
         if self._event is not None:
             self._event.synchronize()
@@ -2673,6 +2687,26 @@ def _stream_group_size(n1: int, width: int, measure: str,
     return max(2, rows // 2 * 2)
 
 
+def _stream_pairs_cap(n1: int, counters_per_pair: int) -> int:
+    """Most records in an in-core, unsharded stream's auto group: about
+    STREAM_GROUP_PAIRS pairs against ``n1`` loaded records for a plan of
+    up to two counters, and half of it more for each counter past two,
+    even, at least STREAM_GROUP_FLOOR and at most STREAM_GROUP_CAP.
+
+    The scale follows the plan, not the measure's name.  It is set by
+    timings of whole stream jobs on an H100 at 2,000 loaded records:
+    plans of up to two counters (raw, n) are fastest near 2^22 pairs a
+    group; tn93's four counters lose a fifth there and none at 2^23, as
+    its values are not keyed (they need the pairs' base tallies too), so
+    each of its rows is finalized and formatted on the shared pool in
+    chunks of 2^20 rows, which a group of 4 M pairs leaves half idle;
+    k80's three counters (keyed, as raw) time alike at 2^22, 6 M and
+    2^23 pairs, and take the 6 M between."""
+    pairs = STREAM_GROUP_PAIRS * max(2, counters_per_pair) // 2
+    rows = max(STREAM_GROUP_FLOOR, pairs // max(1, n1))
+    return max(2, min(STREAM_GROUP_CAP, rows) // 2 * 2)
+
+
 def _staged_group_cap(n1: int, counters_per_pair: int) -> int:
     """Most records in a staged group: its (G, n1, rows) int32 host
     buffer takes at most half of HOST_BUF_BUDGET, but the group is never
@@ -2704,11 +2738,17 @@ def _stream_layout(n1: int, width: int, measure: str, device: torch.device,
 
     The group size is a resume unit, so it is fixed by the card's total
     memory, never by what is free: ``_stream_group_size`` when the loaded
-    side fits half the card in core, else the staged size, that raised to
-    2048 records and then bounded so that its (G, n1, rows) host buffer
-    takes at most half of HOST_BUF_BUDGET, but never below
-    STAGED_ROWS_FLOOR.  A nonzero STREAM_GROUP fixes it instead, and
-    under a shard ``_stream_group_size`` gives it whatever the card.
+    side fits half the card in core, capped by ``_stream_pairs_cap``
+    (the groups emit one by one as their counters come back, so a group
+    of a few million pairs lets the writes overlap the parse; never
+    below STREAM_GROUP_FLOOR, since a card whose free memory is short
+    runs the same group staged), else the staged size, that raised to
+    STREAM_GROUP_FLOOR records (each staged group uploads the whole
+    loaded side again) and then bounded so that its (G, n1, rows) host
+    buffer takes at most half of HOST_BUF_BUDGET, but never below
+    STAGED_ROWS_FLOOR.  A nonzero STREAM_GROUP fixes it instead,
+    and under a shard ``_stream_group_size`` gives it whatever the card
+    (every shard must cut the stream alike, and a shard may run staged).
     Only the choice between in core and staged follows the free memory.
     Fewer groups are in flight when their buffers would pass half the
     host budget.  A super-row, a multiple of ``ti``, takes the device
@@ -2737,9 +2777,12 @@ def _stream_layout(n1: int, width: int, measure: str, device: torch.device,
             grows, n1, width, g, STREAM_PENDING + 1) <= budget
 
     grows = _stream_group_size(n1, width, measure, device, sharded)
-    if not (STREAM_GROUP or sharded) and not fits(
-            _device_budget(device, of_total=True), grows):
-        grows = min(max(grows, 2048), _staged_group_cap(n1, g))
+    if not (STREAM_GROUP or sharded):
+        if fits(_device_budget(device, of_total=True), grows):
+            grows = min(grows, _stream_pairs_cap(n1, g))
+        else:
+            grows = min(max(grows, STREAM_GROUP_FLOOR),
+                        _staged_group_cap(n1, g))
     budget = _device_budget(device)
     if fits(budget, grows):
         return _StreamLayout(grows, STREAM_PENDING, cached=(
@@ -2897,7 +2940,9 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
     one K1 launch), and one pack at the engine's
     rung gives rel4 (an odd group rel) lanes and a sidecar bundle, or
     narrow lanes or wide words, which are copied back asynchronously into
-    pinned memory with ``layout.pending`` groups in flight; the host
+    pinned memory.  Before the main thread waits for the next batch, each
+    group whose copy is done goes on, oldest first; at most
+    ``layout.pending`` groups stay in flight behind the newest.  The host
     finishes the counters (a saturated group is packed again at the next
     rung from its counters, kept on the device), transposes them to
     streamed-major order, adds each record's invariant-column offset and
@@ -2917,6 +2962,7 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
     """
     from concurrent.futures import ThreadPoolExecutor
 
+    t_start = time.perf_counter()
     aln = setup.loaded[0]
     n1, width = aln.n, aln.width
     grows = layout.group
@@ -2992,6 +3038,7 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
 
     pending: List[tuple] = []
     emitter = _AsyncEmitter()
+    filling = True  # no group has gone to the emitter yet
     # groups repeat the same (bn, n1) shape: emission index arrays are
     # computed once per distinct bn; counter vectors recycle through the
     # scratch pool
@@ -2999,6 +3046,7 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
     spool = _ScratchPool()
 
     def flush_one() -> None:
+        nonlocal filling
         (g_ord, local_ord, ids2, bcounts, offs, bn, handle,
          redispatch) = pending.pop(0)
         with phase_timer("stream-fetch-wait"):
@@ -3086,8 +3134,21 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
             finally:
                 spool.give_all(lease)
 
+        if filling:
+            # the job's first write waited this long for the stream
+            timing.add("stream-fill", time.perf_counter() - t_start, 1)
+            filling = False
         with phase_timer("stream-emit-wait"):
             emitter.submit(tail)
+
+    def flush_done() -> None:
+        # groups whose counters are back go to the emitter now, oldest
+        # first, not once STREAM_PENDING more are in flight (a staged
+        # group is finished already)
+        while pending and (isinstance(pending[0][6], np.ndarray)
+                           or pending[0][6].done()):
+            with phase_timer("stream-early-flush"):
+                flush_one()
 
     group: List[tuple] = []  # (batch, r0, r1): rows r0..r1-1 of a batch
     group_rows = 0
@@ -3169,6 +3230,7 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
             max(1, setup.batchsize),
         )))
         while True:
+            flush_done()
             with phase_timer("stream-parse-wait"):
                 batch = next(it, _SENTINEL)
             if batch is _SENTINEL:
