@@ -579,15 +579,17 @@ def phase_environment() -> str:
 
 def print_crossover() -> None:
     """The device's free memory, the engine's auto budget (half of it), and
-    the largest in-core square at the bench width with 8192-row tiles
-    (whole strips) for raw and tn93."""
+    the largest in-core square at the bench width with the card's auto
+    tiles (whole strips) for raw and tn93."""
     import torch
 
     from distance_tpu_torch import engine
     from distance_tpu_torch.ops.features import get_plan
 
+    dev = torch.device("cuda", 0)
     free, total = torch.cuda.mem_get_info()
-    budget = engine._device_budget(torch.device("cuda", 0))
+    budget = engine._device_budget(dev)
+    tile = engine._auto_tile(dev)
     print(f"[1] device memory: {free} B free of {total} B; auto budget"
           f" {budget} B")
     for measure in ("raw", "tn93"):
@@ -595,15 +597,15 @@ def print_crossover() -> None:
         g = len(plan.counters)
         n = cached = 0
         while True:
-            rows = engine._padded_shape(n + 8192, L_BENCH, 8192, 8192)[0]
-            fp = engine._blocked_footprint(0, rows, L_BENCH, g, 8192, 8192)
+            rows = engine._padded_shape(n + tile, L_BENCH, tile, tile)[0]
+            fp = engine._blocked_footprint(0, rows, L_BENCH, g, tile, tile)
             if fp > budget:
                 break
-            n += 8192
-            if engine._cache_fits(plan, rows, L_BENCH, 8192, 8192, fp,
+            n += tile
+            if engine._cache_fits(plan, rows, L_BENCH, tile, tile, fp,
                                   budget):
                 cached = n
-        print(f"[1] {measure}: the square at {L_BENCH} sites and 8192-row"
+        print(f"[1] {measure}: the square at {L_BENCH} sites and {tile}-row"
               f" tiles stays in core up to {n} records; its g cache"
               f" engages up to {cached}")
 

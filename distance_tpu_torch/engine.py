@@ -1767,6 +1767,23 @@ class _AsyncEmitter:
             raise self._err
 
 
+class _FillEmitter(_AsyncEmitter):
+    """An ``_AsyncEmitter`` whose first ``submit`` adds the seconds since
+    ``t0`` to the phase total ``fill`` (``timing.add``, once, no span: it
+    ends inside other phases): a sweep's wait for its first write."""
+
+    def __init__(self, fill: str, t0: float) -> None:
+        super().__init__()
+        self._fill = fill
+        self._t0: Optional[float] = t0
+
+    def submit(self, fn) -> None:
+        if self._t0 is not None:
+            timing.add(self._fill, time.perf_counter() - self._t0, 1)
+            self._t0 = None
+        super().submit(fn)
+
+
 def _split_strips(weights: List[int], shard: Optional[Tuple[int, int]]):
     """Balanced contiguous split of strips by pair-count weight.
 
@@ -1793,16 +1810,16 @@ def _split_strips(weights: List[int], shard: Optional[Tuple[int, int]]):
     return bounds[k], bounds[k + 1]
 
 
-def _auto_tile(n: int, device: torch.device) -> int:
-    """Default square pair-tile edge for a sweep over ``n`` target rows:
-    the largest power of two <= n/4 (the diagonal blocks' lower-triangle
-    waste costs ~tile/n of the sweep), floored at 2048 and capped at
-    8192.  CPU runs keep tiles of at most 512 so tests stay fast."""
-    cap = 512 if device.type == "cpu" else 8192
-    t = 2048 if cap >= 2048 else cap
-    while t * 2 <= max(1, n // 4) and t < cap:
-        t *= 2
-    return min(t, cap)
+def _auto_tile(device: torch.device) -> int:
+    """Default pair-tile edge: 2048 on a card, 512 on the CPU so that tests
+    stay fast.  rel4's exception sidecar (``packing.REL4_SEGMENTS``
+    segments of two outliers each, the JAX engine's layout) is sized for a
+    2048² block of two counters, segments of 1,024 cells.  In a
+    16,384-genome SARS-CoV-2 square, 7 of 10 blocks of 4,096² (segments of
+    4,096 cells) held a segment of three outliers, so every strip was
+    packed and fetched again at rel; 2 of 36 blocks of 2048² did.  The
+    smaller tile also wastes less of K1's work on the square's diagonal."""
+    return 512 if device.type == "cpu" else 2048
 
 
 def _strip_ram_budget(deterministic: bool = False) -> int:
@@ -1850,10 +1867,10 @@ def _resolve_auto_tiles(setup: Setup) -> None:
     deterministic = setup.shard is not None
     if setup.tile_i == 0:
         setup.tile_i = _cap_tile_ram(
-            _auto_tile(n1, device), n2, setup.measure, deterministic
+            _auto_tile(device), n2, setup.measure, deterministic
         )
     if setup.tile_j == 0:
-        setup.tile_j = _auto_tile(n2, device)
+        setup.tile_j = _auto_tile(device)
 
 
 def _choose_tiles(n1: int, n2: int, setup: Setup, device: torch.device,
@@ -1869,11 +1886,11 @@ def _choose_tiles(n1: int, n2: int, setup: Setup, device: torch.device,
     instead)."""
     if setup.tile_i == 0:
         setup.tile_i = _cap_tile_ram(
-            _auto_tile(n1, device), n2, setup.measure,
+            _auto_tile(device), n2, setup.measure,
             setup.shard is not None,
         )
     if setup.tile_j == 0:
-        setup.tile_j = _auto_tile(n2, device)
+        setup.tile_j = _auto_tile(device)
     ti = min(setup.tile_i, _pow2_at_least(n1))
     # _tri_indices builds int32 position arithmetic over one strip's
     # pairs; cap ti so ti * n2 stays below 2^31 (a wrap would corrupt
@@ -1950,7 +1967,14 @@ def _emit_strip(setup: Setup, plan: CounterPlan, strip: np.ndarray, si: int,
 
 def _sweep_load(setup: Setup) -> None:
     """The in-core sweep of one alignment (its upper triangle) or of two
-    (file1 x file2, row-major)."""
+    (file1 x file2, row-major).
+
+    The phase total ``load-fill`` (once a job, no span) is the sweep's
+    serial head: from its start to the job's first hand-off to the
+    emitter, through the diff reference, the upload and the first strip's
+    blocks, fetch, finish, keys and gather.  An out-of-core sweep
+    (``_sweep_blocked``) and a job with no strip to emit record none."""
+    t_start = time.perf_counter()
     square = len(setup.loaded) == 1
     aln1, aln2 = setup.loaded[0], setup.loaded[-1]
     n1, n2 = aln1.n, aln2.n
@@ -2017,7 +2041,7 @@ def _sweep_load(setup: Setup) -> None:
     from distance_tpu_torch.utils.timing import ProgressMeter
 
     meter = ProgressMeter("sweep", weights[a + done : b])
-    emitter = _AsyncEmitter()
+    emitter = _FillEmitter("load-fill", t_start)
     pool = _ScratchPool()
 
     def strips():
@@ -3037,8 +3061,8 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
     uploads = _GroupUploads(grows, l_pad, eng.parts)
 
     pending: List[tuple] = []
-    emitter = _AsyncEmitter()
-    filling = True  # no group has gone to the emitter yet
+    # the job's first write waits this long for the stream
+    emitter = _FillEmitter("stream-fill", t_start)
     # groups repeat the same (bn, n1) shape: emission index arrays are
     # computed once per distinct bn; counter vectors recycle through the
     # scratch pool
@@ -3046,7 +3070,6 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
     spool = _ScratchPool()
 
     def flush_one() -> None:
-        nonlocal filling
         (g_ord, local_ord, ids2, bcounts, offs, bn, handle,
          redispatch) = pending.pop(0)
         with phase_timer("stream-fetch-wait"):
@@ -3134,10 +3157,6 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
             finally:
                 spool.give_all(lease)
 
-        if filling:
-            # the job's first write waited this long for the stream
-            timing.add("stream-fill", time.perf_counter() - t_start, 1)
-            filling = False
         with phase_timer("stream-emit-wait"):
             emitter.submit(tail)
 

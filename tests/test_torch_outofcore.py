@@ -500,7 +500,7 @@ def test_out_of_core_sizing_at_gb_scale(gb_budgets, shape, measure, width):
     l_pad = -(-width // 128) * 128
     if mode == "stream":
         ti = min(port_engine._cap_tile_ram(
-            port_engine._auto_tile(n1, CUDA), n1, measure, False
+            port_engine._auto_tile(CUDA), n1, measure, False
         ), port_engine._pow2_at_least(n1))
         lay = port_engine._stream_layout(n1, width, measure, CUDA, ti)
         assert 2 <= lay.group <= port_engine.STREAM_GROUP_CAP

@@ -29,9 +29,10 @@ OLD = {
 }
 OLD["rectangle"] = OLD["square"]
 NEW = {"emit-idle", "write:format", "prune"} | SWEEP
-# A stream's wait for its first write: a total (``timing.add``) that
+# A sweep's wait for its first write: a total (``timing.add``) that
 # keeps no span, since it ends inside another phase.
-UNNESTED = {"stream-fill"}
+UNNESTED = {"square": {"load-fill"}, "rectangle": {"load-fill"},
+            "stream": {"stream-fill"}}
 # once a process, so only in the first job that loads them
 FIRST_USE = {"lib-load", "lib-build", "cuda-init"}
 
@@ -132,13 +133,13 @@ def test_span_times_lie_within_the_job(runs, mode):
 def test_recording_off_keeps_nothing_and_keeps_the_totals(runs, mode):
     spans, totals, _, _ = runs[mode][2]
     assert spans == [] and timing.take_spans() == []
-    new = NEW | ({"stream-produce"} | UNNESTED if mode == "stream"
-                 else set())
+    new = NEW | UNNESTED[mode] | ({"stream-produce"} if mode == "stream"
+                                  else set())
     assert set(totals) - FIRST_USE == OLD[mode] | new
     # recording on runs the same phases; the job's root is no phase
     assert set(runs[mode][1][1]) - FIRST_USE == set(totals) - FIRST_USE
     assert {s.name for s in runs[mode][1][0]} == set(
-        runs[mode][1][1]) - UNNESTED | {"job"}
+        runs[mode][1][1]) - UNNESTED[mode] | {"job"}
 
 
 def _self_s(spans, root):
