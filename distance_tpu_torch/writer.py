@@ -311,6 +311,13 @@ def _format_rows(
 
             with phase_timer("write:value_table"):
                 table = _value_table(values, keys, keyspace, lib, sink)
+            if sink is not None:
+                # into the writer's output: its mmap window, or chunk by
+                # chunk from a ring while the pool formats the next ones
+                from distance_tpu_torch.ringwrite import write_keyed
+
+                return write_keyed(lib, id_args, off1, off2, pair_i,
+                                   pair_j, table, n, sink)
             with phase_timer("write:assemble"):
                 return _assemble_keyed(
                     lib, id_args, off1, off2, pair_i, pair_j, table, n,

@@ -146,7 +146,8 @@ SANCTIONED_HELPERS = {
 # that whole row; the port also asks for a full, unit-stride row.  And
 # _read_pieces yields (piece, records), not bytes.  The phase timers
 # also keep spans (start, end, thread, parent, job) when asked to, and
-# the writer's unkeyed formatting is a phase of its own.
+# the writer's unkeyed formatting is a phase of its own.  The writer's
+# keyed rows go to ``ringwrite`` when it writes its own output.
 SANCTIONED = {
     "fastaio.py": [
         ("""    if n == 0:
@@ -329,6 +330,18 @@ def job() -> Iterator[int]:
 '''),
     ],
     "writer.py": [
+        ('''                table = _value_table(values, keys, keyspace, lib, sink)
+            with phase_timer("write:assemble"):
+''', '''                table = _value_table(values, keys, keyspace, lib, sink)
+            if sink is not None:
+                # into the writer's output: its mmap window, or chunk by
+                # chunk from a ring while the pool formats the next ones
+                from distance_tpu_torch.ringwrite import write_keyed
+
+                return write_keyed(lib, id_args, off1, off2, pair_i,
+                                   pair_j, table, n, sink)
+            with phase_timer("write:assemble"):
+'''),
         ('''        starts = list(range(0, n, _FORMAT_CHUNK_ROWS))
         if len(starts) > 1:
             out = list(_format_pool().map(chunk, starts))

@@ -4,6 +4,8 @@ sweep's spans, each with its job's ordinal and a parent that holds it;
 with recording off nothing is kept and the totals only gain the new
 phases' names."""
 
+import os
+import threading
 import time
 
 import numpy as np
@@ -11,7 +13,7 @@ import pytest
 
 pytest.importorskip("torch")
 
-from distance_tpu_torch import cli  # noqa: E402
+from distance_tpu_torch import cli, writer  # noqa: E402
 from distance_tpu_torch.utils import timing  # noqa: E402
 from tests.conftest import make_fasta, random_seqs  # noqa: E402
 
@@ -33,6 +35,10 @@ NEW = {"emit-idle", "write:format", "prune"} | SWEEP
 # keeps no span, since it ends inside another phase.
 UNNESTED = {"square": {"load-fill"}, "rectangle": {"load-fill"},
             "stream": {"stream-fill"}}
+# The pool's seconds formatting keyed rows ahead of their writes into an
+# output that cannot be mapped: a total once a strip, summed over its
+# chunks on the pool's threads, so no span.
+RING_TOTALS = {"write:format-ahead"}
 # once a process, so only in the first job that loads them
 FIRST_USE = {"lib-load", "lib-build", "cuda-init"}
 
@@ -181,3 +187,41 @@ def test_the_stream_producer_is_timed_with_recording_off(runs, mode):
         assert 0 < totals["stream-produce"] < t1 - t0
     else:
         assert "stream-produce" not in totals
+
+
+def test_the_rings_formatting_ahead_is_a_total_with_no_span(
+        tmp_path, monkeypatch):
+    """A square past the writer's keyed threshold (370 records, 68,265
+    rows, 17 chunks of 4,096) into a FIFO: the ring adds its total and
+    keeps no span of it, and each chunk's ``write:io`` lies beside
+    ``write:assemble``."""
+    monkeypatch.setattr(writer, "_FORMAT_CHUNK_ROWS", 4096)
+    rng = np.random.default_rng(19)
+    a = tmp_path / "a.fasta"
+    a.write_bytes(make_fasta(random_seqs(rng, 370, 40, amb_frac=0.1)))
+    fifo = tmp_path / "out.fifo"
+    os.mkfifo(fifo)
+    got = []
+
+    def drain():
+        with open(fifo, "rb") as f:
+            got.append(len(f.read()))
+
+    t = threading.Thread(target=drain)
+    t.start()
+    timing.take_spans()
+    timing.record_spans(True)
+    try:
+        spans, totals, _, _ = _job([str(a), "-m", "raw", "--backend",
+                                    "torch", "-o", str(fifo)])
+    finally:
+        timing.record_spans(False)
+    t.join(timeout=120)
+    assert not t.is_alive() and got[0] > 0
+    assert RING_TOTALS <= set(totals)
+    assert not RING_TOTALS & {s.name for s in spans}
+    by_id = {s.id: s for s in spans}
+    writes = [s for s in spans if s.name == "write:io"]
+    assert len([s for s in writes if s.thread == "emitter"]) >= 17
+    assert all(by_id[s.parent].name != "write:assemble" for s in writes
+               if s.parent in by_id)
