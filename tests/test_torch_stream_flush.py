@@ -10,6 +10,7 @@ CLI's ``--backend numpy`` bytes.
 """
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -19,7 +20,9 @@ torch = pytest.importorskip("torch")
 from distance_tpu import cli as jax_cli  # noqa: E402
 from distance_tpu_torch import cli as port_cli  # noqa: E402
 from distance_tpu_torch import engine as port_engine  # noqa: E402
+from distance_tpu_torch import writer  # noqa: E402
 from distance_tpu_torch.ops.features import get_plan  # noqa: E402
+from distance_tpu_torch.parallel.multihost import UnitIndex  # noqa: E402
 from distance_tpu_torch.utils import timing  # noqa: E402
 from tests.conftest import make_fasta, random_seqs  # noqa: E402
 
@@ -110,6 +113,52 @@ def test_pair_sized_groups_give_the_jax_engines_tsv(tmp_path, monkeypatch,
     assert counts["stream-fill"] == 1
     # every group but the one the stream's end dispatches goes early
     assert counts["stream-early-flush"] == len(seen) - 1
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+@pytest.mark.parametrize("measure", ["raw", "k80", "tn93"])
+def test_keyed_memo_of_pair_sized_groups_gives_the_jax_engines_tsv(
+        tmp_path, monkeypatch, inputs, pair_groups, measure, sharded):
+    """Every group's rows through the writer's keyed memo (its row
+    threshold lowered to one row): the bytes are the JAX CLI's.  Sharded,
+    the groups of each part, as its ``.units`` sidecar counts them, sum
+    to the part's bytes past its preamble, and the parts merge to the
+    same bytes."""
+    a, b = inputs
+    args = [a, "-s", b, "-m", measure, "-b", "1"]
+    want = jax_tsv(tmp_path, args)
+    monkeypatch.setattr(writer, "_MEMO_MIN_ROWS", 1)
+    tables = []
+    real_table = writer._value_table
+
+    def table(*a, **kw):
+        tables.append(a[2])  # the keyspace
+        return real_table(*a, **kw)
+
+    monkeypatch.setattr(writer, "_value_table", table)
+    if not sharded:
+        assert port_tsv(tmp_path, args) == want
+        # one keyed table a group
+        assert len(tables) == -(-N2 // group_of(measure))
+        return
+    # a shard's auto group follows no pairs cap: fix it at the same size
+    monkeypatch.setattr(port_engine, "STREAM_GROUP", group_of(measure))
+    parts = [str(tmp_path / f"part{k}") for k in range(2)]
+    ordinals = []
+    for k, part in enumerate(parts):
+        assert port_cli.main([*args, "--backend", "torch", "--shard",
+                              f"{k}/2", "-o", part]) == 0
+        index = UnitIndex(part)
+        assert index.load()
+        assert all(g % 2 == k for g, _ in index.units)
+        assert (sum(nbytes for _, nbytes in index.units)
+                == os.path.getsize(part) - index.preamble)
+        ordinals += [g for g, _ in index.units]
+    groups = -(-N2 // group_of(measure))
+    assert sorted(ordinals) == list(range(groups)) and len(tables) == groups
+    out = tmp_path / "merged.tsv"
+    assert port_cli.main(["--merge", *parts, "-o", str(out)]) == 0
+    assert out.read_bytes() == want
 
 
 def log_order(monkeypatch):
