@@ -29,7 +29,7 @@ against one loaded alignment.  The loaded sweeps in core:
 * finalize and emit the upper triangle (square) or the full file1 x file2
   block in row-major order (rectangle) on the host.
 
-The stream (``_run_stream``) keeps the loaded side's variant columns on
+The stream (``_StreamSweep``) keeps the loaded side's variant columns on
 the device and sends the records in groups (diff-encoded, with the
 reference retargeted when a group's lineage differs), one counter block
 and one pack per group: on the cached-feature path (the JAX engine's
@@ -77,8 +77,6 @@ from distance_tpu_torch.emit import (
     _gather_emit,
     _prune_invariant_columns,
     _ScratchPool,
-    _tn93_value_keys,
-    _value_keys,
 )
 from distance_tpu_torch.fastaio import (
     Alignment,
@@ -462,7 +460,7 @@ def _run(setup: Setup) -> None:
     try:
         if setup.streamed is not None:
             with phase_timer("stream-sweep"):
-                _run_stream(setup, split, layout)
+                _StreamSweep(setup, split, layout).run()
         else:
             with phase_timer("load-sweep"):
                 _sweep_load(setup)
@@ -1861,14 +1859,16 @@ def _resolve_auto_tiles(setup: Setup) -> None:
     """
     if not setup.loaded:
         return
-    n1 = setup.loaded[0].n
-    n2 = n1 if setup.streamed is not None else setup.loaded[-1].n
-    device = device_of(setup.backend)
-    deterministic = setup.shard is not None
+    # a stream loads one alignment: its rows are both sides' then
+    _set_auto_tiles(setup, setup.loaded[-1].n, device_of(setup.backend))
+
+
+def _set_auto_tiles(setup: Setup, n2: int, device: torch.device) -> None:
+    """Auto (0) tiles of ``setup`` made the device's auto tile, ``tile_i``
+    capped by the emission lease of ``n2`` columns (fixed under a shard)."""
     if setup.tile_i == 0:
-        setup.tile_i = _cap_tile_ram(
-            _auto_tile(device), n2, setup.measure, deterministic
-        )
+        setup.tile_i = _cap_tile_ram(_auto_tile(device), n2, setup.measure,
+                                     setup.shard is not None)
     if setup.tile_j == 0:
         setup.tile_j = _auto_tile(device)
 
@@ -1884,13 +1884,7 @@ def _choose_tiles(n1: int, n2: int, setup: Setup, device: torch.device,
     reason: a block starting off the grid would reach past the padded
     rows (the JAX engine's one-device path shifts such a block's columns
     instead)."""
-    if setup.tile_i == 0:
-        setup.tile_i = _cap_tile_ram(
-            _auto_tile(device), n2, setup.measure,
-            setup.shard is not None,
-        )
-    if setup.tile_j == 0:
-        setup.tile_j = _auto_tile(device)
+    _set_auto_tiles(setup, n2, device)
     ti = min(setup.tile_i, _pow2_at_least(n1))
     # _tri_indices builds int32 position arithmetic over one strip's
     # pairs; cap ti so ti * n2 stays below 2^31 (a wrap would corrupt
@@ -2947,8 +2941,26 @@ class _GroupUploads:
         return out
 
 
-def _run_stream(setup: Setup, split: Optional[_StreamSplit],
-                layout: _StreamLayout) -> None:
+@dataclass
+class _Group:
+    """A stream group in flight: its global and its shard's ordinal (the
+    resume key), its streamed records, and its fetch with the ``_Strip``
+    that refetches it in core (staged: its finished counters, and None)."""
+
+    g_ord: int
+    local_ord: int
+    ids: List[str]
+    base_counts: Optional[np.ndarray]
+    offs: Dict[str, Optional[np.ndarray]]
+    rows: int
+    fetch: object
+    redispatch: Optional[_Strip]
+
+    def ready(self) -> bool:
+        return self.redispatch is None or self.fetch.done()
+
+
+class _StreamSweep:
     """Stream records against one loaded alignment (lib.rs:269-365).
 
     The loaded side's variant columns (``split``) are prepared on the
@@ -2970,12 +2982,14 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
     finishes the counters (a saturated group is packed again at the next
     rung from its counters, kept on the device), transposes them to
     streamed-major order, adds each record's invariant-column offset and
-    emits.  A staged stream (``layout.sr_rows``) keeps the loaded side on
+    emits them through ``_emit_pairs``, the group as its column side.  A
+    staged stream (``layout.sr_rows``) keeps the loaded side on
     the host and sweeps it in super-rows per group instead, each
     super-row's part packed and finished on its own
     (``_dispatch_stream_staged``).  A group is one resume unit.  On a bad
     streamed record every fully read user batch is emitted first, then
-    the error is raised.
+    the error is raised.  A failed upload of the loaded side surfaces
+    from its future, also where every group was emitted before a resume.
 
     Under ``--shard K/N`` groups go round-robin by global ordinal: every
     shard parses the whole stream but uploads and launches only the
@@ -2984,306 +2998,260 @@ def _run_stream(setup: Setup, split: Optional[_StreamSplit],
     in the part's ``.units`` sidecar (``UnitIndex``: global ordinal and
     bytes, and the group size), which the merge interleaves.
     """
-    from concurrent.futures import ThreadPoolExecutor
 
-    t_start = time.perf_counter()
-    aln = setup.loaded[0]
-    n1, width = aln.n, aln.width
-    grows = layout.group
-    shard_k, shard_n = setup.shard if setup.shard is not None else (0, 1)
-    done = _resume_skip(setup)
-    unit_index = None
-    if setup.shard is not None and setup.out_path is not None:
-        unit_index = UnitIndex(setup.out_path)
-        if done:
-            if not unit_index.load() or len(unit_index.units) < done:
-                raise DistanceError(
-                    "Cannot resume sharded stream: missing or short"
-                    f" units index {unit_index.sidecar}"
-                )
-            unit_index.truncate(done)
-    setup.writer.header()
-    if unit_index is not None and not done:
+    def __init__(self, setup: Setup, split: Optional[_StreamSplit],
+                 layout: _StreamLayout) -> None:
+        from concurrent.futures import ThreadPoolExecutor
+
+        t_start = time.perf_counter()
+        self.setup, self.split, self.layout = setup, split, layout
+        self.aln = aln = setup.loaded[0]
+        self.shard = setup.shard if setup.shard is not None else (0, 1)
+        self.skip = _resume_skip(setup)
+        self.units = self._open_units()
+        width_dev = int(split.keep.sum()) if split is not None else aln.width
+        l_pad = _padded_shape(aln.n, width_dev, 1, 1)[1]
+        # one launch covers every loaded row (of a super-row, when
+        # staged), so they need no strip padding; a group's records split
+        # over the devices when they divide the group size (the JAX
+        # engine's _device_mesh(rows_pad))
+        self.eng = eng = _BlockEngine(setup.measure, devices_of(setup.backend),
+                                      1, width_dev, rel=True, tj=layout.group)
+        mat = (np.ascontiguousarray(aln.matrix[:, split.keep])
+               if split is not None else aln.matrix)
+
+        def diff_ref():
+            # streamed records share ancestry with the loaded set, so its
+            # per-column mode is the diff reference of both
+            return (None if _os.environ.get("DISTANCE_TPU_NO_DIFF_UPLOAD")
+                    else mode_row(mat))
+
+        # the loaded side's form; ``_launch`` is the plain function, as a
+        # bound method would hold the sweep and its writer in a cycle
+        self.lside = self.prep = None
+        if layout.sr_rows:
+            print(f"[distance-tpu] staged stream: {aln.n * l_pad / 1e9:.2f} GB"
+                  f" loaded matrix swept from the host in super-rows of"
+                  f" {layout.sr_rows} rows per group of {layout.group}",
+                  file=sys.stderr)
+            with phase_timer("diff-ref"):
+                self.lside = _StagedSide(eng, mat, 1, diff_ref(),
+                                         cache_f=layout.cached)
+            self.spans = [(q0, min(q0 + layout.sr_rows, aln.n))
+                          for q0 in range(0, aln.n, layout.sr_rows)]
+            self._launch = _StreamSweep._launch_staged
+        else:
+            def prepare():
+                with phase_timer("stream-prepare-upload"):
+                    return eng.prepare(mat, 1, diff_ref=diff_ref(),
+                                       cache_f=layout.cached)
+
+            # The loaded side's upload (with its reference row) overlaps
+            # the stream parse.  Its future's result() raises a failed
+            # upload on the thread that consumes it.
+            preparer = ThreadPoolExecutor(1)
+            self.prep = preparer.submit(prepare)
+            preparer.shutdown(wait=False)
+            self._launch = _StreamSweep._launch_in_core
+        self.uploads = _GroupUploads(layout.group, l_pad, eng.parts)
+        # the job's first write waits this long for the stream
+        self.emitter = _FillEmitter("stream-fill", t_start)
+        self.spool = _ScratchPool()
+        # each group size's pair indices; sizes take few values
+        self.indices: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        self.pending: List[_Group] = []
+        # the group being gathered: (batch, r0, r1), rows r0..r1-1 of a
+        # batch, and its record count
+        self.pieces: List[tuple] = []
+        self.rows = self.next_global = self.next_local = 0
+
+    def _open_units(self) -> Optional[UnitIndex]:
+        """Writes the header; a shard's ``.units`` sidecar, cut back to
+        the resumed groups, else None."""
+        setup, units = self.setup, None
+        if setup.shard is not None and setup.out_path is not None:
+            units = UnitIndex(setup.out_path)
+            if self.skip:
+                if not units.load() or len(units.units) < self.skip:
+                    raise DistanceError(
+                        "Cannot resume sharded stream: missing or short"
+                        f" units index {units.sidecar}")
+                units.truncate(self.skip)
+        setup.writer.header()
+        if units is not None and not self.skip:
+            try:
+                units.preamble = setup.writer.tell()
+            except (OSError, AttributeError):
+                units = None
+        if units is not None:
+            # saved now, so that a shard left without groups still has
+            # its sidecar (and its group size) for the merge
+            units.group = self.layout.group
+            units.save()
+            # the emitter writes the groups in order: each begins where
+            # the one before ended
+            self.units_end = setup.writer.tell()
+        return units
+
+    def run(self) -> None:
+        setup, grows = self.setup, self.layout.group
         try:
-            unit_index.preamble = setup.writer.tell()
-        except (OSError, AttributeError):
-            unit_index = None
-    if unit_index is not None:
-        # saved now, so that a shard left without groups still has its
-        # sidecar (and its group size) for the merge
-        unit_index.group = grows
-        unit_index.save()
-    plan = get_plan(setup.measure)
-    width_dev = int(split.keep.sum()) if split is not None else width
-    l_pad = _padded_shape(n1, width_dev, 1, 1)[1]
-    # one launch covers every loaded row (of a super-row, when staged), so
-    # they need no strip padding; a group's records split over the
-    # devices when they divide the group size (the JAX engine's
-    # _device_mesh(rows_pad))
-    eng = _BlockEngine(setup.measure, devices_of(setup.backend), 1,
-                       width_dev, rel=True, tj=grows)
-    mat_loaded = (
-        np.ascontiguousarray(aln.matrix[:, split.keep])
-        if split is not None else aln.matrix
-    )
-    prep_fut = lside = None
+            it = _threaded_iter(_produced(stream_fasta(
+                setup.streamed, self.aln.width, setup.measure,
+                setup.consensus, max(1, setup.batchsize))))
+            while True:
+                # groups whose counters are back go now, oldest first
+                while self.pending and self.pending[0].ready():
+                    with phase_timer("stream-early-flush"):
+                        self._emit()
+                with phase_timer("stream-parse-wait"):
+                    batch = next(it, None)
+                if batch is None:
+                    break
+                rows = batch.matrix.shape[0]
+                for r0 in range(0, rows, grows):
+                    r1 = min(r0 + grows, rows)
+                    if self.rows + r1 - r0 > grows:
+                        self._dispatch()
+                    self.pieces.append((batch, r0, r1))
+                    self.rows += r1 - r0
+                if self.rows == grows:
+                    self._dispatch()
+        except DistanceError:
+            # a bad streamed record: emit every fully read user batch
+            # first; the stream error is the one reported
+            self._drain()
+            try:
+                self.emitter.finish()
+            except Exception:
+                pass
+            raise
+        self._drain()
+        if self.lside is not None:
+            self.lside.drop()
+        else:
+            # a run whose groups were all emitted before a resume never
+            # consumed the upload: a failed one must still surface
+            self.eng.release(self.prep.result())
+        self.emitter.finish()
 
-    def diff_ref():
-        # streamed records share ancestry with the loaded set, so its
-        # per-column mode is the diff reference of both
-        return (None if _os.environ.get("DISTANCE_TPU_NO_DIFF_UPLOAD")
-                else mode_row(mat_loaded))
+    def _drain(self) -> None:
+        self._dispatch()
+        while self.pending:
+            self._emit()
 
-    if layout.sr_rows:
-        print(
-            f"[distance-tpu] staged stream: {n1 * l_pad / 1e9:.2f} GB"
-            f" loaded matrix swept from the host in super-rows of"
-            f" {layout.sr_rows} rows per group of {grows}",
-            file=sys.stderr,
-        )
-        with phase_timer("diff-ref"):
-            lside = _StagedSide(eng, mat_loaded, 1, diff_ref(),
-                                cache_f=layout.cached)
-        spans = [(q0, min(q0 + layout.sr_rows, n1))
-                 for q0 in range(0, n1, layout.sr_rows)]
-    else:
-        def prepare():
-            with phase_timer("stream-prepare-upload"):
-                return eng.prepare(mat_loaded, 1, diff_ref=diff_ref(),
-                                   cache_f=layout.cached)
+    def _dispatch(self) -> None:
+        """Launches the gathered group if it is this shard's and not yet
+        done, then emits the oldest past ``layout.pending`` behind it."""
+        pieces, bn = self.pieces, self.rows
+        self.pieces, self.rows = [], 0
+        if not pieces:
+            return
+        g_ord, self.next_global = self.next_global, self.next_global + 1
+        if g_ord % self.shard[1] != self.shard[0]:
+            return
+        local_ord, self.next_local = self.next_local, self.next_local + 1
+        if local_ord < self.skip:
+            return
+        with phase_timer("stream-group-build"):
+            ids = [i for b, r0, r1 in pieces for i in b.ids[r0:r1]]
+            bcounts = (np.concatenate([b.base_counts[r0:r1]
+                                       for b, r0, r1 in pieces])
+                       if pieces[0][0].base_counts is not None else None)
+        offs, fetch, redispatch = self._launch(self, pieces, bn)
+        self.pending.append(_Group(g_ord, local_ord, ids, bcounts, offs, bn,
+                                   fetch, redispatch))
+        while len(self.pending) > self.layout.pending:
+            self._emit()
 
-        # The loaded side's upload (with its reference row) overlaps the
-        # stream parse.  Its future's result() raises a failed upload on
-        # the thread that consumes it.
-        preparer = ThreadPoolExecutor(1)
-        prep_fut = preparer.submit(prepare)
-        preparer.shutdown(wait=False)
-    uploads = _GroupUploads(grows, l_pad, eng.parts)
+    def _fill(self, pieces: List[tuple], bn: int):
+        """The group's codes in the next upload buffer, the loaded side's
+        variant columns only, and its records' invariant-column offsets
+        (each None without the split)."""
+        buf, split = self.uploads.take(), self.split
+        offs_parts, r = [], 0
+        for b, r0, r1 in pieces:
+            m = b.matrix[r0:r1]
+            if split is not None:
+                offs_parts.append(split.offsets(m))
+                m = m[:, split.keep]
+            buf[r : r + r1 - r0, : m.shape[1]] = m
+            r += r1 - r0
+        offs = ({k: np.concatenate([p[k] for p in offs_parts])
+                 for k in offs_parts[0]} if split is not None
+                else dict.fromkeys(self.eng.plan.counters))
+        return buf[:bn], offs
 
-    pending: List[tuple] = []
-    # the job's first write waits this long for the stream
-    emitter = _FillEmitter("stream-fill", t_start)
-    # groups repeat the same (bn, n1) shape: emission index arrays are
-    # computed once per distinct bn; counter vectors recycle through the
-    # scratch pool
-    emit_idx_cache: Dict[int, tuple] = {}
-    spool = _ScratchPool()
+    def _launch_in_core(self, pieces: List[tuple], bn: int):
+        """One block over the whole (G, n1, bn) group (its g features
+        against the loaded rows' f cache by K6, else K1), the baselines and
+        one pack; its counters stay on the device for a refetch."""
+        eng, n1, uploads = self.eng, self.aln.n, self.uploads
+        with phase_timer("stream-upload"):
+            buf, offs = self._fill(pieces, bn)
+            m1 = self.prep.result()
+            codes, ref = eng.dispatch_stream(buf, lambda: uploads.send(bn))
+        with phase_timer("dispatch"):
+            if self.layout.cached:
+                eng.cache_group(codes, m1)
+            redispatch = _Strip(eng, m1, codes, 0, [0], n1, bn, (n1, bn),
+                                None, ref)
+            try:
+                fetch = _AsyncFetch(redispatch())
+            finally:
+                eng.drop_group(codes)
+        return offs, fetch, redispatch
 
-    def flush_one() -> None:
-        (g_ord, local_ord, ids2, bcounts, offs, bn, handle,
-         redispatch) = pending.pop(0)
+    def _launch_staged(self, pieces: List[tuple], bn: int):
+        with phase_timer("stream-upload"):
+            buf, offs = self._fill(pieces, bn)
+        return offs, _dispatch_stream_staged(
+            self.eng, self.lside, self.spans, buf,
+            lambda: self.uploads.send(bn), self.aln.n, bn), None
+
+    def _emit(self) -> None:
+        """The oldest group's counters, fetched and finished, through
+        ``_emit_pairs``: for each streamed record (outer), all loaded
+        (inner), columns (loaded_id, streamed_id) — lib.rs:322-333."""
+        grp = self.pending.pop(0)
+        n1, bn = self.aln.n, grp.rows
         with phase_timer("stream-fetch-wait"):
             # (G, n1, bn); a staged group is finished already
-            strip = (handle if isinstance(handle, np.ndarray) else
-                     _fetch_strip(eng, handle, n1, bn, redispatch))
-        # Emission: for each streamed record (outer), all loaded (inner)
-        # with columns (loaded_id, streamed_id) — lib.rs:322-333.
+            strip = grp.fetch if grp.redispatch is None else _fetch_strip(
+                self.eng, grp.fetch, n1, bn, grp.redispatch)
         with phase_timer("stream-gather"):
-            cached = emit_idx_cache.get(bn)
-            if cached is None:
-                local_cols = np.repeat(np.arange(bn, dtype=np.int32), n1)
-                row_idx = np.tile(np.arange(n1, dtype=np.int32), bn)
-                if len(emit_idx_cache) >= 4:  # bn takes few values
-                    emit_idx_cache.pop(next(iter(emit_idx_cache)))
-                emit_idx_cache[bn] = (row_idx, local_cols)
-            else:
-                row_idx, local_cols = cached
+            idx = self.indices.get(bn)
+            if idx is None:
+                if len(self.indices) >= 4:
+                    self.indices.pop(next(iter(self.indices)))
+                idx = self.indices[bn] = (
+                    np.tile(np.arange(n1, dtype=np.int32), bn),
+                    np.repeat(np.arange(bn, dtype=np.int32), n1))
             # streamed-major emission == the transposed (bn, n1) flat
             # view, plus each record's invariant-column contribution
             lease: List[np.ndarray] = []
-            counters = {
-                name: _transpose_add(
-                    strip[k], n1, bn,
-                    offs[name] if offs is not None else None,
-                    spool, lease,
-                )
-                for k, name in enumerate(plan.counters)
-            }
-        bc = None
-        if setup.measure == "tn93":
-            # loaded side indexed by row_idx, streamed side by local_cols
-            bc = (aln.base_counts, row_idx, bcounts, local_cols)
-        with phase_timer("keys"):
-            if (
-                setup.measure == "tn93" and bcounts is not None
-                and aln.base_counts is not None
-            ):
-                uniq, inv = np.unique(bcounts, axis=0, return_inverse=True)
-                grp_ranks = (
-                    np.ascontiguousarray(inv.reshape(-1), dtype=np.int32),
-                    int(uniq.shape[0]),
-                )
-                keys, keyspace = _tn93_value_keys(
-                    counters, aln.tally_ranks(), row_idx, grp_ranks,
-                    local_cols, spool, lease,
-                )
-            else:
-                keys, keyspace = _value_keys(setup.measure, counters,
-                                             width, spool, lease)
-        if keys is not None:
-            # deferred finalize-by-representative (see _emit_pairs): the
-            # writer calls back with one row per distinct key
-            measure = setup.measure
+            counters = {name: _transpose_add(strip[k], n1, bn, grp.offs[name],
+                                             self.spool, lease)
+                        for k, name in enumerate(self.eng.plan.counters)}
+        streamed = Alignment(grp.ids, [], np.empty((bn, 0), np.uint8),
+                             grp.base_counts)
+        # the tail keeps the ordinals only: the group's device codes and
+        # pinned fetch go when it returns
+        g_ord, local_ord = grp.g_ord, grp.local_ord
+        _emit_pairs(self.setup, self.aln, streamed, *idx, counters,
+                    emitter=self.emitter,
+                    after=lambda: self._written(g_ord, local_ord),
+                    pool=self.spool, lease=lease)
 
-            def values(first_rows, counters=counters, bc=bc):
-                if first_rows is None:
-                    with phase_timer("finalize"):
-                        return finalize_block(measure, counters, bc)
-                sub = {k: v[first_rows] for k, v in counters.items()}
-                sbc = None
-                if bc is not None:
-                    bcq, iq, bct, it = bc
-                    sbc = (bcq, iq[first_rows], bct, it[first_rows])
-                with phase_timer("finalize"):
-                    return finalize_block(measure, sub, sbc)
-        else:
-            with phase_timer("finalize"):
-                values = finalize_block(setup.measure, counters, bc)
-
-        def tail(ids2=ids2, row_idx=row_idx, local_cols=local_cols,
-                 values=values, keys=keys, keyspace=keyspace,
-                 g_ord=g_ord, local_ord=local_ord, lease=lease):
-            try:
-                if unit_index is not None:
-                    pos0 = setup.writer.tell()
-                setup.writer.rows(
-                    aln.ids, ids2, row_idx, local_cols, values, keys,
-                    keyspace,
-                )
-                if unit_index is not None:
-                    unit_index.append(g_ord, setup.writer.tell() - pos0)
-                    unit_index.save()
-                _progress_mark(setup, local_ord + 1)
-            finally:
-                spool.give_all(lease)
-
-        with phase_timer("stream-emit-wait"):
-            emitter.submit(tail)
-
-    def flush_done() -> None:
-        # groups whose counters are back go to the emitter now, oldest
-        # first, not once STREAM_PENDING more are in flight (a staged
-        # group is finished already)
-        while pending and (isinstance(pending[0][6], np.ndarray)
-                           or pending[0][6].done()):
-            with phase_timer("stream-early-flush"):
-                flush_one()
-
-    group: List[tuple] = []  # (batch, r0, r1): rows r0..r1-1 of a batch
-    group_rows = 0
-    g_ordinal = 0  # global group ordinal (shard-independent)
-    local_idx = 0  # this shard's group count (the resume key)
-
-    def dispatch_group() -> None:
-        nonlocal group, group_rows, g_ordinal, local_idx
-        pieces, bn = group, group_rows
-        group, group_rows = [], 0
-        if not pieces:
-            return
-        this_global = g_ordinal
-        g_ordinal += 1
-        if this_global % shard_n != shard_k:
-            return
-        this_local = local_idx
-        local_idx += 1
-        if this_local < done:
-            return
-        with phase_timer("stream-group-build"):
-            ids2 = [i for b, r0, r1 in pieces for i in b.ids[r0:r1]]
-            bcounts = (
-                np.concatenate([b.base_counts[r0:r1] for b, r0, r1 in pieces])
-                if pieces[0][0].base_counts is not None
-                else None
-            )
-        with phase_timer("stream-upload"):
-            buf = uploads.take()
-            offs_parts = []
-            r = 0
-            for b, r0, r1 in pieces:
-                m = b.matrix[r0:r1]
-                if split is not None:
-                    offs_parts.append(split.offsets(m))
-                    m = m[:, split.keep]
-                buf[r : r + r1 - r0, : m.shape[1]] = m
-                r += r1 - r0
-            offs = (
-                {
-                    k: np.concatenate([p[k] for p in offs_parts])
-                    for k in offs_parts[0]
-                }
-                if split is not None
-                else None
-            )
-            if lside is None:
-                m1 = prep_fut.result()
-                codes, ref = eng.dispatch_stream(
-                    buf[:bn], lambda: uploads.send(bn))
-        redispatch = None
-        if lside is not None:
-            fetch = _dispatch_stream_staged(
-                eng, lside, spans, buf[:bn], lambda: uploads.send(bn), n1,
-                bn)
-        else:
-            # one block over the whole (G, n1, bn) group (the group's g
-            # features against the loaded rows' f cache by K6, else K1),
-            # the baselines and one pack; its counters stay on the device
-            # for a refetch at a lower rung
-            with phase_timer("dispatch"):
-                if layout.cached:
-                    eng.cache_group(codes, m1)
-                redispatch = _Strip(eng, m1, codes, 0, [0], n1, bn,
-                                    (n1, bn), None, ref)
-                try:
-                    fetch = _AsyncFetch(redispatch())
-                finally:
-                    eng.drop_group(codes)
-        pending.append((this_global, this_local, ids2, bcounts, offs, bn,
-                        fetch, redispatch))
-        while len(pending) > layout.pending:
-            flush_one()
-
-    _SENTINEL = object()
-    try:
-        it = _threaded_iter(_produced(stream_fasta(
-            setup.streamed, width, setup.measure, setup.consensus,
-            max(1, setup.batchsize),
-        )))
-        while True:
-            flush_done()
-            with phase_timer("stream-parse-wait"):
-                batch = next(it, _SENTINEL)
-            if batch is _SENTINEL:
-                break
-            rows = batch.matrix.shape[0]
-            for r0 in range(0, rows, grows):
-                r1 = min(r0 + grows, rows)
-                if group_rows + r1 - r0 > grows:
-                    dispatch_group()
-                group.append((batch, r0, r1))
-                group_rows += r1 - r0
-            if group_rows == grows:
-                dispatch_group()
-    except DistanceError:
-        # a bad streamed record: emit every fully read user batch first;
-        # the stream error is the one reported
-        dispatch_group()
-        while pending:
-            flush_one()
-        try:
-            emitter.finish()
-        except Exception:
-            pass
-        raise
-    dispatch_group()
-    while pending:
-        flush_one()
-    if lside is not None:
-        lside.drop()
-    else:
-        # a run whose groups were all emitted before a resume never
-        # consumed the upload: a failed one must still surface
-        eng.release(prep_fut.result())
-    emitter.finish()
+    def _written(self, g_ord: int, local_ord: int) -> None:
+        """On the emitter thread, once a group's rows are written: its
+        bytes in the ``.units`` sidecar, and the checkpoint."""
+        if self.units is not None:
+            end = self.setup.writer.tell()
+            self.units.append(g_ord, end - self.units_end)
+            self.units.save()
+            self.units_end = end
+        _progress_mark(self.setup, local_ord + 1)
 
 
 def _dispatch_stream_staged(eng: _BlockEngine, lside: _StagedSide,

@@ -27,7 +27,7 @@ OLD = {
     "stream": {"load+encode", "stream-sweep", "stream-parse-wait",
                "stream-prepare-upload", "stream-group-build",
                "stream-upload", "stream-fetch-wait", "stream-gather", "keys",
-               "finalize", "stream-emit-wait", "write:io"},
+               "finalize", "write", "write:io"},
 }
 OLD["rectangle"] = OLD["square"]
 NEW = {"emit-idle", "write:format", "prune"} | SWEEP

@@ -9,6 +9,7 @@ two counters).  Every port run here is
 CLI's ``--backend numpy`` bytes.
 """
 
+import inspect
 import json
 import os
 
@@ -159,6 +160,39 @@ def test_keyed_memo_of_pair_sized_groups_gives_the_jax_engines_tsv(
     out = tmp_path / "merged.tsv"
     assert port_cli.main(["--merge", *parts, "-o", str(out)]) == 0
     assert out.read_bytes() == want
+
+
+def closure(fn, seen=None):
+    """Every value a function's closure holds, through the functions in
+    it."""
+    seen = set() if seen is None else seen
+    for cell in fn.__closure__ or ():
+        value = cell.cell_contents
+        if id(value) not in seen:
+            seen.add(id(value))
+            yield value
+            if inspect.isfunction(value):
+                yield from closure(value, seen)
+
+
+def test_the_emission_tail_holds_no_group(tmp_path, monkeypatch, inputs,
+                                          pair_groups):
+    """What the stream hands the emitter holds no group in flight: a
+    group's device codes and pinned fetch go once it is handed over, not
+    once its rows are written."""
+    a, b = inputs
+    args = [a, "-s", b, "-m", "raw", "-b", "1"]
+    held = []
+    real_submit = port_engine._AsyncEmitter.submit
+
+    def submit(self, fn):
+        held.append(any(isinstance(v, port_engine._Group)
+                        for v in closure(fn)))
+        return real_submit(self, fn)
+
+    monkeypatch.setattr(port_engine._AsyncEmitter, "submit", submit)
+    assert port_tsv(tmp_path, args) == jax_tsv(tmp_path, args)
+    assert held == [False] * -(-N2 // GROUP)
 
 
 def log_order(monkeypatch):
