@@ -2560,13 +2560,12 @@ def out_of_core(budget: int, host: int, tiles: tuple):
     import torch
 
     from distance_tpu_torch import engine
-    from distance_tpu_torch.ops import diffup
 
     names = ("DEVICE_BUDGET", "HOST_BUF_BUDGET", "TILE_I", "TILE_J")
     saved = [getattr(engine, k) for k in names]
     real = (engine._StagedSide.get, engine._BlockEngine.prepare,
             engine._dispatch_stream_staged, engine.kernels.counters,
-            diffup.DiffUploader.encode, engine._BlockEngine.pack_block)
+            engine._BlockEngine._encode, engine._BlockEngine.pack_block)
     packs = ("rel4", "rel", "narrow", "wide")
     real_packs = [getattr(engine.packing, f"pack_{k}") for k in packs]
     seen = {"x_rows": [], "spans": [], "stagings": 0, "groups": [],
@@ -2602,11 +2601,13 @@ def out_of_core(budget: int, host: int, tiles: tuple):
         seen["k1_events"].append((start, end))
         return out
 
-    def encode(up, padded, n_real=None):
+    def encode(eng, matrix, n_pad, padded):
+        # the engine's encode of a prepared matrix: in place, or from its
+        # padded copy
         if staging:
             key = staging[-1]
             seen["encodes"][key] = seen["encodes"].get(key, 0) + 1
-        return real[4](up, padded, n_real)
+        return real[4](eng, matrix, n_pad, padded)
 
     def pack_block(eng, c, mode, i0, j0, bases=None, nv=None,
                    diag_off=None, *window):
@@ -2639,7 +2640,7 @@ def out_of_core(budget: int, host: int, tiles: tuple):
     engine._BlockEngine.prepare = prepare
     engine._dispatch_stream_staged = staged
     engine.kernels.counters = counters
-    diffup.DiffUploader.encode = encode
+    engine._BlockEngine._encode = encode
     engine._BlockEngine.pack_block = pack_block
     for k, fn in zip(packs, (rel4, rel, narrow, wide)):
         setattr(engine.packing, f"pack_{k}", fn)
@@ -2650,7 +2651,7 @@ def out_of_core(budget: int, host: int, tiles: tuple):
             setattr(engine, k, v)
         (engine._StagedSide.get, engine._BlockEngine.prepare,
          engine._dispatch_stream_staged, engine.kernels.counters,
-         diffup.DiffUploader.encode, engine._BlockEngine.pack_block) = real
+         engine._BlockEngine._encode, engine._BlockEngine.pack_block) = real
         for k, fn in zip(packs, real_packs):
             setattr(engine.packing, f"pack_{k}", fn)
 

@@ -5,7 +5,8 @@ sweep of one alignment, the rectangle of two, and the stream of records
 against one loaded alignment.  The loaded sweeps in core:
 
 * parse and encode on the host (``fastaio``);
-* drop invariant columns (``emit._prune_invariant_columns``);
+* drop invariant columns (``emit._prune_invariant_columns``), unless a
+  prefix of the rows already shows too few of them (``_prune_declines``);
 * upload the padded codes once to the run's device: as (index, code)
   diffs against a reference row that the diff rebuild kernel
   (``ops/diffup.py``) expands there, or dense through pinned memory when
@@ -93,7 +94,7 @@ from distance_tpu_torch.ops import packing
 from distance_tpu_torch.ops.diffup import (
     DiffUploader,
     mode_row,
-    sampled_mode_row,
+    pooled_mode_row,
     to_device,
 )
 from distance_tpu_torch.ops.features import CounterPlan, get_plan
@@ -873,7 +874,9 @@ class _BlockEngine:
         ``max_block`` rows stays in bounds (torch slicing past the end
         returns a shorter tensor where the JAX engine's dynamic_slice
         clamps); padding sites hold code 0, which adds nothing to any
-        counter, and so do padding rows of a dense upload.  ``diff_ref``
+        counter, and so do padding rows of a dense upload.  The padded
+        copy is built only for a dense upload and for an encoding that
+        ``_encode`` cannot read in place.  ``diff_ref``
         (a width-length code row) enables diff-encoded uploads against it
         for this matrix and later ones (stream groups too): a padding row
         of a diff upload holds the reference row, and the rel4 pack masks
@@ -925,7 +928,7 @@ class _BlockEngine:
                     and h2d_memo.get("n_pad") == n_pad):
                 enc = h2d_memo["enc"]
             else:
-                enc = self.diff_up.encode(_padded(), n_real=n)
+                enc = self._encode(matrix, n_pad, _padded)
                 if h2d_memo is not None:
                     h2d_memo.clear()
                     h2d_memo.update(up=self.diff_up, n_pad=n_pad, enc=enc)
@@ -940,7 +943,7 @@ class _BlockEngine:
                 self.rel_ref = self.diff_up.ref_dev()
             else:
                 refp = np.zeros(l_pad, dtype=np.uint8)
-                refp[:width] = sampled_mode_row(matrix)
+                refp[:width] = pooled_mode_row(matrix)
                 self.rel_ref = to_device(refp, self.device)
         self._prepared[id(dev)] = dev
         if self.cplan is not None:
@@ -956,6 +959,21 @@ class _BlockEngine:
                         self._fcache[id(rep)] = (
                             rep, self._features(rep, "f", "f"))
         return dev
+
+    def _encode(self, matrix: np.ndarray, n_pad: int, padded):
+        """The diff encoding of ``matrix`` padded to ``n_pad`` rows (the
+        uploader's ``encode(padded(), n_real=n)``, or None): read from
+        ``matrix`` in place where the uploader takes it (``in_place``),
+        else from the padded copy.  An in-place encoding adds to the
+        total ``encode-in-place`` (no span)."""
+        up = self.diff_up
+        if not up.in_place(matrix):
+            return up.encode(padded(), n_real=matrix.shape[0])
+        t0 = time.perf_counter()
+        enc = up.encode_rows(matrix, n_pad)
+        if enc is not None:
+            timing.add("encode-in-place", time.perf_counter() - t0, 1)
+        return enc
 
     def _gpart(self, codes: torch.Tensor, d: int) -> torch.Tensor:
         """Part ``d``'s g cache of a prepared matrix's copy ``codes``: its
@@ -1047,10 +1065,11 @@ class _BlockEngine:
     def diff_ref_for(self, source: np.ndarray) -> Optional[np.ndarray]:
         """Reference row for diff-encoded uploads of ``source`` (a row
         sample's per-column mode), or None when diff uploads don't apply
-        (an empty source, or disabled by DISTANCE_TPU_NO_DIFF_UPLOAD)."""
+        (an empty source, or disabled by DISTANCE_TPU_NO_DIFF_UPLOAD):
+        ``sampled_mode_row``'s row, read in place on the pool."""
         if not source.size or _os.environ.get("DISTANCE_TPU_NO_DIFF_UPLOAD"):
             return None
-        return sampled_mode_row(source)
+        return pooled_mode_row(source)
 
     def _baseline(self, m: torch.Tensor, ref: torch.Tensor,
                   side: str) -> torch.Tensor:
@@ -1267,7 +1286,7 @@ class _BlockEngine:
                 probe = self._retarget_fail_streak < RETARGET_FAIL_LIMIT
             if probe:
                 refp = np.zeros(ups[0].l_pad, dtype=np.uint8)
-                refp[:] = sampled_mode_row(padded)
+                refp[:] = pooled_mode_row(padded)
                 refp[self.width:] = 0  # keep pad columns zero
                 cands = self._uploaders(DiffUploader(refp, self.device))
                 enc2 = cands[0].encode(padded, n_real=bn)
@@ -1959,6 +1978,40 @@ def _emit_strip(setup: Setup, plan: CounterPlan, strip: np.ndarray, si: int,
     )
 
 
+# Rows, across the sources, of the prefix over which ``_prune_declines``
+# narrows the candidate columns: a bound on its cost where the prune
+# engages, not a setting.
+_PRUNE_PREFIX_ROWS = 4096
+
+
+def _prune_declines(mats: Sequence[np.ndarray]) -> bool:
+    """Whether ``_prune_invariant_columns(mats)`` declines, as found from
+    a prefix of the rows: the columns equal to the first matrix's row 0
+    over blocks of rows (64, then twice the last), across the matrices
+    in turn, until fewer than ``PRUNE_MIN_FRACTION`` of the width are
+    left (True) or ``_PRUNE_PREFIX_ROWS`` rows are read (False).  Exact:
+    the columns invariant over every row are among those left after any
+    prefix.  False at width 0 or with no first row, where the prune
+    decides by itself."""
+    rows, width = mats[0].shape
+    if width == 0 or rows == 0:
+        return False
+    first = mats[0][0]
+    cand = np.ones(width, dtype=bool)
+    block, read = 64, 0
+    for m in mats:
+        r0 = 0
+        while r0 < m.shape[0] and read < _PRUNE_PREFIX_ROWS:
+            r1 = min(m.shape[0], r0 + block, r0 + _PRUNE_PREFIX_ROWS - read)
+            cand &= (m[r0:r1] == first).all(axis=0)
+            # at least _prune_invariant_columns' frac (the same division)
+            if np.count_nonzero(cand) / width < PRUNE_MIN_FRACTION:
+                return True
+            read += r1 - r0
+            r0, block = r1, 2 * block
+    return False
+
+
 def _sweep_load(setup: Setup) -> None:
     """The in-core sweep of one alignment (its upper triangle) or of two
     (file1 x file2, row-major).
@@ -1980,7 +2033,12 @@ def _sweep_load(setup: Setup) -> None:
     width = aln1.width
     same_offset = 0
     with phase_timer("prune"):
-        pruned = _prune_invariant_columns(sources)
+        t0 = time.perf_counter()
+        if _prune_declines(sources):
+            timing.add("prune-prefix", time.perf_counter() - t0, 1)
+            pruned = None
+        else:
+            pruned = _prune_invariant_columns(sources)
     if pruned is not None:
         sources, same_offset, width = pruned
     devices = devices_of(setup.backend)

@@ -16,7 +16,11 @@ dense, through pinned memory (``to_device``).
 The host half (``mode_row``, ``sampled_mode_row``, the encoder of
 ``DiffUploader`` with its native passes ``dt_diff_count``/``dt_diff_fill``
 and its two environment variables, and the pool helpers) is copied from
-the JAX module; ``tests/test_torch_host_copies.py`` pins it.
+the JAX module; ``tests/test_torch_host_copies.py`` pins it.  Beside it
+the port's own passes give the same results without a copy of the whole
+matrix: ``pooled_mode_row`` (``sampled_mode_row``'s row, over column
+ranges on the pool) and ``DiffUploader.encode_rows`` (``encode``'s
+encoding of the zero-padded matrix, read from the unpadded rows).
 """
 
 from __future__ import annotations
@@ -69,6 +73,23 @@ def sampled_mode_row(matrix: np.ndarray, cap: int = 4096) -> np.ndarray:
     the shared recipe for picking diff/rel reference rows cheaply."""
     step = max(1, matrix.shape[0] // cap)
     return mode_row(np.ascontiguousarray(matrix[::step][:cap]))
+
+
+def pooled_mode_row(matrix: np.ndarray, cap: int = 4096) -> np.ndarray:
+    """``sampled_mode_row(matrix, cap)``, computed from the strided sample
+    in place (no contiguous copy) by ``mode_row`` over column ranges on
+    the pool: the mode of a column depends on that column alone."""
+    step = max(1, matrix.shape[0] // cap)
+    sample = matrix[::step][:cap]
+    rows, width = sample.shape
+    pool = _get_pool()
+    # a range a worker, of at least 2 MiB of codes
+    per = max(-(-width // pool._max_workers), (1 << 21) // max(1, rows))
+    if width <= per:
+        return mode_row(sample)
+    spans = range(0, width, per)
+    return np.concatenate(list(pool.map(
+        lambda c0: mode_row(sample[:, c0 : c0 + per]), spans)))
 
 
 def mode_row(matrix: np.ndarray) -> np.ndarray:
@@ -340,6 +361,58 @@ class DiffUploader:
             fill(0)
         idx[n_diff:] = np.arange(
             rows_pad * l_pad, rows_pad * l_pad + (cap - n_diff),
+            dtype=np.int64,
+        ).astype(np.int32)
+        return idx, vals
+
+    def in_place(self, matrix: np.ndarray) -> bool:
+        """Whether ``encode_rows`` takes ``matrix``: ``encode`` would take
+        its native path for it, its uint8 rows lie at stride ``width``,
+        and the reference row holds 0 past ``width``."""
+        from distance_tpu_torch._native import get_lib
+
+        n, width = matrix.shape
+        return (get_lib() is not None and n >= 512 and width > 0
+                and matrix.dtype == np.uint8 and matrix.flags.c_contiguous
+                and not self.ref[width:].any())
+
+    def encode_rows(self, matrix: np.ndarray, rows_pad: int):
+        """``encode(padded, n_real=n)``, where ``padded`` is the (n, width)
+        ``matrix`` zero-padded to (rows_pad, l_pad), read from ``matrix``
+        where it lies (``in_place`` must hold).  The padding adds no diff:
+        its columns hold 0 there and in the reference row, and its rows
+        lie past ``n_real``.  So ``encode``'s sampled pre-check and
+        ``_encode_native`` run over the unpadded rows (stride ``width``),
+        weighed against the padded dense bytes, and the indices then move
+        to the padded layout, ``i + (i // width) * (l_pad - width)``, with
+        the tail past ``rows_pad * l_pad``: the same (idx, vals), or None
+        where ``encode`` gives None."""
+        from distance_tpu_torch._native import get_lib
+
+        n, width = matrix.shape
+        l_pad = self.l_pad
+        dense_bytes = rows_pad * l_pad
+        # encode's sampled pre-check (n >= 512 > 2 * 64 here)
+        srows = matrix[:n:64]
+        sdiff = int(np.count_nonzero(srows != self.ref[None, :width]))
+        est = sdiff * (n / srows.shape[0])
+        if est * 5 * self._min_win > 2 * dense_bytes:
+            return None
+        enc = self._encode_native(get_lib(), matrix, n, rows_pad, width,
+                                  dense_bytes)
+        if enc is None:
+            return None
+        idx, vals = enc
+        # the real indices lie below the tail's start, rows_pad * width
+        n_diff = int(np.searchsorted(idx, rows_pad * width))
+        # encode's int32 guard, at the padded width
+        if rows_pad * l_pad + _round_cap(n_diff) >= 1 << 31:
+            return None
+        if l_pad != width:
+            part = idx[:n_diff]
+            part += (part // width) * (l_pad - width)
+        idx[n_diff:] = np.arange(
+            rows_pad * l_pad, rows_pad * l_pad + (idx.size - n_diff),
             dtype=np.int64,
         ).astype(np.int32)
         return idx, vals

@@ -10,7 +10,7 @@ uploads and rel packing on (the default), forced, and off (the ladder
 without a reference row: narrow -> wide); a diverse alignment with blocks
 large enough to overflow rel4's sidecar walks rel4 -> rel -> wide and
 narrow -> wide out of core; and a staged super-row is diff-encoded once a
-run, however often it is staged.
+run, however often it is staged, in place from 512 rows.
 """
 
 import numpy as np
@@ -47,12 +47,15 @@ def _no_jit_cache(monkeypatch):
 
 @pytest.fixture
 def encodes(monkeypatch):
-    """Diff encodes made while a staged side stages a super-row, by span,
-    and the diff uploads of the run."""
-    seen = {"spans": {}, "stagings": {}, "uploads": 0}
+    """Diff encodes made while a staged side stages a super-row, by span
+    (the engine's ``_encode``, in place or from the padded copy), those of
+    them read in place (``DiffUploader.encode_rows``), and the diff
+    uploads of the run."""
+    seen = {"spans": {}, "in_place": {}, "stagings": {}, "uploads": 0}
     current = []
     real_get = port_engine._StagedSide.get
-    real_encode = diffup.DiffUploader.encode
+    real_encode = port_engine._BlockEngine._encode
+    real_rows = diffup.DiffUploader.encode_rows
     real_upload = diffup.DiffUploader.upload_encoded
 
     def get(side, q0, q1):
@@ -64,17 +67,26 @@ def encodes(monkeypatch):
         finally:
             current.pop()
 
-    def encode(up, padded, n_real=None):
+    def count(key, span):
+        seen[key][span] = seen[key].get(span, 0) + 1
+
+    def encode(eng, matrix, n_pad, padded):
         if current:
-            seen["spans"][current[-1]] = seen["spans"].get(current[-1], 0) + 1
-        return real_encode(up, padded, n_real)
+            count("spans", current[-1])
+        return real_encode(eng, matrix, n_pad, padded)
+
+    def encode_rows(up, matrix, rows_pad):
+        if current:
+            count("in_place", current[-1])
+        return real_rows(up, matrix, rows_pad)
 
     def upload_encoded(up, enc, rows_pad):
         seen["uploads"] += 1
         return real_upload(up, enc, rows_pad)
 
     monkeypatch.setattr(port_engine._StagedSide, "get", get)
-    monkeypatch.setattr(diffup.DiffUploader, "encode", encode)
+    monkeypatch.setattr(port_engine._BlockEngine, "_encode", encode)
+    monkeypatch.setattr(diffup.DiffUploader, "encode_rows", encode_rows)
     monkeypatch.setattr(diffup.DiffUploader, "upload_encoded", upload_encoded)
     return seen
 
@@ -276,6 +288,40 @@ def test_staged_super_rows_encode_once(tmp_path, monkeypatch, encodes, mode):
     assert port_tsv(tmp_path, args, "ooc.tsv") == want
     assert max(encodes["stagings"].values()) >= 2
     assert encodes["spans"] == {span: 1 for span in encodes["stagings"]}
+
+
+# (device, host) budgets that stage 1,100 loaded rows (the rectangle's
+# second file, the stream's loaded side) in two super-rows of 512 rows or
+# more, the first staged twice: against the rectangle's two X groups of
+# 24 rows, against the stream's groups of 16 records.  On K1's path (no
+# cached measure), whose super-rows take the larger share of the budget.
+WIDE_SUPER_ROWS = {"rectangle": (130_000_000, 1 << 19),
+                   "stream": (900_000, 1 << 20)}
+
+
+@pytest.mark.parametrize("mode", sorted(WIDE_SUPER_ROWS))
+def test_staged_super_rows_of_512_rows_encode_once_in_place(
+        tmp_path, monkeypatch, encodes, mode):
+    """Super-rows of 512 rows or more, which the encoder reads in place
+    (``DiffUploader.encode_rows``, no padded copy): each is encoded once
+    a run however often it is staged, every encode of them in place, and
+    the bytes are numpy's."""
+    rect = mode == "rectangle"
+    f1, f2 = low_diversity_fastas(seed=8, n1=48 if rect else 1100,
+                                  n2=1100 if rect else 45, width=400,
+                                  nmut=6)
+    args = args_of(tmp_path, mode, f1, f2, batch=3) + ["-m", "raw"]
+    want = numpy_tsv(tmp_path, args)
+    budget, host = WIDE_SUPER_ROWS[mode]
+    lower_budgets(monkeypatch, mode, group=16, host=host)
+    monkeypatch.setattr(port_engine, "DEVICE_BUDGET", budget)
+    monkeypatch.setattr(port_engine, "CACHED_MEASURES", frozenset())
+    assert port_tsv(tmp_path, args, "ooc.tsv") == want
+    spans = encodes["stagings"]
+    assert len(spans) >= 2 and min(q1 - q0 for q0, q1 in spans) >= 512
+    assert max(spans.values()) >= 2
+    assert encodes["spans"] == {span: 1 for span in spans}
+    assert encodes["in_place"] == encodes["spans"]
 
 
 @pytest.mark.parametrize("mode", ["square", "rectangle", "stream"])

@@ -32,8 +32,11 @@ OLD = {
 OLD["rectangle"] = OLD["square"]
 NEW = {"emit-idle", "write:format", "prune"} | SWEEP
 # A sweep's wait for its first write: a total (``timing.add``) that
-# keeps no span, since it ends inside another phase.
-UNNESTED = {"square": {"load-fill"}, "rectangle": {"load-fill"},
+# keeps no span, since it ends inside another phase.  So does the
+# loaded sweeps' early decline of the column prune (``prune-prefix``),
+# which these diverse fixtures take.
+UNNESTED = {"square": {"load-fill", "prune-prefix"},
+            "rectangle": {"load-fill", "prune-prefix"},
             "stream": {"stream-fill"}}
 # The pool's seconds formatting keyed rows ahead of their writes into an
 # output that cannot be mapped: a total once a strip, summed over its
