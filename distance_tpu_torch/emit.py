@@ -3,17 +3,20 @@
 Copied verbatim from ``distance_tpu.engine`` (the JAX engine keeps its
 own): importing anything from ``distance_tpu`` loads jax, and the port
 must run where jax is not installed.  ``tests/test_torch_host_copies.py``
-pins every function here to its counterpart's source text.
+pins every function here to its counterpart's source text, less the
+repairs it lists (the tn93 memo's bail-outs are timed).
 """
 
 from __future__ import annotations
 
+import time
 from typing import TYPE_CHECKING, Dict, List, Optional, Sequence
 
 import numpy as np
 
 from distance_tpu_torch.fastaio import Alignment
 from distance_tpu_torch.finalize import finalize_block
+from distance_tpu_torch.utils import timing
 from distance_tpu_torch.utils.timing import phase_timer
 
 if TYPE_CHECKING:
@@ -279,7 +282,9 @@ def _tn93_value_keys(counters: Dict[str, np.ndarray], rq, pair_i, rt,
     tallies) those are few even when the product space is astronomical.
     The maximal-diversity worst case (every record a distinct tally)
     bails inside the hash pass the moment distinct keys exceed the
-    budget, at a bounded partial-pass cost.
+    budget, at a bounded partial-pass cost.  Each bail-out (there, or
+    before it where the spread is too wide for the hash path) adds one
+    to the total ``keys-bail``, with the call's seconds up to it.
 
     ``rq``/``rt``: (rank int32 array indexed by pair_i/pair_j, cardinality).
     """
@@ -293,6 +298,7 @@ def _tn93_value_keys(counters: Dict[str, np.ndarray], rq, pair_i, rt,
     n = kk.shape[0]
     if not n:
         return None, 0
+    t0 = time.perf_counter()
 
     def scratch(m):
         if pool is not None and lease is not None:
@@ -335,6 +341,7 @@ def _tn93_value_keys(counters: Dict[str, np.ndarray], rq, pair_i, rt,
         # collide DISTINCT counter tuples onto one memo key — silently
         # wrong values).  Spreads that wide mean maximal diversity,
         # where the memo would not pay anyway.
+        timing.add("keys-bail", time.perf_counter() - t0, 1)
         return None, 0
     # key_c = ((kk-kk_mn)*dm + (d-d_mn))*p1m*p2m + (p1-p1_mn)*p2m + (p2-p2_mn)
     a_co = dm * p1m * p2m
@@ -397,6 +404,7 @@ def _tn93_value_keys(counters: Dict[str, np.ndarray], rq, pair_i, rt,
         # backing `keys`) while straggler chunks are still writing into
         # it — cross-strip buffer corruption
         if any(r < 0 for r in [f.result() for f in futs]):
+            timing.add("keys-bail", time.perf_counter() - t0, 1)
             return None, 0
         nd = int(nd_ctr[0])
         occ = np.flatnonzero(key_tab != -1)

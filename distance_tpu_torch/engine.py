@@ -1555,20 +1555,24 @@ def _finish_fetched(eng: _BlockEngine, arr, vr: int, vc: int,
     rows saturate narrow lanes by construction), then at packed widths
     unpacked (its dtype says how it was packed at dispatch: int8 is
     narrow, whatever the engine's rung is now), with a wide refetch when
-    a narrow lane saturated."""
+    a narrow lane saturated.  Each refetch (the redispatch, its wait and
+    its unpack) is the phase ``refetch``."""
     if isinstance(arr, tuple):
         counters, was4 = _unpack_rel_parts(eng, arr, vr, vc)
         (eng.note_rel4 if was4 else eng.note_rel)(counters is None)
         if counters is not None:
             return counters
-        return _rel_wide_refetch(eng, redispatch, vr, vc, try_rel=was4)
+        with phase_timer("refetch"):
+            return _rel_wide_refetch(eng, redispatch, vr, vc, try_rel=was4)
     arr = arr[:, :vr, :vc]
     if eng.packed and arr.dtype == np.int8:
         counters = packing.unpack_host_narrow(eng.measure, arr, eng.width)
         eng.note_narrow(counters is None)
         if counters is not None:
             return counters
-        arr = _AsyncFetch(redispatch("wide")).result()[:, :vr, :vc]
+        with phase_timer("refetch"):
+            arr = _AsyncFetch(redispatch("wide")).result()[:, :vr, :vc]
+            return packing.unpack_host(eng.measure, arr)
     if eng.packed:
         return packing.unpack_host(eng.measure, arr)
     return arr

@@ -228,3 +228,56 @@ def test_the_rings_formatting_ahead_is_a_total_with_no_span(
     assert len([s for s in writes if s.thread == "emitter"]) >= 17
     assert all(by_id[s.parent].name != "write:assemble" for s in writes
                if s.parent in by_id)
+
+
+def _diverse_fasta(path, n, width, seed):
+    """An ancestor with 30% of the cells redrawn: every pair differs at
+    many sites, so rel4's sidecar overflows and every record has a base
+    tally of its own."""
+    rng = np.random.default_rng(seed)
+    mat = np.tile(rng.choice(np.frombuffer(b"ACGT", np.uint8), width),
+                  (n, 1))
+    hit = rng.random(mat.shape) < 0.3
+    mat[hit] = rng.choice(np.frombuffer(b"ACGT", np.uint8), int(hit.sum()))
+    path.write_bytes(make_fasta(
+        (f"r{i}", row.tobytes().decode()) for i, row in enumerate(mat)))
+
+
+def test_a_saturated_strips_refetch_is_a_child_of_finish(tmp_path):
+    """On diverse records the rel4 pack saturates: each redispatch at
+    the next rung, its wait and its unpack are a span ``refetch`` inside
+    ``finish``; the tn93 memo bails and adds the total ``keys-bail``,
+    which keeps no span."""
+    from distance_tpu_torch import engine
+
+    a = tmp_path / "a.fasta"
+    _diverse_fasta(a, 600, 120, 23)
+    before = dict(engine.RUNG_BLOCKS)
+    timing.take_spans()
+    timing.record_spans(True)
+    try:
+        spans, totals, _, _ = _job([str(a), "-m", "tn93", "--backend",
+                                    "torch", "-o", str(tmp_path / "o.tsv")])
+    finally:
+        timing.record_spans(False)
+    assert engine.RUNG_BLOCKS["rel"] > before["rel"]
+    by_id = {s.id: s for s in spans}
+    refetch = [s for s in spans if s.name == "refetch"]
+    assert refetch and all(s.thread == "MainThread" for s in refetch)
+    for s in refetch:
+        parent = by_id[s.parent]
+        assert parent.name == "finish"
+        assert parent.t0 <= s.t0 <= s.t1 <= parent.t1
+    assert totals["refetch"] == pytest.approx(
+        sum(s.t1 - s.t0 for s in refetch))
+    assert totals["keys-bail"] > 0
+    assert "keys-bail" not in {s.name for s in spans}
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_no_refetch_span_where_no_strip_saturates(runs, mode):
+    """No strip of the fixtures saturates its pack: no ``refetch`` span
+    or total, and no ``keys-bail`` (raw keeps no tn93 memo)."""
+    for spans, totals, _, _ in runs[mode]:
+        assert "refetch" not in {s.name for s in spans}
+        assert not {"refetch", "keys-bail"} & set(totals)
